@@ -1,0 +1,31 @@
+"""Distributed list ranking on PyTorch — the port of
+``repro.core.listrank``.
+
+Implements the sparse-ruling-set (SRS) algorithm with ruler spawning,
+pointer doubling (Wyllie) as baseline and base case, local contraction
+for locality exploitation, and direct / grid / topology-aware message
+indirection, over a virtual-PE transport on one device.
+"""
+from repro_torch.core.listrank.config import ListRankConfig, IndirectionSpec
+from repro_torch.core.listrank.api import rank_list, rank_list_with_stats
+from repro_torch.core.listrank.resume import SolveExhausted
+from repro_torch.core.listrank.sequential import rank_list_seq
+from repro_torch.core.listrank.srs import default_perm_fn, perm_fn_from_numpy
+from repro_torch.core.listrank.transport import SimMesh, sim_mesh
+from repro_torch.core.listrank import instances, analysis, tuner
+
+__all__ = [
+    "ListRankConfig",
+    "IndirectionSpec",
+    "rank_list",
+    "rank_list_with_stats",
+    "rank_list_seq",
+    "SolveExhausted",
+    "SimMesh",
+    "sim_mesh",
+    "default_perm_fn",
+    "perm_fn_from_numpy",
+    "instances",
+    "analysis",
+    "tuner",
+]

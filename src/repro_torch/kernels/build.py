@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, loaded with ``ctypes``.
+Each source compiles in its own ``nvcc`` process, all started together;
+a final ``nvcc -shared`` links them. The library lands in ``_build/``
+next to this file, named by a hash of the sources and flags, so a
+changed source rebuilds and an unchanged one loads at once.
+
+Nothing here runs at import: the first kernel launch calls
+:func:`load_library`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+CSRC = pathlib.Path(__file__).parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).parent / "_build"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-Xptxas", "-v"]
+LINK_FLAGS = ARCH + ["-shared"]
+
+_lib = None
+#: what the last build printed (ptxas register/spill report) and took
+build_info: dict = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = pathlib.Path(cand) / "bin" / "nvcc"
+        if cand and path.exists():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile every source in parallel and link the library (no-op if
+    this exact build exists). Raises with nvcc's output on failure."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = pathlib.Path(tmp) / (src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+        tmp_lib = pathlib.Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, *(str(o) for _, o, _ in procs),
+             "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)
+    build_info.update(seconds=time.time() - t0, log="\n".join(log),
+                      path=str(lib))
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.mailbox_pack_launch.argtypes = [
+            ctypes.POINTER(vp), ci, vp, ll, ll, ll, vp, vp]
+        lib.mailbox_pack_launch.restype = ci
+        lib.local_chase_launch.argtypes = [
+            vp, vp, ci, ll, ll, ci, vp, vp, vp, vp, vp]
+        lib.local_chase_launch.restype = ci
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
