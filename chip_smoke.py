@@ -19,7 +19,23 @@ Phases, each fatal on failure:
    then the same instance with float32 0/1 weights, then a warm rerun
    with per-stage wall times;
 4. the same solve with both kernels off: identical outputs and counters;
-5. two-hop grid routing: n = 2^20 on a 4x4 virtual mesh, kernels on.
+5. two-hop grid routing: n = 2^20 on a 4x4 virtual mesh, kernels on;
+6. the ``flash_attention`` kernel against its plain version on the card:
+   the kernel sweep of ``tests/test_kernels.py`` in float32 (atol 2e-5,
+   rtol 1e-4) and bfloat16 (2e-2), then the serving path's shapes in
+   bfloat16 (tinyllama heads: prefill Lq=1024 over a 2048-key cache,
+   decode Lq=1 at per-slot offsets) with kernel, plain-version and
+   ``scaled_dot_product_attention`` times and the kernel's bound;
+7. the serving path: ``ServingEngine`` serves 16 requests (prompts of
+   32..1024 tokens) with tinyllama-1.1b at full width in bfloat16,
+   random weights from a seeded generator, 8 slots, kernels on — every
+   request completes, every attention call launched the kernel (counts
+   reset just before the run); prefill ms per bucket, decode ms per tick,
+   tokens/s and peak memory;
+8. kernels on against off at full width in float32 (TF32 off): prefill
+   one long prompt and 16 teacher-forced decode steps, logits within
+   atol 2e-3, rtol 1e-3; the bfloat16 difference is printed as
+   information.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -44,6 +60,7 @@ SRC = ROOT / "src"
 #: NVIDIA H100 SXM data-sheet peaks (at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 N_MAIN, P_MAIN, SEED = 1 << 24, 16, 0
 N_GRID = 1 << 20
@@ -74,9 +91,10 @@ def time_ms(fn, torch, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, nops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -318,6 +336,13 @@ def run(dev, n_main: int, n_grid: int, out_path=None) -> None:
     log(f"phase 5: n={n_grid} on a 4x4 grid, two hops, kernels on: exact; "
         f"rounds {st_g['rounds']}, attempts {st_g['attempts']}")
 
+    # ------------------------------------------------------ phases 6-8
+    fa_entry, results["flash_attention"] = flash_attention_phase(dev)
+    results["serve"] = serve_phase(dev)
+    fa_entry["launches"] = results["serve"]["launches"]
+    kernels.append(fa_entry)
+    results["kernels_on_off"] = kernels_on_off_phase(dev)
+
     results["card"] = card
     results["kernels"] = kernels
     if out_path:
@@ -328,6 +353,253 @@ def run(dev, n_main: int, n_grid: int, out_path=None) -> None:
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# ---------------------------------------------------------------- phase 6
+SERVE_ARCH = "tinyllama-1.1b"
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW, SERVE_REQUESTS = 8, 2048, 32, 16
+
+
+def attention_bound(b, hq, hkv, lq, d, offsets, lk, elem_bytes):
+    """(bound ms, what bounds it) of causal attention: 4*D operations per
+    unmasked (q, k) pair at the bf16 tensor peak; bytes of q, o and the
+    K/V rows some query keeps, each moved once."""
+    pos = np.asarray(offsets, np.int64)[:, None] + np.arange(lq)
+    pairs = int(np.clip(pos + 1, 0, lk).sum())
+    kv_rows = int(np.clip(pos.max(axis=1) + 1, 0, lk).sum())
+    nbytes = elem_bytes * (2 * b * hq * lq * d + 2 * hkv * kv_rows * d)
+    return bound_ms(nbytes, 4 * hq * d * pairs, BF16_OPS_PER_S)
+
+
+def flash_attention_phase(dev):
+    """Phase 6: the kernel against its plain version; times at the serving
+    path's shapes. Returns (the kernels-line entry, results)."""
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import ATTN_CASES, ATTN_TOL, attn_inputs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[dt]
+        for i, (b, hq, hkv, lq, lk, d, kw) in enumerate(ATTN_CASES):
+            q, k, v = (t.to(dev) for t in attn_inputs(b, hq, hkv, lq, lk, d,
+                                                       seed=i, dtype=dt))
+            out = fa_ops.flash_attention(q, k, v, **kw).float()
+            want = fa_ref.attention_ref(q, k, v, **kw).float()
+            torch.cuda.synchronize()
+            if not torch.allclose(out, want, **tol):
+                fail(f"flash_attention case {i} {dt} differs from its plain "
+                     f"version by {max_abs_err(out, want, torch)}")
+            errs.append(max_abs_err(out, want, torch))
+        log(f"phase 6: flash_attention {dt}: {len(ATTN_CASES)} cases within "
+            f"{tol}; max |err| {max(errs):.3g}")
+
+    # the serving path's shapes: tinyllama's heads over a 2048-key cache
+    hq, hkv, d, lk = 32, 4, 64, SERVE_MAX_SEQ
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+    shapes = {"prefill": (1, 1024, [0]),
+              "decode": (SERVE_SLOTS, 1, np.random.default_rng(3).integers(
+                  0, lk, SERVE_SLOTS).tolist())}
+    for name, (b, lq, offs) in shapes.items():
+        q = torch.randn((b, hq, lq, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((b, hkv, lk, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((b, hkv, lk, d), generator=g, device=dev).bfloat16()
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        q_offset = offs[0] if name == "prefill" else off
+        mask = (torch.arange(lk, device=dev)[None, :]
+                <= (off[:, None] + lq - 1))[:, None, None, :]
+        if name == "prefill":  # upper-left causal over Lq x Lk == offset 0
+
+            def library_call():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+        else:
+
+            def library_call():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=True)
+
+        out = fa_ops.flash_attention(q, k, v, q_offset=q_offset).float()
+        want = fa_ref.attention_ref(q, k, v, q_offset=q_offset).float()
+        lib = library_call().float()
+        torch.cuda.synchronize()
+        if not torch.allclose(out, want, **ATTN_TOL[torch.bfloat16]):
+            fail(f"flash_attention {name} differs from its plain version by "
+                 f"{max_abs_err(out, want, torch)}")
+        if not torch.allclose(lib, want, **ATTN_TOL[torch.bfloat16]):
+            fail(f"the SDPA yardstick computes another function ({name})")
+        ms = time_ms(lambda: fa_ops.flash_attention(q, k, v,
+                                                    q_offset=q_offset), torch)
+        plain = time_ms(lambda: fa_ref.attention_ref(q, k, v,
+                                                     q_offset=q_offset), torch)
+        lib_ms = time_ms(library_call, torch)
+        bnd, by = attention_bound(b, hq, hkv, lq, d, offs, lk, 2)
+        rows[name] = {"b": b, "lq": lq, "lk": lk, "offsets": offs,
+                      "max_abs_err": max_abs_err(out, want, torch), "ms": ms,
+                      "plain_ms": plain, "library_ms": lib_ms,
+                      "bound_ms": bnd, "bound_by": by}
+        log(f"phase 6: flash_attention {name} bf16 B={b} Hq={hq} Hkv={hkv} "
+            f"D={d} Lq={lq} Lk={lk}: max |err| {rows[name]['max_abs_err']:.3g};"
+            f" kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib_ms:.4f} ms,"
+            f" bound {bnd:.4f} ms by {by}")
+    pre, dec = rows["prefill"], rows["decode"]
+    entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:29",
+        "launches": 0,
+        "max_abs_err": max(errs + [pre["max_abs_err"], dec["max_abs_err"]]),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": pre["library_ms"],
+        "ms_decode": dec["ms"], "plain_ms_decode": dec["plain_ms"],
+        "bound_ms_decode": dec["bound_ms"], "bound_by_decode": dec["bound_by"],
+        "library_ms_decode": dec["library_ms"]}
+    return entry, {"max_abs_err_cases": max(errs), **rows}
+
+
+# ---------------------------------------------------------------- phase 7
+def serve_phase(dev) -> dict:
+    """Phase 7: tinyllama-1.1b at full width served through the engine."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    cfg = configs.get_config(SERVE_ARCH).with_(use_kernels=True)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    eng = ServingEngine(params, cfg, ServeConfig(
+        slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+        max_new_tokens=SERVE_MAX_NEW), device=dev)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(32, 1025, SERVE_REQUESTS)
+    for uid, n in enumerate(lengths):
+        eng.submit(Request(uid=uid, prompt=rng.integers(
+            2, cfg.vocab_size, n).astype(np.int32)))
+
+    prefill_ms: dict = {}
+    decode_ms: list = []
+
+    def timed(fn, record):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            record(args, (time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    eng._prefill = timed(eng._prefill, lambda a, ms: prefill_ms.setdefault(
+        int(a[1].shape[1]), []).append(ms))
+    eng._decode = timed(eng._decode, lambda a, ms: decode_ms.append(ms))
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa_ops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa_ops.flash_attention.launches
+
+    n_prefill = sum(len(v) for v in prefill_ms.values())
+    ticks = len(decode_ms)
+    tokens = sum(len(v) for v in out.values())
+    if sorted(out) != list(range(SERVE_REQUESTS)) or n_prefill != SERVE_REQUESTS:
+        fail(f"serving: {len(out)} requests answered, {n_prefill} prefills")
+    for uid, toks in out.items():
+        if not 1 <= len(toks) <= SERVE_MAX_NEW or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"serving: request {uid} returned {toks}")
+    need = cfg.num_layers * (n_prefill + ticks)
+    if launches < need:
+        fail(f"serving: flash_attention launched {launches} times, the path "
+             f"has {need} attention calls")
+    res = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "requests": SERVE_REQUESTS,
+           "prompt_lengths": lengths.tolist(), "prefills": n_prefill,
+           "decode_ticks": ticks, "generated_tokens": tokens,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "prefill_ms_median": {b: statistics.median(v)
+                                 for b, v in sorted(prefill_ms.items())},
+           "prefill_ms": {b: v for b, v in sorted(prefill_ms.items())},
+           "decode_ms_median": statistics.median(decode_ms),
+           "decode_ms": decode_ms, "launches": launches,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    log(f"phase 7: served {SERVE_REQUESTS} requests with {cfg.name} "
+        f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{str(cfg.dtype).removeprefix('torch.')}, kernels on):"
+        f" {n_prefill} prefills, {ticks} decode ticks, {tokens} tokens in "
+        f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; flash_attention "
+        f"launches {launches} >= {need}")
+    log("  prefill ms per bucket (median of n): " + ", ".join(
+        f"{b}: {statistics.median(v):.2f} (n={len(v)})"
+        for b, v in sorted(prefill_ms.items())))
+    log(f"  decode ms per tick: median {res['decode_ms_median']:.3f}, min "
+        f"{min(decode_ms):.3f}, max {max(decode_ms):.3f}; peak memory "
+        f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    return res
+
+
+# ---------------------------------------------------------------- phase 8
+def kernels_on_off_phase(dev) -> dict:
+    """Phase 8: full-width logits with the kernel on and off, prefill plus
+    16 decode steps fed the kernels-off greedy tokens."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"phase 8: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}")
+    vocab = configs.get_config(SERVE_ARCH).vocab_size
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        2, vocab, (1, 1000)).astype(np.int32)).to(dev)
+    steps = 16
+
+    def logits_of(params, cfg, teacher=None):
+        cache = M.init_cache(cfg, 1, SERVE_MAX_SEQ, dev)
+        lg, cache = M.prefill(params, {"tokens": prompt}, cfg, cache)
+        out, fed = [lg], []
+        for i in range(steps):
+            tok = teacher[i] if teacher is not None else \
+                torch.argmax(lg[0, 0, :cfg.vocab_size]).view(1, 1).int()
+            fed.append(tok)
+            lg, cache = M.decode_step(params, tok, prompt.shape[1] + i, cfg,
+                                      cache)
+            out.append(lg)
+        return torch.cat(out, dim=1), fed
+
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = configs.get_config(SERVE_ARCH).with_(dtype=dt)
+        params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+        off, fed = logits_of(params, cfg)
+        fa_ops.flash_attention.launches = 0
+        on, _ = logits_of(params, cfg.with_(use_kernels=True), teacher=fed)
+        launches = fa_ops.flash_attention.launches
+        torch.cuda.synchronize()
+        diff = max_abs_err(on, off, torch)
+        name = str(dt).removeprefix("torch.")
+        res[name] = {"max_abs_diff": diff, "launches": launches}
+        log(f"phase 8: {cfg.name} {name}, prompt {prompt.shape[1]} + {steps} "
+            f"teacher-forced steps: max |logits on - off| {diff:.3g}; "
+            f"flash_attention launches {launches}")
+        if launches < cfg.num_layers * (1 + steps):
+            fail(f"kernels on ({name}): {launches} launches")
+        if dt == torch.float32 and not torch.allclose(on, off, atol=2e-3,
+                                                      rtol=1e-3):
+            fail(f"kernels on vs off (float32): logits differ by {diff}")
+        del params, on, off
+        torch.cuda.empty_cache()
+    return res
 
 
 if __name__ == "__main__":

@@ -40,6 +40,7 @@ from repro_torch.core.listrank.srs import (LevelSpec, _merge,
                                            default_perm_fn,
                                            gather_until_done,
                                            route_until_done)
+from repro_torch.device import resolve_device
 
 
 def chase_leaves(weight_dtype=torch.float32) -> dict:
@@ -240,21 +241,6 @@ def _restore_local(plan, spec, owner_of, st, aux, rep, succ_orig, rank_orig,
 # --------------------------------------------------------------------------
 # front door
 # --------------------------------------------------------------------------
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA device; without CUDA that raises."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available: the port runs on the card; pass "
-                "device='cpu' to run on the CPU explicitly")
-        return torch.device("cuda")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available")
-    return device
-
 
 def _host_array(x, dtype) -> np.ndarray:
     if isinstance(x, torch.Tensor):

@@ -49,18 +49,20 @@ def _sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> pathlib.Path:
+def library_path(sources=None) -> pathlib.Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in sources or _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile every source in parallel and link the library (no-op if
-    this exact build exists). Raises with nvcc's output on failure."""
-    lib = library_path()
+def build(sources=None) -> pathlib.Path:
+    """Compile every source (default: ``csrc/*.cu``) in parallel and link
+    the library (no-op if this exact build exists). Raises with nvcc's
+    output on failure."""
+    sources = sources or _sources()
+    lib = library_path(sources)
     if lib.exists():
         return lib
     nvcc = nvcc_path()
@@ -68,7 +70,7 @@ def build() -> pathlib.Path:
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in _sources():
+        for src in sources:
             obj = pathlib.Path(tmp) / (src.stem + ".o")
             procs.append((src, obj, subprocess.Popen(
                 [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
@@ -94,19 +96,27 @@ def build() -> pathlib.Path:
     return lib
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of every launch function."""
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.mailbox_pack_launch.argtypes = [
+        ctypes.POINTER(vp), ci, vp, ll, ll, ll, vp, vp]
+    lib.mailbox_pack_launch.restype = ci
+    lib.local_chase_launch.argtypes = [
+        vp, vp, ci, ll, ll, ci, vp, vp, vp, vp, vp]
+    lib.local_chase_launch.restype = ci
+    lib.flash_attention_launch.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+        ctypes.c_float, ctypes.c_float, vp]
+    lib.flash_attention_launch.restype = ci
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mailbox_pack_launch.argtypes = [
-            ctypes.POINTER(vp), ci, vp, ll, ll, ll, vp, vp]
-        lib.mailbox_pack_launch.restype = ci
-        lib.local_chase_launch.argtypes = [
-            vp, vp, ci, ll, ll, ci, vp, vp, vp, vp, vp]
-        lib.local_chase_launch.restype = ci
-        _lib = lib
+        _lib = declare(ctypes.CDLL(str(build())))
     return _lib
 
 

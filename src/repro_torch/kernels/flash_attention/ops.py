@@ -1,0 +1,90 @@
+"""Public wrapper for ``flash_attention``: the CUDA kernel on the card, the
+plain torch version for CPU tensors.
+
+On a CUDA tensor the kernel is launched or the call raises; it never
+gives way to the plain version. ``flash_attention.launches`` counts kernel
+launches (one per call on the card). Forward only: the port has no
+backward through attention yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.flash_attention import ref as _ref
+
+#: head dims the kernel is instantiated for (every config of the repo)
+HEAD_DIMS = (16, 24, 32, 64, 112, 128, 256)
+#: most query heads that share one kv head (rows of the kernel's tile)
+MAX_GROUP = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None, scale: float | None = None,
+                    q_offset=0) -> torch.Tensor:
+    """Attention with GQA, causal/window masks and softcap.
+
+    q: (B, Hq, Lq, D); k/v: (B, Hkv, Lk, D), float32 or bfloat16,
+    contiguous. ``q_offset``: the absolute position of q[:, :, 0], an int
+    or a (B,) integer tensor on q's device. Returns (B, Hq, Lq, D) in q's
+    dtype; see :func:`ref.attention_ref` for the semantics.
+    """
+    if q.device.type == "cpu":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale,
+                                  q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention: q must be (B, Hq, Lq, D) and k, v "
+                         "(B, Hkv, Lk, D)")
+    b, hq, lq, d = q.shape
+    _, hkv, lk, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"flash_attention: Hq={hq}, Hkv={hkv}: the group "
+                         f"must be a whole number up to {MAX_GROUP}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention: q, k, v must share one dtype, "
+                         f"float32 or bfloat16 (got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype})")
+    for t in (q, k, v):
+        if t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError("flash_attention: q, k, v must be contiguous, "
+                             "16-byte aligned and on one device")
+    if b > 65535 or hkv > 65535 or max(lq, lk) >= 2 ** 31:
+        raise ValueError(f"flash_attention: shape {tuple(q.shape)} / "
+                         f"{tuple(k.shape)} out of the kernel's range")
+    if window is not None and window < 0:
+        raise ValueError(f"flash_attention: window={window} < 0")
+    if isinstance(q_offset, torch.Tensor):
+        if q_offset.shape != (b,) or q_offset.device != q.device:
+            raise ValueError("flash_attention: a q_offset tensor must be "
+                             "(B,) on q's device")
+        offsets = q_offset.to(torch.int32).contiguous()
+        off_ptr, off_scalar = offsets.data_ptr(), 0
+    else:
+        off_ptr, off_scalar = None, int(q_offset)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    out = torch.empty_like(q)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), off_ptr,
+        off_scalar, b, hq, hkv, lq, lk, d, _DTYPES[q.dtype], int(causal),
+        -1 if window is None else int(window), int(softcap is not None),
+        0.0 if softcap is None else float(softcap), float(scale), stream),
+        "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,179 @@
+"""Model building blocks of the dense decoder, in PyTorch.
+
+Every block has a ``*_specs(cfg)`` (ParamSpec tree) and an apply function
+on plain tensors, as in the JAX package. Attention goes to the
+``flash_attention`` kernel when ``cfg.use_kernels`` and to its plain
+version otherwise. The MoE, Mamba and cross-attention blocks belong to
+later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.models.params import spec
+
+# ---------------------------------------------------------------------------
+# norms / rope / embedding
+# ---------------------------------------------------------------------------
+
+
+def rms_norm_spec(d):
+    return {"scale": spec((d,), ("embed",), init="ones")}
+
+
+def rms_norm(p, x, eps):
+    """Normalise in float32, cast back, then scale in x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * p["scale"].to(x.dtype)
+
+
+def rope(x, positions, theta):
+    """x: (..., L, H, D) rotary over last dim; positions: (..., L)."""
+    d = x.shape[-1]
+    half = d // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=x.device), exps)
+    ang = positions[..., None].float() * freq  # (..., L, half)
+    ang = ang[..., None, :]  # broadcast over heads
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_specs(cfg):
+    return {"embedding": spec((cfg.padded_vocab, cfg.d_model),
+                              ("vocab", "embed"), cfg.dtype, "small_normal")}
+
+
+def embed(p, tokens, cfg):
+    x = p["embedding"][tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def unembed(p, x, cfg):
+    """Logits in float32 (the product in x's dtype, as the JAX einsum),
+    soft-capped by ``cfg.final_softcap``."""
+    logits = (x @ p["embedding"].T).float()
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, Hkv, S, Dh); the model stacks layers in front
+    v: torch.Tensor
+
+
+def attention_specs(cfg):
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    s = {
+        "wq": spec((d, hq * dh), ("embed", "qkv_features"), cfg.dtype),
+        "wk": spec((d, hkv * dh), ("embed", "kv_features"), cfg.dtype),
+        "wv": spec((d, hkv * dh), ("embed", "kv_features"), cfg.dtype),
+        "wo": spec((hq * dh, d), ("qkv_features", "embed"), cfg.dtype),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = spec((hq * dh,), ("qkv_features",), cfg.dtype, "zeros")
+        s["bk"] = spec((hkv * dh,), ("kv_features",), cfg.dtype, "zeros")
+        s["bv"] = spec((hkv * dh,), ("kv_features",), cfg.dtype, "zeros")
+    return s
+
+
+def _project_qkv(p, x, cfg):
+    b, l, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(b, l, hq, dh), k.reshape(b, l, hkv, dh),
+            v.reshape(b, l, hkv, dh))
+
+
+def _sdpa(q, k, v, cfg, *, causal, window, q_offset):
+    """q: (B, Lq, Hq, D); k/v: (B, Hkv, Lk, D) -> (B, Lq, Hq, D)."""
+    qh = q.transpose(1, 2).contiguous()
+    scale = cfg.attn_scale if cfg.attn_scale else cfg.resolved_head_dim ** -0.5
+    attend = fa_ops.flash_attention if cfg.use_kernels else fa_ref.attention_ref
+    out = attend(qh, k, v, causal=causal, window=window,
+                 softcap=cfg.attn_softcap, scale=scale, q_offset=q_offset)
+    return out.transpose(1, 2)
+
+
+def attention(p, x, cfg, *, positions, causal=True, is_local=None,
+              cache: KVCache | None = None, cache_pos=None):
+    """Self-attention with an optional KV cache.
+
+    ``is_local``: this layer's sliding-window flag (a Python bool).
+    ``cache``: this layer's (B, Hkv, S, Dh) cache, updated IN PLACE (the
+    JAX package returns a new one; writing in place saves a copy of the
+    cache per step) and returned. ``cache_pos``: an int, where the new
+    keys are appended for every row, or a (B,) tensor of per-slot
+    positions (continuous-batching decode, one new token per row).
+    Attention then runs over the whole cache length, with the query
+    offset ``cache_pos``: per-slot offsets go to the kernel as they are.
+    """
+    b, lq, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    q_offset = 0
+    if cache is not None:
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        if isinstance(cache_pos, torch.Tensor):
+            rows = torch.arange(b, device=x.device)
+            cache.k[rows, :, cache_pos] = kh[:, :, 0]
+            cache.v[rows, :, cache_pos] = vh[:, :, 0]
+        else:
+            # lax.dynamic_update_slice clamps the start so the block fits
+            start = min(max(int(cache_pos), 0), cache.k.shape[2] - lq)
+            cache.k[:, :, start:start + lq] = kh
+            cache.v[:, :, start:start + lq] = vh
+        k, v = cache.k, cache.v
+        q_offset = cache_pos
+    else:
+        k = k.transpose(1, 2).contiguous()
+        v = v.transpose(1, 2).contiguous()
+
+    if is_local is None or cfg.local_window is None:
+        window = cfg.local_window if cfg.layer_pattern == "local_only" else None
+    else:
+        window = cfg.local_window if is_local else None
+    out = _sdpa(q, k, v, cfg, causal=causal, window=window, q_offset=q_offset)
+    return out.reshape(b, lq, -1) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# feed-forward: dense SwiGLU
+# ---------------------------------------------------------------------------
+
+
+def swiglu_specs(cfg, d_ff=None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "w_gate": spec((d, f), ("embed", "mlp"), cfg.dtype),
+        "w_up": spec((d, f), ("embed", "mlp"), cfg.dtype),
+        "w_down": spec((f, d), ("mlp", "embed"), cfg.dtype),
+    }
+
+
+def swiglu(p, x):
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]

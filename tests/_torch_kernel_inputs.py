@@ -41,3 +41,28 @@ def pack_inputs(p, q, n_rows, seed, dtype):
     slots = np.stack([rng.permutation(n_rows + q)[:q] for _ in range(p)])
     slots[:, ::7] = n_rows + 3  # non-shipping rows (several per PE)
     return cols, slots.astype(np.int32)
+
+
+#: the flash-attention sweep of tests/test_kernels.py (b, hq, hkv, lq, lk,
+#: d, kwargs), copied here so the card's tests need no jax
+ATTN_CASES = [
+    (2, 4, 4, 128, 128, 64, {}),
+    (1, 8, 2, 256, 256, 32, {}),
+    (1, 4, 4, 200, 200, 32, {"window": 64}),
+    (1, 4, 2, 128, 128, 32, {"softcap": 50.0}),
+    (1, 4, 4, 96, 160, 32, {"causal": False}),
+    (2, 8, 2, 1, 384, 64, {"q_offset": 383}),
+    (2, 8, 4, 160, 224, 32, {"window": 96, "softcap": 30.0, "scale": 0.1}),
+]
+
+#: the repo's flash-attention tolerances (tests/test_kernels.py)
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def attn_inputs(b, hq, hkv, lq, lk, d, seed, dtype=torch.float32):
+    """Normal q (b, hq, lq, d) and k, v (b, hkv, lk, d) in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 .to(dtype) for s in ((b, hq, lq, d), (b, hkv, lk, d),
+                                      (b, hkv, lk, d)))

@@ -7,8 +7,10 @@ imports no jax, so it runs on a machine without it:
 import pytest
 import torch
 
-from _torch_kernel_inputs import chains, float_dist, pack_inputs
+from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, attn_inputs, chains,
+                                  float_dist, pack_inputs)
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.local_chase import ops as lc_ops, ref as lc_ref
 from repro_torch.kernels.mailbox_pack import ops as mp_ops, ref as mp_ref
 
@@ -52,3 +54,48 @@ def test_mailbox_pack_cuda_matches_plain(cuda, p, q, n_rows):
     torch.cuda.synchronize()
     assert mp_ops.mailbox_pack.launches == before + 1
     assert torch.equal(out, mp_ref.mailbox_pack_ref(cols, slots, n_rows))
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(ATTN_CASES)))
+def test_flash_attention_cuda_matches_plain(cuda, case, dtype):
+    b, hq, hkv, lq, lk, d, kw = ATTN_CASES[case]
+    q, k, v = (t.to(cuda) for t in attn_inputs(b, hq, hkv, lq, lk, d,
+                                                seed=case, dtype=dtype))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(),
+                               fa_ref.attention_ref(q, k, v, **kw).float(),
+                               **ATTN_TOL[dtype])
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("d", fa_ops.HEAD_DIMS)
+def test_flash_attention_cuda_decode_per_slot(cuda, d):
+    """One query per slot at its own position over a 300-key cache, GQA
+    group 8, every head dim the kernel is built for."""
+    q, k, v = (t.to(cuda) for t in attn_inputs(5, 16, 2, 1, 300, d, seed=d))
+    offsets = torch.tensor([0, 63, 64, 200, 299], dtype=torch.int32,
+                           device=cuda)
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, q_offset=offsets, window=100)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        out, fa_ref.attention_ref(q, k, v, q_offset=offsets, window=100),
+        **ATTN_TOL[torch.float32])
+
+
+@pytest.mark.torch_cuda
+def test_flash_attention_cuda_rejects_what_it_does_not_take(cuda):
+    q, k, v = (t.to(cuda) for t in attn_inputs(1, 4, 2, 8, 8, 48, seed=0))
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, k, v)
+    q, k, v = (t.to(cuda) for t in attn_inputs(1, 4, 2, 8, 8, 32, seed=0))
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v)

@@ -1,0 +1,78 @@
+"""The port's ``flash_attention`` (its plain version: the CPU path of the
+wrapper) against the JAX package's: the Pallas kernel in interpret mode
+on the kernel sweep of ``tests/test_kernels.py``, and the jnp reference
+with per-slot query offsets. The CUDA kernel's twins of these checks are
+in ``test_torch_cuda.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import test_kernels
+from _torch_kernel_inputs import ATTN_CASES, ATTN_TOL, attn_inputs
+from repro import configs as jax_configs
+from repro.kernels.flash_attention import ops as fa_ops_jax
+from repro.kernels.flash_attention import ref as fa_ref_jax
+from repro_torch import configs
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+
+def _jax(t: torch.Tensor):
+    return jnp.asarray(t.float().numpy(), {torch.float32: jnp.float32,
+                                           torch.bfloat16: jnp.bfloat16}[t.dtype])
+
+
+def test_attn_cases_match_the_kernel_sweep():
+    assert ATTN_CASES == test_kernels.ATTN_CASES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(ATTN_CASES)))
+def test_plain_matches_pallas(case, dtype):
+    b, hq, hkv, lq, lk, d, kw = ATTN_CASES[case]
+    q, k, v = attn_inputs(b, hq, hkv, lq, lk, d, seed=case, dtype=dtype)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    want = fa_ops_jax.flash_attention(
+        _jax(q), _jax(k), _jax(v), kw.get("causal", True), kw.get("window"),
+        kw.get("softcap"), kw.get("scale"), kw.get("q_offset", 0), True)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (24, 30.0)])
+def test_per_slot_offsets_match_reference(window, softcap):
+    """Decode with one query per slot at its own position (B,) — the
+    serving engine's decode — and a short multi-query block."""
+    offsets = np.array([0, 5, 63, 40], np.int32)
+    for lq in (1, 3):
+        q, k, v = attn_inputs(4, 8, 2, lq, 64 + lq, 16, seed=lq)
+        kw = dict(window=window, softcap=softcap)
+        out = fa_ops.flash_attention(q, k, v, q_offset=torch.from_numpy(
+            offsets), **kw)
+        want = fa_ref_jax.attention_ref(_jax(q), _jax(k), _jax(v),
+                                        q_offset=jnp.asarray(offsets), **kw)
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   **ATTN_TOL[torch.float32])
+        # a scalar offset is the same as that offset in every slot
+        same = fa_ops.flash_attention(q, k, v, q_offset=7, **kw)
+        per_slot = fa_ref.attention_ref(q, k, v, q_offset=torch.full(
+            (4,), 7, dtype=torch.int32), **kw)
+        torch.testing.assert_close(same, per_slot, rtol=0, atol=0)
+
+
+def test_fully_masked_rows_are_zero():
+    q, k, v = attn_inputs(1, 2, 1, 4, 8, 16, seed=0)
+    out = fa_ref.attention_ref(q, k, v, q_offset=-4)  # every key ahead
+    assert torch.count_nonzero(out) == 0
+
+
+@pytest.mark.parametrize("arch", [a for a in configs.list_archs()
+                                  if configs.get_config(a).family != "mamba"])
+def test_every_head_dim_has_a_kernel(arch):
+    """Every config with attention has a head dim the kernel takes."""
+    for smoke in (False, True):
+        cfg = configs.get_config(arch, smoke=smoke)
+        assert cfg.resolved_head_dim == \
+            jax_configs.get_config(arch, smoke=smoke).resolved_head_dim
+        assert cfg.resolved_head_dim in fa_ops.HEAD_DIMS
+        assert cfg.n_heads // cfg.n_kv_heads <= fa_ops.MAX_GROUP

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Device-side profile of the port's serving path on one CUDA card.
+
+Run from the root of the repository, after or beside ``chip_smoke.py``:
+
+    python3 tools/profile_serve.py [--arch tinyllama-1.1b] [--ticks 16]
+
+It builds the ``ServingEngine`` of ``chip_smoke.py`` phase 7 (full width,
+bfloat16, random weights from seed 0, 8 slots, 2048 positions, the
+``flash_attention`` kernel on), fills every slot with a 512-token prompt,
+and profiles with torch.profiler:
+
+- one prefill of a 1024-token bucket (``ServingEngine._prefill``);
+- ``--ticks`` decode ticks with all slots active (``ServingEngine.step``).
+
+For each window it prints the wall time, the summed device time of all
+kernels, memsets and copies, the device's busy and idle share, the device
+time by class (the attention kernel, matrix products, the rest) and the
+top device-time consumers.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import pathlib
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "tools"))
+from profile_port import device_events, per_name  # noqa: E402
+
+GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
+
+
+def kind(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_kernel" in low:
+        return "flash_attention kernel"
+    if any(g in low for g in GEMM_NAMES):
+        return "matrix products"
+    return "other (elementwise, norms, rope, cache writes, copies)"
+
+
+def report(what: str, prof, wall: float, n: int) -> None:
+    events = device_events(prof)
+    busy_us = sum(float(e["dur"]) for e in events)
+    print(f"{what}: wall {wall * 1e3 / n:.3f} ms per call under the profiler "
+          f"({n} calls); device busy {busy_us / 1e3 / n:.3f} ms per call "
+          f"({100 * busy_us / 1e6 / wall:.1f} %), idle "
+          f"{100 - 100 * busy_us / 1e6 / wall:.1f} %; "
+          f"{len(events) / n:.0f} device events per call")
+    by_kind: dict = collections.defaultdict(float)
+    for e in events:
+        by_kind[kind(e["name"])] += float(e["dur"])
+    for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"  {us / 1e3 / n:9.4f} ms per call ({100 * us / busy_us:5.1f} %"
+              f" of device time)  {k}")
+    top = sorted(per_name(events).items(), key=lambda kv: -kv[1][1])[:10]
+    for kname, (count, us) in top:
+        print(f"  {us / 1e3 / n:9.4f} ms per call  {count // n:5d} x  "
+              f"{kname[:90]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--ticks", type=int, default=16)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        sys.exit("profile_serve: needs a CUDA device")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    dev = torch.device("cuda", 0)
+    cfg = configs.get_config(args.arch).with_(use_kernels=True)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    scfg = ServeConfig(slots=8, max_seq=2048, eos_id=-1,
+                       max_new_tokens=args.ticks + 8)
+    eng = ServingEngine(params, cfg, scfg, device=dev)
+    rng = np.random.default_rng(0)
+    for uid in range(scfg.slots):
+        eng.submit(Request(uid=uid, prompt=rng.integers(
+            2, cfg.vocab_size, 512).astype(np.int32)))
+    for _ in range(4):  # admits every slot, then warm decode ticks
+        eng.step()
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 1024))
+                            .astype(np.int32)).to(dev)
+    eng._prefill(0, toks)  # warm the 1024 bucket (slot 0 is rewritten
+    torch.cuda.synchronize()  # below and decodes on as before)
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype}, {scfg.slots} slots, max_seq {scfg.max_seq}; card "
+          f"{torch.cuda.get_device_name(0)}")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng._prefill(0, toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report("prefill, bucket 1024", prof, wall, 1)
+
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.ticks):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(f"decode tick, {int(eng.active.sum())} active slots", prof, wall,
+           args.ticks)
+    t0 = time.perf_counter()
+    for _ in range(4):
+        eng.step()
+    torch.cuda.synchronize()
+    print(f"decode tick without the profiler: "
+          f"{(time.perf_counter() - t0) * 1e3 / 4:.3f} ms")
+
+
+if __name__ == "__main__":
+    main()
