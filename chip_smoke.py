@@ -35,7 +35,26 @@ Phases, each fatal on failure:
 8. kernels on against off at full width in float32 (TF32 off): prefill
    one long prompt and 16 teacher-forced decode steps, logits within
    atol 2e-3, rtol 1e-3; the bfloat16 difference is printed as
-   information.
+   information;
+9. the ``ssd_scan`` kernel against its plain version (``ssd_ref``) on the
+   card: the kernel sweep of ``tests/test_kernels.py`` in float32 (atol
+   1e-5, rtol 1e-4), mamba2-130m's training shape (Bt 8, L 1024, H 24,
+   P 64, G 1, N 128, chunk 256) in bfloat16 (2e-2) and float32, and the
+   gradient of all six inputs through the autograd.Function against
+   autograd through ``ssd_ref`` at that shape; kernel, ``ssd_chunked_ref``
+   and ``ssd_ref`` times and the kernel's bound;
+10. the training path: ``launch.train`` trains mamba2-130m at full width
+   and depth (24 layers, d_model 768, bfloat16) with kernels on, batch 8
+   x 1024 tokens from ``pipeline.global_batch``, 5 AdamW steps — finite
+   losses and gradient norms, the last loss below the first, 24
+   ``ssd_scan`` launches per forward (counts reset just before); ms per
+   step, tokens/s and peak memory;
+11. kernels on against off in training: mamba2-130m at full width in
+   float32 (TF32 off), the loss of one batch with ``ssd_scan`` against
+   ``ssd_chunked_ref`` (1e-4 relative); tinyllama-1.1b at full width and
+   2 layers, one train step with ``flash_attention`` on in bfloat16
+   (finite loss and gradients, one launch per layer) and, in float32,
+   gradients within atol 2e-3, rtol 1e-3 of the plain path's.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -343,6 +362,13 @@ def run(dev, n_main: int, n_grid: int, out_path=None) -> None:
     kernels.append(fa_entry)
     results["kernels_on_off"] = kernels_on_off_phase(dev)
 
+    # ----------------------------------------------------- phases 9-11
+    ssd_entry, results["ssd_scan"] = ssd_scan_phase(dev)
+    results["train"] = train_phase(dev)
+    ssd_entry["launches"] = results["train"]["launches"]
+    kernels.append(ssd_entry)
+    results["train_on_off"] = train_on_off_phase(dev)
+
     results["card"] = card
     results["kernels"] = kernels
     if out_path:
@@ -598,6 +624,316 @@ def kernels_on_off_phase(dev) -> dict:
                                                       rtol=1e-3):
             fail(f"kernels on vs off (float32): logits differ by {diff}")
         del params, on, off
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------- phase 9
+TRAIN_ARCH = "mamba2-130m"
+#: mamba2-130m's training shape: (Bt, L, H, G, N, P, chunk)
+SSD_MAIN = (8, 1024, 24, 1, 128, 64, 256)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+
+
+def ssd_bound(bt, l, h, g, n, p, chunk, elem_bytes, skip=True):
+    """(bound ms, what bounds it) of the chunked scan. Operations: per
+    (batch, head) and chunk of r rows, C B^T and W (dt x) over the causal
+    triangle only, 2 (N + P) per pair s <= t and r (r + 1) / 2 pairs (the
+    masked half is not work, as attention_bound counts only unmasked
+    pairs), then C S and the state update (2 r N P each), at the bf16
+    tensor peak. Bytes: x, y, B, C in ``elem_bytes``, dt, A and D in
+    float32, each moved once."""
+    q = min(chunk, l)
+    rows = [q] * (l // q) + ([l % q] if l % q else [])
+    ops = bt * h * sum(r * (r + 1) * (n + p) + 4 * r * n * p for r in rows)
+    nbytes = (elem_bytes * (2 * bt * l * h * p + 2 * bt * l * g * n)
+              + 4 * (bt * l * h + h * (2 if skip else 1)))
+    return bound_ms(nbytes, ops, BF16_OPS_PER_S)
+
+
+def ssd_scan_phase(dev):
+    """Phase 9: the kernel against its plain version, forward and gradient,
+    and its times. Returns (the kernels-line entry, results)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import SSD_CASES, SSD_TOL, ssd_inputs
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    errs = []
+    for i, case in enumerate(SSD_CASES):
+        bt, l, h, g, n, p, chunk = case
+        args = [t.to(dev) for t in ssd_inputs(bt, l, h, g, n, p,
+                                              seed=sum(case))]
+        for skip in (True, False):
+            a = args if skip else args[:5] + [None]
+            out = ssd_ops.ssd_scan(*a, chunk)
+            want = ssd_ref.ssd_ref(*a)
+            torch.cuda.synchronize()
+            if not torch.allclose(out, want, **SSD_TOL):
+                fail(f"ssd_scan case {i} (D={skip}) differs from its plain "
+                     f"version by {max_abs_err(out, want, torch)}")
+            errs.append(max_abs_err(out, want, torch))
+    log(f"phase 9: ssd_scan float32: {len(SSD_CASES)} cases x (D, no D) "
+        f"within {SSD_TOL}; max |err| {max(errs):.3g}")
+
+    bt, l, h, g, n, p, chunk = SSD_MAIN
+    res = {"shape": dict(zip("bt l h g n p chunk".split(), SSD_MAIN))}
+    for dt, tol in ((torch.bfloat16, dict(atol=2e-2, rtol=2e-2)),
+                    (torch.float32, SSD_TOL)):
+        name = str(dt).removeprefix("torch.")
+        args = [t.to(dev) for t in ssd_inputs(bt, l, h, g, n, p, seed=1,
+                                              dtype=dt)]
+        out = ssd_ops.ssd_scan(*args, chunk)
+        want = ssd_ref.ssd_ref(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(out.float(), want.float(), torch)
+        if not torch.allclose(out.float(), want.float(), **tol):
+            fail(f"ssd_scan {name} at the mamba2-130m shape differs from its "
+                 f"plain version by {err}")
+        ms = time_ms(lambda: ssd_ops.ssd_scan(*args, chunk), torch)
+        chunked = time_ms(lambda: ssd_ref.ssd_chunked_ref(*args, chunk=chunk),
+                          torch, reps=10)
+        seq = time_ms(lambda: ssd_ref.ssd_ref(*args), torch, reps=3)
+        bnd, by = ssd_bound(*SSD_MAIN, 2 if dt == torch.bfloat16 else 4)
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": chunked,
+                     "plain_sequential_ms": seq, "bound_ms": bnd,
+                     "bound_by": by}
+        log(f"phase 9: ssd_scan {name} Bt={bt} L={l} H={h} P={p} G={g} N={n} "
+            f"Q={chunk}: max |err| {err:.3g} (tolerance {tol}); kernel "
+            f"{ms:.4f} ms, ssd_chunked_ref {chunked:.4f} ms, ssd_ref "
+            f"{seq:.2f} ms, bound {bnd:.4f} ms by {by}")
+        del out, want
+
+    # gradient at the full shape: the Function against autograd through
+    # ssd_ref (float32; both backwards are autograd through ssd_ref)
+    args = [t.to(dev) for t in ssd_inputs(bt, l, h, g, n, p, seed=2)]
+    w = torch.randn(args[0].shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(3))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in args]
+        return torch.autograd.grad((fn(*leaves) * w).sum(), leaves)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = grads(lambda *a: ssd_ops.ssd_scan(*a, chunk))
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    want = grads(ssd_ref.ssd_ref)
+    gerr = 0.0
+    for name, a, b in zip("x dt A B C D".split(), got, want):
+        if not (torch.isfinite(a).all() and torch.allclose(a, b, **SSD_TOL)):
+            fail(f"ssd_scan gradient in {name} differs from ssd_ref's by "
+                 f"{max_abs_err(a, b, torch)}")
+        gerr = max(gerr, max_abs_err(a, b, torch))
+    res["grad_max_abs_err"], res["grad_s"] = gerr, grad_s
+    log(f"phase 9: ssd_scan gradient of x, dt, A, B, C, D at the full shape "
+        f"(float32) within {SSD_TOL} of autograd through ssd_ref: max |err| "
+        f"{gerr:.3g}; forward + backward {grad_s:.2f} s (host clock)")
+    del got, want, args, w
+    torch.cuda.empty_cache()
+    bf = res["bfloat16"]
+    entry = {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:35",
+        "launches": 0,
+        "max_abs_err": max(errs + [bf["max_abs_err"],
+                                   res["float32"]["max_abs_err"]]),
+        "ms": bf["ms"], "plain_ms": bf["plain_ms"],
+        "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
+        "library_ms": None,
+        "ms_float32": res["float32"]["ms"],
+        "plain_ms_float32": res["float32"]["plain_ms"],
+        "bound_ms_float32": res["float32"]["bound_ms"],
+        "plain_sequential_ms": bf["plain_sequential_ms"]}
+    return entry, res
+
+
+# --------------------------------------------------------------- phase 10
+def train_phase(dev) -> dict:
+    """Phase 10: mamba2-130m at full width trained through launch.train."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import train as train_launch
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ssd_ops.ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    history = train_launch.main([
+        "--arch", TRAIN_ARCH, "--use-kernels", "--batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+        "--log-every", "1", "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ssd_ops.ssd_scan.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    losses = [h["loss"] for h in history]
+    gnorms = [h["grad_norm"] for h in history]
+    if len(history) != TRAIN_STEPS or not all(
+            np.isfinite(losses + gnorms)):
+        fail(f"training: losses {losses}, gradient norms {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"training: the loss did not fall: {losses}")
+    if launches != cfg.num_layers * TRAIN_STEPS:
+        fail(f"training: ssd_scan launched {launches} times for "
+             f"{TRAIN_STEPS} forwards of {cfg.num_layers} layers")
+    ms = [h["ms"] for h in history]
+    warm = ms[1:]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": str(cfg.dtype), "batch":
+           TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "losses": losses, "grad_norms": gnorms, "step_ms": ms,
+           "batch_ms": [h["batch_ms"] for h in history],
+           "first_step_ms": ms[0], "warm_step_ms_mean": statistics.mean(warm),
+           "tokens_per_s": tokens * len(warm) / (sum(warm) / 1e3),
+           "wall_s": wall, "launches": launches, "peak_memory_bytes": peak}
+    log(f"phase 10: trained {cfg.name} ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {str(cfg.dtype).removeprefix('torch.')}, kernels "
+        f"on) {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; gradient norms "
+        f"{', '.join(f'{x:.3f}' for x in gnorms)}")
+    log(f"  step ms: first {ms[0]:.1f}, then "
+        f"{', '.join(f'{x:.1f}' for x in warm)} (host clock, data included: "
+        f"{', '.join(f'{h['batch_ms']:.1f}' for h in history)} ms); "
+        f"{res['tokens_per_s']:.1f} tokens/s after the first; ssd_scan "
+        f"launches {launches}; peak memory {peak / 2 ** 30:.2f} GiB")
+    torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------- phase 11
+def train_on_off_phase(dev) -> dict:
+    """Phase 11: kernels on against off on the training path."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves
+    from repro_torch.train import steps
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import SSD_TOL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tcfg = steps.TrainConfig()
+    res = {}
+
+    # mamba2-130m, float32: the loss of one batch, ssd_scan vs chunked
+    cfg = configs.get_config(TRAIN_ARCH).with_(dtype=torch.float32)
+    batch = pipeline.device_batch(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH), 0, dev)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+
+    def loss_of(c):
+        with torch.no_grad():
+            logits, _ = M.forward(params, batch, c)
+        return logits, float(steps.next_token_loss(
+            logits, batch["labels"], c, tcfg.z_loss))
+
+    # every layer's kernel call of the kernels-on forward is recorded, inputs
+    # and output, and held against ssd_ref below: the model's own dt and A
+    # drive a chunk's summed log-decay far below -88, where exp underflows
+    # in float32, which phase 9's drawn inputs never reach
+    calls, launch = [], ssd_ops._launch
+
+    def recording_launch(*a):
+        y = launch(*a)
+        calls.append((a, y))
+        return y
+
+    ssd_ops.ssd_scan.launches = 0
+    ssd_ops._launch = recording_launch
+    try:
+        logits_on, on = loss_of(cfg.with_(use_kernels=True))
+    finally:
+        ssd_ops._launch = launch
+    launches = ssd_ops.ssd_scan.launches
+    logits_off, off = loss_of(cfg)
+    rel = abs(on - off) / abs(off)
+    diff = max_abs_err(logits_on, logits_off, torch)
+    res["mamba_float32"] = {"loss_on": on, "loss_off": off, "rel_diff": rel,
+                            "logits_max_abs_diff": diff, "launches": launches}
+    log(f"phase 11: {cfg.name} float32 loss of one {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} batch: ssd_scan {on:.7f}, ssd_chunked_ref {off:.7f}, "
+        f"relative difference {rel:.3g} (max |logits on - off| {diff:.3g}, "
+        f"information); launches {launches}")
+    del logits_on, logits_off
+    if not (np.isfinite(on) and rel <= 1e-4):
+        fail(f"kernels on vs off (mamba, float32): losses {on} and {off}")
+    if launches != cfg.num_layers or len(calls) != cfg.num_layers:
+        fail(f"kernels on (mamba): {launches} ssd_scan launches")
+    layer_errs, decay_min = [], 0.0
+    for i, ((x, dt, a, bh, ch, d_skip, chunk), y) in enumerate(calls):
+        want = ssd_ref.ssd_ref(x, dt, a, bh, ch, d_skip)
+        err = max_abs_err(y, want, torch)
+        if not (torch.isfinite(y).all() and torch.allclose(y, want,
+                                                           **SSD_TOL)):
+            fail(f"ssd_scan on layer {i}'s own inputs differs from ssd_ref "
+                 f"by {err}")
+        layer_errs.append(err)
+        lc = (dt * a).cumsum(1)[:, chunk - 1::chunk]
+        decay_min = min(decay_min, float(torch.diff(
+            lc, dim=1, prepend=torch.zeros_like(lc[:, :1])).min()))
+        del want
+    res["mamba_float32"].update(layer_max_abs_err=max(layer_errs),
+                                chunk_log_decay_min=decay_min)
+    log(f"phase 11: ssd_scan on each of the {len(calls)} layers' own inputs "
+        f"(float32) within {SSD_TOL} of ssd_ref: max |err| "
+        f"{max(layer_errs):.3g}; most negative summed log-decay of a chunk "
+        f"{decay_min:.1f}")
+    del params, calls
+    torch.cuda.empty_cache()
+
+    # tinyllama-1.1b at full width, 2 layers: flash_attention in training
+    base = configs.get_config(SERVE_ARCH).with_(num_layers=2)
+    batch = pipeline.device_batch(pipeline.DataConfig(
+        vocab_size=base.vocab_size, seq_len=TRAIN_SEQ, global_batch=2), 0,
+        dev)
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).removeprefix("torch.")
+        cfg = base.with_(dtype=dt)
+        params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+        fa_ops.flash_attention.launches = 0
+        (loss, _), g_on = steps.value_and_grad(
+            params, batch, cfg.with_(use_kernels=True), tcfg)
+        launches = fa_ops.flash_attention.launches
+        flat_on = leaves(g_on)
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in flat_on)
+        if not finite or launches != cfg.num_layers:
+            fail(f"tinyllama {name} train step with flash_attention: loss "
+                 f"{float(loss)}, finite {finite}, launches {launches}")
+        row = {"loss": float(loss), "launches": launches}
+        if dt == torch.float32:
+            (loss_off, _), g_off = steps.value_and_grad(params, batch, cfg,
+                                                        tcfg)
+            diff = max(max_abs_err(a, b, torch)
+                       for a, b in zip(flat_on, leaves(g_off)))
+            ok = all(torch.allclose(a, b, atol=2e-3, rtol=1e-3)
+                     for a, b in zip(flat_on, leaves(g_off)))
+            row.update(loss_off=float(loss_off), grad_max_abs_diff=diff)
+            if not ok:
+                fail(f"kernels on vs off (tinyllama, float32): gradients "
+                     f"differ by {diff}")
+        res[f"tinyllama_{name}"] = row
+        log(f"phase 11: {cfg.name} ({cfg.num_layers} layers, full width) "
+            f"{name} train step with flash_attention: loss {float(loss):.5f},"
+            f" gradients finite, launches {launches}"
+            + (f"; against the plain path: loss {row['loss_off']:.5f}, max "
+               f"|grad on - off| {row['grad_max_abs_diff']:.3g}"
+               if dt == torch.float32 else ""))
+        del params, g_on
         torch.cuda.empty_cache()
     return res
 

@@ -109,6 +109,11 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
         ctypes.c_float, ctypes.c_float, vp]
     lib.flash_attention_launch.restype = ci
+    lib.ssd_scan_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+    lib.ssd_scan_launch.restype = ci
+    lib.ssd_scan_smem_bytes.argtypes = [ci, ci, ci]
+    lib.ssd_scan_smem_bytes.restype = ll
     return lib
 
 

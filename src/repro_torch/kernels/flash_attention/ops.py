@@ -1,10 +1,12 @@
 """Public wrapper for ``flash_attention``: the CUDA kernel on the card, the
-plain torch version for CPU tensors.
+plain torch version for CPU tensors, and a backward that recomputes
+through :func:`ref.attention_ref` (the JAX package's custom vjp,
+``src/repro/kernels/flash_attention/ops.py``).
 
-On a CUDA tensor the kernel is launched or the call raises; it never
+On a CUDA tensor the forward launches the kernel or raises; it never
 gives way to the plain version. ``flash_attention.launches`` counts kernel
-launches (one per call on the card). Forward only: the port has no
-backward through attention yet.
+launches (one per forward on the card; the backward launches none).
+Differentiable in q, k and v; a ``q_offset`` tensor is not.
 """
 from __future__ import annotations
 
@@ -31,6 +33,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     or a (B,) integer tensor on q's device. Returns (B, Hq, Lq, D) in q's
     dtype; see :func:`ref.attention_ref` for the semantics.
     """
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                 q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or ``attention_ref`` (CPU). Backward:
+    autograd through ``attention_ref`` recomputed on the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale, q_offset=q_offset)
+        return _forward(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = _ref.attention_ref(*leaves, **ctx.kw)
+            grads = torch.autograd.grad(out, leaves, g)
+        return grads + (None,) * 5
+
+
+def _forward(q, k, v, *, causal, window, softcap, scale, q_offset):
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                   softcap=softcap, scale=scale,

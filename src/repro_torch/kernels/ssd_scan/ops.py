@@ -1,0 +1,122 @@
+"""Public wrapper for ``ssd_scan``: the CUDA kernel on the card, the plain
+sequential scan for CPU tensors, and a backward that recomputes through
+:func:`ref.ssd_ref` (the JAX package's custom vjp,
+``src/repro/kernels/ssd_scan/ops.py``).
+
+On a CUDA tensor the forward launches the kernel or raises; it never gives
+way to the plain version, and a ragged last chunk (L % chunk != 0) is
+masked by the kernel. ``ssd_scan.launches`` counts kernel launches (one
+per forward on the card). The backward goes through the sequential
+``ssd_ref`` and never through ``ssd_chunked_ref``, whose masked
+exponentials give NaN gradients at long sequences.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.ssd_scan import ref as _ref
+
+#: largest head dim P the kernel is instantiated for
+MAX_HEAD_DIM = 128
+#: shared memory a block may use on Hopper (bytes)
+MAX_SMEM = 232_448
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(x, dt, A, B, C, D, chunk):
+    if x.dim() != 4 or B.dim() != 4 or C.shape != B.shape:
+        raise ValueError("ssd_scan: x must be (Bt, L, H, P) and B, C "
+                         "(Bt, L, G, N)")
+    bt, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if B.shape[:2] != (bt, l) or dt.shape != (bt, l, h):
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)}"
+                         f" and B {tuple(B.shape)} disagree")
+    if A.shape != (h,) or (D is not None and D.shape != (h,)):
+        raise ValueError(f"ssd_scan: A and D must be ({h},)")
+    if h % g:
+        raise ValueError(f"ssd_scan: H={h} is not a multiple of G={g}")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError("ssd_scan: x, B and C must share one dtype, float32 "
+                         f"or bfloat16 (got {x.dtype}, {B.dtype}, {C.dtype})")
+    for t in (dt, A) + ((D,) if D is not None else ()):
+        if t.dtype != torch.float32:
+            raise ValueError(f"ssd_scan: dt, A and D must be float32 (got "
+                             f"{t.dtype})")
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk={chunk} < 1")
+
+
+def _launch(x, dt, A, B, C, D, chunk):
+    """The CUDA kernel on validated inputs; raises on what it cannot take."""
+    bt, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    tensors = (x, dt, A, B, C) + ((D,) if D is not None else ())
+    for t in tensors:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("ssd_scan: x, dt, A, B, C and D must be "
+                             "contiguous and on one device")
+    if p > MAX_HEAD_DIM:
+        raise ValueError(f"ssd_scan: head dim {p} > {MAX_HEAD_DIM}")
+    if bt > 65535:
+        raise ValueError(f"ssd_scan: shape {tuple(x.shape)} out of the "
+                         "kernel's range")
+    if x.numel() == 0:
+        return torch.empty_like(x)  # nothing to launch, nothing to count
+    lib = _build.load_library()
+    smem = lib.ssd_scan_smem_bytes(n, p, chunk)
+    if smem > MAX_SMEM:
+        raise ValueError(f"ssd_scan: N={n}, P={p}, chunk={chunk} need {smem} "
+                         f"bytes of shared memory (at most {MAX_SMEM})")
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        None if D is None else D.data_ptr(), y.data_ptr(), bt, l, h, g, n, p,
+        chunk, _DTYPES[x.dtype], stream), "ssd_scan")
+    ssd_scan.launches += 1
+    return y
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or ``ssd_ref`` (CPU). Backward: autograd
+    through ``ssd_ref`` recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, chunk):
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        if x.device.type == "cpu":
+            return _ref.ssd_ref(x, dt, A, B, C, D)
+        if x.device.type != "cuda":
+            raise ValueError(f"ssd_scan: unsupported device {x.device}")
+        return _launch(x, dt, A, B, C, D, chunk)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, dt, A, B, C, D = ctx.saved_tensors
+        inputs = (x, dt, A, B, C) + ((D,) if D is not None else ())
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            y = _ref.ssd_ref(*leaves[:5], leaves[5] if D is not None else None)
+            grads = torch.autograd.grad(y, leaves, gy)
+        if D is None:
+            grads = grads + (None,)
+        return grads + (None,)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor | None = None,
+             chunk: int = 128) -> torch.Tensor:
+    """Mamba-2 SSD: returns y of shape (Bt, L, H, P) in x's dtype.
+
+    x: (Bt, L, H, P) float32 or bfloat16; dt: (Bt, L, H) float32; A, D:
+    (H,) float32; B, C: (Bt, L, G, N) in x's dtype. ``chunk`` is the
+    kernel's chunk length (``min(chunk, L)``; L need not be a multiple).
+    Differentiable in x, dt, A, B, C and D.
+    """
+    _check(x, dt, A, B, C, D, chunk)
+    return _SSDScan.apply(x, dt, A, B, C, D, min(chunk, max(x.shape[1], 1)))
+
+
+ssd_scan.launches = 0

@@ -1,2 +1,2 @@
-"""The LM substrate of the port: parameter schema, layers and the dense
-decoder (inference)."""
+"""The LM substrate of the port: parameter schema, layers, the dense
+decoder (training and inference) and the Mamba-2 stack (training)."""

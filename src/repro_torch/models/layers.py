@@ -1,10 +1,14 @@
-"""Model building blocks of the dense decoder, in PyTorch.
+"""Model building blocks of the dense decoder and the Mamba-2 stack, in
+PyTorch.
 
 Every block has a ``*_specs(cfg)`` (ParamSpec tree) and an apply function
 on plain tensors, as in the JAX package. Attention goes to the
 ``flash_attention`` kernel when ``cfg.use_kernels`` and to its plain
-version otherwise. The MoE, Mamba and cross-attention blocks belong to
-later slices of the port.
+version otherwise; the Mamba-2 mixer without a cache goes to the
+``ssd_scan`` kernel when ``cfg.use_kernels`` and to ``ssd_chunked_ref``
+otherwise. Both kernels are differentiable (backward through their plain
+versions). The Mamba-2 cache paths (prefill, decode) belong to the
+mamba-serving slice; the MoE and cross-attention blocks to later slices.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models.params import spec
 
 # ---------------------------------------------------------------------------
@@ -177,3 +183,70 @@ def swiglu_specs(cfg, d_ff=None):
 def swiglu(p, x):
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 mixer
+# ---------------------------------------------------------------------------
+
+MAMBA_SERVING = ("the mamba-serving slice of the port (SSM cache, "
+                 "ssd_decode_step, chunked prefill)")
+
+
+def _mamba_dims(cfg):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_head_dim
+    conv_dim = d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return d_inner, n_heads, conv_dim
+
+
+def mamba_specs(cfg):
+    d = cfg.d_model
+    d_inner, h, conv_dim = _mamba_dims(cfg)
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    proj_out = 2 * d_inner + 2 * g * n + h
+    return {
+        "in_proj": spec((d, proj_out), ("embed", "mlp"), cfg.dtype),
+        "conv_w": spec((cfg.ssm_conv, conv_dim), ("conv", "mlp"), cfg.dtype),
+        "conv_b": spec((conv_dim,), ("mlp",), cfg.dtype, "zeros"),
+        "a_log": spec((h,), ("ssm_heads",), torch.float32, "zeros"),
+        "dt_bias": spec((h,), ("ssm_heads",), torch.float32, "zeros"),
+        "d_skip": spec((h,), ("ssm_heads",), torch.float32, "ones"),
+        "norm": rms_norm_spec(d_inner),
+        "out_proj": spec((d_inner, d), ("mlp", "embed"), cfg.dtype),
+    }
+
+
+def _causal_conv(x, w, b):
+    """x: (B, L, C) depthwise causal conv, kernel (K, C)."""
+    k = w.shape[0]
+    x_pad = F.pad(x, (0, 0, k - 1, 0))
+    return sum(x_pad[:, i:i + x.shape[1]] * w[i] for i in range(k)) + b
+
+
+def mamba_mixer(p, x, cfg, *, cache=None):
+    """Mamba-2 block body without a cache (the training and full-sequence
+    forward). x: (B, L, D) -> ((B, L, D), None)."""
+    if cache is not None:
+        raise NotImplementedError(f"mamba_mixer with a cache: {MAMBA_SERVING}")
+    b, l, d = x.shape
+    d_inner, h, conv_dim = _mamba_dims(cfg)
+    g, n, pdim = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    zxbcdt = x @ p["in_proj"]
+    z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, conv_dim, h], dim=-1)
+    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xin, bmat, cmat = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    # the kernel takes contiguous (Bt, L, H, P) / (Bt, L, G, N) arrays
+    xh = xin.reshape(b, l, h, pdim).contiguous()
+    bh = bmat.reshape(b, l, g, n).contiguous()
+    ch = cmat.reshape(b, l, g, n).contiguous()
+    if cfg.use_kernels:
+        y = ssd_ops.ssd_scan(xh, dt, a, bh, ch, p["d_skip"], cfg.ssm_chunk)
+    else:
+        y = ssd_ref.ssd_chunked_ref(xh, dt, a, bh, ch, p["d_skip"],
+                                    chunk=cfg.ssm_chunk)
+    y = y.reshape(b, l, d_inner)
+    y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    return y @ p["out_proj"], None

@@ -108,7 +108,8 @@ def load_tree(tree, spec_tree, device=None):
 def from_reference(tree, cfg, device=None):
     """The JAX package's parameter tree for ``cfg``, as numpy arrays
     (``jax.tree.map(np.asarray, M.init(key, cfg))``) -> the port's
-    parameters: the same nested dict, layers stacked on axis 0, dtypes
-    mapped, on ``device``."""
+    parameters: the same nested dict, layers stacked on axis 0, each leaf
+    in its spec's dtype (so a bfloat16 mamba model keeps its float32
+    ``a_log``, ``dt_bias`` and ``d_skip``), on ``device``."""
     from repro_torch.models import model  # model imports this module
     return load_tree(tree, model.param_specs(cfg), device)

@@ -66,3 +66,31 @@ def attn_inputs(b, hq, hkv, lq, lk, d, seed, dtype=torch.float32):
     return tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32))
                  .to(dtype) for s in ((b, hq, lq, d), (b, hkv, lk, d),
                                       (b, hkv, lk, d)))
+
+
+#: the SSD-scan sweep of tests/test_kernels.py (bt, l, h, g, n, p, chunk),
+#: copied here so the card's tests need no jax
+SSD_CASES = [
+    (2, 256, 4, 4, 16, 32, 64),
+    (1, 128, 8, 2, 32, 16, 32),
+    (1, 64, 2, 1, 8, 8, 64),
+    (1, 96, 4, 2, 16, 16, 32),
+]
+
+#: the repo's SSD-scan tolerance (tests/test_kernels.py)
+SSD_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def ssd_inputs(bt, l, h, g, n, p, seed, dtype=torch.float32):
+    """x, dt, A, B, C, D drawn as tests/test_kernels.py draws them: x, B, C
+    in ``dtype``; dt, A, D float32 (dt in [0.001, 0.1], A in [-2, -0.5])."""
+    rng = np.random.default_rng(seed)
+    f = lambda a, dt=dtype: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(dt)
+    x = f(rng.normal(size=(bt, l, h, p)) * 0.5)
+    dt = f(rng.uniform(0.001, 0.1, size=(bt, l, h)), torch.float32)
+    A = f(-rng.uniform(0.5, 2.0, size=(h,)), torch.float32)
+    B = f(rng.normal(size=(bt, l, g, n)) * 0.5)
+    C = f(rng.normal(size=(bt, l, g, n)) * 0.5)
+    D = f(rng.normal(size=(h,)), torch.float32)
+    return x, dt, A, B, C, D

@@ -7,12 +7,14 @@ imports no jax, so it runs on a machine without it:
 import pytest
 import torch
 
-from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, attn_inputs, chains,
-                                  float_dist, pack_inputs)
+from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, SSD_CASES, SSD_TOL,
+                                  attn_inputs, chains, float_dist,
+                                  pack_inputs, ssd_inputs)
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.local_chase import ops as lc_ops, ref as lc_ref
 from repro_torch.kernels.mailbox_pack import ops as mp_ops, ref as mp_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 
 
 @pytest.fixture
@@ -99,3 +101,113 @@ def test_flash_attention_cuda_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                                k, v)
+
+
+#: mamba2-130m's training shape: (Bt, L, H, G, N, P, chunk)
+MAMBA_SHAPE = (8, 1024, 24, 1, 128, 64, 256)
+
+
+def _ssd_check(cuda, shape, dtype, tol, skip=True, seed=0):
+    bt, l, h, g, n, p, chunk = shape
+    x, dt, A, B, C, D = (t.to(cuda) for t in ssd_inputs(
+        bt, l, h, g, n, p, seed=seed, dtype=dtype))
+    D = D if skip else None
+    before = ssd_ops.ssd_scan.launches
+    y = ssd_ops.ssd_scan(x, dt, A, B, C, D, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(),
+                               ssd_ref.ssd_ref(x, dt, A, B, C, D).float(),
+                               **tol)
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("skip", [True, False], ids=["D", "noD"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_cuda_matches_plain(cuda, case, skip):
+    _ssd_check(cuda, case, torch.float32, SSD_TOL, skip, seed=sum(case))
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("shape", [
+    (1, 300, 4, 2, 16, 32, 128),      # ragged: 2 full chunks + 44 steps
+    (2, 100, 8, 1, 32, 16, 64),       # ragged, G = 1 < H
+    (1, 1000, 24, 1, 128, 64, 256),   # mamba2-130m widths, ragged
+    (1, 130, 6, 3, 64, 48, 130),      # one chunk of 130: ragged row block
+])
+def test_ssd_scan_cuda_ragged_and_grouped(cuda, shape):
+    _ssd_check(cuda, shape, torch.float32, SSD_TOL, seed=sum(shape))
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_cuda_mamba_shape(cuda, dtype):
+    tol = SSD_TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    _ssd_check(cuda, MAMBA_SHAPE, dtype, tol, seed=1)
+
+
+@pytest.mark.torch_cuda
+def test_ssd_scan_cuda_underflowing_decays(cuda):
+    """The training regime: dt = softplus(.) and A = -1, as at mamba2-130m's
+    init, drive a chunk's summed log-decay below -88, where exp underflows
+    in float32."""
+    bt, l, h, g, n, p, chunk = 2, 1024, 24, 1, 128, 64, 256
+    x, _, _, B, C, D = (t.to(cuda) for t in ssd_inputs(bt, l, h, g, n, p,
+                                                       seed=5))
+    gen = torch.Generator(cuda).manual_seed(5)
+    dt = torch.nn.functional.softplus(
+        torch.randn(bt, l, h, device=cuda, generator=gen))
+    A = -torch.ones(h, device=cuda)
+    assert float((dt * A)[:, :chunk].sum(1).max()) < -88
+    y = ssd_ops.ssd_scan(x, dt, A, B, C, D, chunk)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, ssd_ref.ssd_ref(x, dt, A, B, C, D),
+                               **SSD_TOL)
+
+
+@pytest.mark.torch_cuda
+def test_ssd_scan_cuda_empty_launches_nothing(cuda):
+    x, dt, A, B, C, D = (t.to(cuda)[:, :0] if t.dim() > 1 else t.to(cuda)
+                         for t in ssd_inputs(2, 8, 4, 1, 16, 32, seed=0))
+    before = ssd_ops.ssd_scan.launches
+    y = ssd_ops.ssd_scan(x, dt, A, B, C, D, 64)
+    assert y.shape == x.shape and ssd_ops.ssd_scan.launches == before
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("skip", [True, False], ids=["D", "noD"])
+def test_ssd_scan_cuda_gradients(cuda, skip):
+    """Gradients through the autograd.Function (kernel forward, backward
+    through the recomputed ssd_ref) against autograd through ssd_ref."""
+    bt, l, h, g, n, p, chunk = 2, 200, 4, 2, 16, 32, 64
+    ins = [t.to(cuda) for t in ssd_inputs(bt, l, h, g, n, p, seed=7)]
+    if not skip:
+        ins = ins[:5]
+    w = torch.randn(bt, l, h, p, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        y = fn(*leaves[:5], leaves[5] if skip else None)
+        return torch.autograd.grad((y * w).sum(), leaves)
+
+    before = ssd_ops.ssd_scan.launches
+    got = grads(lambda *a: ssd_ops.ssd_scan(*a, chunk))
+    assert ssd_ops.ssd_scan.launches == before + 1
+    want = grads(ssd_ref.ssd_ref)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **SSD_TOL)
+
+
+@pytest.mark.torch_cuda
+def test_ssd_scan_cuda_rejects_what_it_does_not_take(cuda):
+    x, dt, A, B, C, D = (t.to(cuda) for t in ssd_inputs(1, 8, 2, 1, 4, 8,
+                                                         seed=0))
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                         A, B, C, D)
+    x, dt, A, B, C, D = (t.to(cuda) for t in ssd_inputs(1, 8, 2, 1, 4, 160,
+                                                         seed=0))
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_ops.ssd_scan(x, dt, A, B, C, D)

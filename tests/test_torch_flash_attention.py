@@ -1,8 +1,13 @@
 """The port's ``flash_attention`` (its plain version: the CPU path of the
 wrapper) against the JAX package's: the Pallas kernel in interpret mode
-on the kernel sweep of ``tests/test_kernels.py``, and the jnp reference
-with per-slot query offsets. The CUDA kernel's twins of these checks are
-in ``test_torch_cuda.py``."""
+on the kernel sweep of ``tests/test_kernels.py``, the jnp reference with
+per-slot query offsets, and the gradients in q, k and v through the
+autograd.Function against ``jax.grad`` through the reference's custom
+vjp. The CUDA kernel's twins of these checks are in
+``test_torch_cuda.py``."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,3 +81,45 @@ def test_every_head_dim_has_a_kernel(arch):
             jax_configs.get_config(arch, smoke=smoke).resolved_head_dim
         assert cfg.resolved_head_dim in fa_ops.HEAD_DIMS
         assert cfg.n_heads // cfg.n_kv_heads <= fa_ops.MAX_GROUP
+
+
+@functools.partial(jax.jit, static_argnums=(4, 5, 6, 7))
+def _grads_j(q, k, v, w, causal, window, softcap, q_offset):
+    def f(q, k, v):
+        return jnp.sum(fa_ops_jax.flash_attention(
+            q, k, v, causal, window, softcap, None, q_offset, True) * w)
+    return jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+
+
+@pytest.mark.parametrize("hq,hkv,lq,lk,kw", [
+    (4, 4, 48, 48, {}),
+    (8, 2, 40, 40, {"window": 16, "softcap": 30.0}),
+    (4, 2, 24, 56, {"causal": False, "softcap": 20.0}),
+    (8, 4, 5, 37, {"q_offset": 32, "window": 24}),
+])
+def test_gradients_match_jax_custom_vjp(hq, hkv, lq, lk, kw):
+    """d(sum(out * w))/d(q, k, v): the port's backward (autograd through
+    the recomputed ``attention_ref``) against the reference's (``jax.vjp``
+    of its ``attention_ref``), GQA, windows and softcap; float32 at the
+    kernel tolerance (atol 2e-5, rtol 1e-4)."""
+    q, k, v = attn_inputs(2, hq, hkv, lq, lk, 16, seed=lq + lk)
+    w = torch.from_numpy(np.random.default_rng(1).normal(
+        size=q.shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, **kw)
+    got = torch.autograd.grad((out * w).sum(), leaves)
+    want = _grads_j(_jax(q), _jax(k), _jax(v), _jax(w), kw.get("causal", True),
+                    kw.get("window"), kw.get("softcap"), kw.get("q_offset", 0))
+    for name, g_t, g_j in zip("qkv", got, want):
+        assert g_t.shape == g_j.shape, name
+        np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j),
+                                   **ATTN_TOL[torch.float32], err_msg=name)
+
+
+def test_offset_tensor_is_not_differentiated():
+    """A (B,) q_offset tensor rides along; q, k, v get gradients."""
+    q, k, v = attn_inputs(2, 4, 2, 1, 20, 16, seed=0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    off = torch.tensor([3, 19], dtype=torch.int32)
+    fa_ops.flash_attention(*leaves, q_offset=off).sum().backward()
+    assert all(t.grad is not None for t in leaves) and off.grad is None

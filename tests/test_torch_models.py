@@ -2,7 +2,8 @@
 same parameters carried across through numpy, then forward, prefill and
 decode logits of the tinyllama, gemma2 and qwen2.5 SMOKE configs (float32,
 atol 1e-4), the parameter schema at full size (no allocation), the
-configs as data, and the families still to port."""
+configs as data, the mamba family's forward-only status, and the families
+still to port. The Mamba-2 layers' parity is in test_torch_train.py."""
 import dataclasses
 
 import jax
@@ -22,7 +23,10 @@ from repro_torch.models import params as P
 
 DENSE = ["tinyllama-1.1b", "gemma2-2b", "qwen2.5-14b", "phi4-mini-3.8b",
          "pixtral-12b"]
-NOT_PORTED = [a for a in configs.list_archs() if a not in DENSE]
+#: ported for the forward (training) only; serving is a later slice
+FORWARD_ONLY = ["mamba2-130m"]
+NOT_PORTED = [a for a in configs.list_archs()
+              if a not in DENSE + FORWARD_ONLY]
 ATOL = 1e-4
 
 
@@ -219,7 +223,7 @@ def test_prefix_embeds_match_jax():
 
 
 # --------------------------------------------------- schema, configs, init
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FORWARD_ONLY)
 def test_full_size_param_shapes_match_jax(arch):
     """Shapes, dtypes and structure at full size, allocating nothing."""
     cfg_t = configs.get_config(arch)
@@ -244,10 +248,63 @@ def test_configs_match_jax(arch):
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_unported_families_raise(arch):
     cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="later slice|ssd_scan"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         M.param_specs(cfg)
     with pytest.raises(NotImplementedError):
         M.init_cache(cfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", FORWARD_ONLY)
+def test_mamba_serving_raises_naming_its_slice(arch):
+    cfg = configs.get_config(arch, smoke=True)
+    params = M.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="mamba-serving slice"):
+        M.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="mamba-serving slice"):
+        M.prefill(params, {"tokens": toks}, cfg, None)
+    with pytest.raises(NotImplementedError, match="mamba-serving slice"):
+        M.decode_step(params, toks[:, :1], 4, cfg, None)
+
+
+@pytest.mark.parametrize("arch", FORWARD_ONLY)
+def test_mamba_param_specs_and_forward_work(arch):
+    """The schema (no FFN, no norm_ffn; float32 a_log, dt_bias, d_skip in a
+    bfloat16 model) and a forward of the SMOKE config in bfloat16."""
+    specs = M.param_specs(configs.get_config(arch))
+    block = specs["layers"]
+    assert sorted(block) == ["mixer", "norm_mixer"]
+    assert {k: block["mixer"][k].dtype for k in ("a_log", "dt_bias", "d_skip",
+                                                 "in_proj")} == {
+        "a_log": torch.float32, "dt_bias": torch.float32,
+        "d_skip": torch.float32, "in_proj": torch.bfloat16}
+    cfg = configs.get_config(arch, smoke=True).with_(dtype=torch.bfloat16,
+                                                     use_kernels=True)
+    params = M.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 32))
+                            .astype(np.int32))
+    logits, aux = M.forward(params, {"tokens": toks}, cfg)
+    assert logits.shape == (2, 32, cfg.padded_vocab)
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+    assert float(aux) == 0.0
+
+
+def test_from_reference_carries_the_mamba_tree():
+    """A bfloat16 mamba model's float32 leaves stay float32, bit for bit."""
+    cfg_j = jax_configs.get_config("mamba2-130m", smoke=True).with_(
+        dtype=jnp.bfloat16)
+    cfg_t = configs.get_config("mamba2-130m", smoke=True).with_(
+        dtype=torch.bfloat16)
+    tree = _np_tree(MJ.init(jax.random.PRNGKey(1), cfg_j))
+    tree["layers"]["mixer"]["a_log"] = RNG.normal(
+        size=tree["layers"]["mixer"]["a_log"].shape).astype(np.float32)
+    params = P.from_reference(tree, cfg_t, "cpu")
+    for (path, want), got in zip(
+            jax.tree_util.tree_flatten_with_path(tree)[0], P.leaves(params)):
+        assert str(got.dtype).removeprefix("torch.") == want.dtype.name, path
+        bits = np.int16 if want.dtype.name == "bfloat16" else np.int32
+        view = torch.int16 if bits is np.int16 else torch.int32
+        assert np.array_equal(got.view(view).numpy(), want.view(bits)), path
 
 
 def test_init_is_seeded_and_follows_the_schema():
