@@ -8,7 +8,9 @@ Run from the root of the repository (it imports ``src/repro_torch``):
 Phases, each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; build the
-   kernel library from ``src/repro_torch/kernels/csrc`` and time it;
+   kernel library from ``src/repro_torch/kernels/csrc`` and time it, and
+   print ``nvcc -Xptxas -v``'s registers, shared memory and spills for
+   each tensor-core kernel;
 2. each CUDA kernel against its plain torch version on the card, at the
    main path's shapes (exact equality), with kernel, plain-version and
    library-call times (median of CUDA-event timings) and the kernel's
@@ -24,8 +26,9 @@ Phases, each fatal on failure:
    the kernel sweep of ``tests/test_kernels.py`` in float32 (atol 2e-5,
    rtol 1e-4) and bfloat16 (2e-2), then the serving path's shapes in
    bfloat16 (tinyllama heads: prefill Lq=1024 over a 2048-key cache,
-   decode Lq=1 at per-slot offsets) with kernel, plain-version and
-   ``scaled_dot_product_attention`` times and the kernel's bound;
+   decode Lq=1 at per-slot offsets: the tensor-core kernel and the split-K
+   pair) with kernel, plain-version and ``scaled_dot_product_attention``
+   times, the SDPA backend that ran, and the kernel's bound;
 7. the serving path: ``ServingEngine`` serves 16 requests (prompts of
    32..1024 tokens) with tinyllama-1.1b at full width in bfloat16,
    random weights from a seeded generator, 8 slots, kernels on — every
@@ -41,8 +44,9 @@ Phases, each fatal on failure:
    1e-5, rtol 1e-4), mamba2-130m's training shape (Bt 8, L 1024, H 24,
    P 64, G 1, N 128, chunk 256) in bfloat16 (2e-2) and float32, and the
    gradient of all six inputs through the autograd.Function against
-   autograd through ``ssd_ref`` at that shape; kernel, ``ssd_chunked_ref``
-   and ``ssd_ref`` times and the kernel's bound;
+   autograd through ``ssd_ref`` at that shape; kernel (bfloat16: the
+   chunk-parallel tensor-core kernels; float32: the CUDA-core kernel),
+   ``ssd_chunked_ref`` and ``ssd_ref`` times and the kernel's bound;
 10. the training path: ``launch.train`` trains mamba2-130m at full width
    and depth (24 layers, d_model 768, bfloat16) with kernels on, batch 8
    x 1024 tokens from ``pipeline.global_batch``, 5 AdamW steps — finite
@@ -66,6 +70,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -110,6 +115,31 @@ def time_ms(fn, torch, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, torch, reps: int = 10):
+    """Device time of one call of ``fn`` (kernels, memsets and copies it
+    launched, summed; torch.profiler over ``reps`` calls), or None if the
+    profiler gave no device events: CUDA-event timing of a wrapper call
+    also holds the host's time to launch it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    except Exception as exc:  # the profiler is information here, no gate
+        log(f"  (no device time: {type(exc).__name__}: {exc})")
+        return None
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def bound_ms(nbytes: float, nops: float,
              ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -123,6 +153,37 @@ def max_abs_err(a, b, torch) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+#: the tensor-core kernels whose ptxas report phase 1 prints
+TC_KERNELS = ("flash_fwd_mma_kernel", "flash_decode_split_kernel",
+              "flash_decode_merge_kernel", "ssd_cb_kernel", "ssd_state_kernel",
+              "ssd_pass_kernel", "ssd_chunk_scan_kernel")
+
+
+def ptxas_summary(log_text: str) -> list[str]:
+    """One line per tensor-core kernel instantiation in nvcc's ``-Xptxas
+    -v`` output: registers, static shared memory, spill stores and loads."""
+    out, name, spills = [], None, ""
+    for line in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            name = next((k for k in TC_KERNELS if k in mangled), None)
+            if name:
+                args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[1])
+                name += f"<{','.join(args)}>" if args else ""
+            continue
+        if name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {regs} registers, "
+                       f"{smem.group(1) if smem else 0} bytes static smem; "
+                       f"{spills}")
+            name, spills = None, ""
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -134,11 +195,12 @@ def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from the repository")
     sys.path.insert(0, str(SRC))
-    run(torch.device("cuda", 0), N_MAIN, N_GRID, args.out)
+    t0 = time.time()
+    run(torch.device("cuda", 0), N_MAIN, N_GRID, args.out, t0)
 
 
-def run(dev, n_main: int, n_grid: int, out_path=None) -> None:
-    """Phases 1-5 on device ``dev`` at ``n_main`` / ``n_grid`` elements."""
+def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
+    """Phases 1-11 on device ``dev`` at ``n_main`` / ``n_grid`` elements."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
                                            instances, rank_list_seq,
@@ -164,7 +226,16 @@ def run(dev, n_main: int, n_grid: int, out_path=None) -> None:
     results["build_s"] = time.time() - t0
     log(f"phase 1: kernel library built and loaded in "
         f"{results['build_s']:.1f} s")
-    log(build.build_info.get("log", "(library found prebuilt)"))
+    if "log" in build.build_info:
+        log("phase 1: ptxas (nvcc -Xptxas -v) for the tensor-core kernels; "
+            "their tiles are dynamic shared memory, sized at launch:")
+        for line in ptxas_summary(build.build_info["log"]):
+            log("  " + line)
+        log(f"  ssd_scan bf16 at mamba2-130m's shape needs "
+            f"{build.load_library().ssd_scan_bf16_smem_bytes(128, 64, 256)}"
+            f" bytes of dynamic shared memory (the largest of its kernels)")
+    else:
+        log("phase 1: library found prebuilt (no ptxas report)")
 
     # the main path's instance and capacities (host side)
     t0 = time.time()
@@ -374,6 +445,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None) -> None:
     if out_path:
         pathlib.Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(out_path).write_text(json.dumps(results, indent=1))
+    if t_start is not None:
+        log(f"chip_smoke: every phase passed in {time.time() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -395,6 +468,25 @@ def attention_bound(b, hq, hkv, lq, d, offsets, lk, elem_bytes):
     kv_rows = int(np.clip(pos.max(axis=1) + 1, 0, lk).sum())
     nbytes = elem_bytes * (2 * b * hq * lq * d + 2 * hkv * kv_rows * d)
     return bound_ms(nbytes, 4 * hq * d * pairs, BF16_OPS_PER_S)
+
+
+def sdpa_backend(fn, torch) -> tuple[list[str], dict]:
+    """The device kernels one call of ``fn`` ran (one torch.profiler
+    window) and the enabled ``torch.backends.cuda.*_sdp`` flags: which
+    SDPA backend the yardstick is."""
+    flags = {k: getattr(torch.backends.cuda, f"{k}_sdp_enabled")()
+             for k in ("flash", "mem_efficient", "math", "cudnn")
+             if hasattr(torch.backends.cuda, f"{k}_sdp_enabled")}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name[:100] for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+    except Exception as exc:  # the profiler is information here, no gate
+        names = [f"(no profile: {type(exc).__name__}: {exc})"]
+    return names, flags
 
 
 def flash_attention_phase(dev):
@@ -463,15 +555,31 @@ def flash_attention_phase(dev):
         plain = time_ms(lambda: fa_ref.attention_ref(q, k, v,
                                                      q_offset=q_offset), torch)
         lib_ms = time_ms(library_call, torch)
+        dev_ms = device_ms(lambda: fa_ops.flash_attention(
+            q, k, v, q_offset=q_offset), torch)
+        lib_dev_ms = device_ms(library_call, torch)
+        sdpa_kernels, sdpa_flags = sdpa_backend(library_call, torch)
         bnd, by = attention_bound(b, hq, hkv, lq, d, offs, lk, 2)
         rows[name] = {"b": b, "lq": lq, "lk": lk, "offsets": offs,
                       "max_abs_err": max_abs_err(out, want, torch), "ms": ms,
                       "plain_ms": plain, "library_ms": lib_ms,
-                      "bound_ms": bnd, "bound_by": by}
+                      "bound_ms": bnd, "bound_by": by,
+                      "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+                      "sdpa_kernels": sdpa_kernels, "sdpa_flags": sdpa_flags}
+        if name == "decode":
+            rows[name]["splits"] = fa_ops.decode_splits(
+                b, hkv, hq // hkv, lk, torch.cuda.get_device_properties(
+                    dev).multi_processor_count)
+        log(f"phase 6: SDPA ({name}) ran {sdpa_kernels}; enabled backends "
+            f"{sdpa_flags}")
         log(f"phase 6: flash_attention {name} bf16 B={b} Hq={hq} Hkv={hkv} "
             f"D={d} Lq={lq} Lk={lk}: max |err| {rows[name]['max_abs_err']:.3g};"
             f" kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib_ms:.4f} ms,"
-            f" bound {bnd:.4f} ms by {by}")
+            f" bound {bnd:.4f} ms by {by}"
+            + (f"; split-K over {rows[name]['splits']} splits"
+               if name == "decode" else "; tensor cores (mma.sync)")
+            + f"; device time (torch.profiler) kernel {fmt_ms(dev_ms)}, SDPA "
+              f"{fmt_ms(lib_dev_ms)}")
     pre, dec = rows["prefill"], rows["decode"]
     entry = {
         "name": "flash_attention", "route": "cuda",
@@ -482,9 +590,13 @@ def flash_attention_phase(dev):
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": pre["library_ms"],
+        "device_ms": pre["device_ms"],
+        "library_device_ms": pre["library_device_ms"],
         "ms_decode": dec["ms"], "plain_ms_decode": dec["plain_ms"],
         "bound_ms_decode": dec["bound_ms"], "bound_by_decode": dec["bound_by"],
-        "library_ms_decode": dec["library_ms"]}
+        "library_ms_decode": dec["library_ms"],
+        "device_ms_decode": dec["device_ms"],
+        "library_device_ms_decode": dec["library_device_ms"]}
     return entry, {"max_abs_err_cases": max(errs), **rows}
 
 
@@ -692,17 +804,19 @@ def ssd_scan_phase(dev):
             fail(f"ssd_scan {name} at the mamba2-130m shape differs from its "
                  f"plain version by {err}")
         ms = time_ms(lambda: ssd_ops.ssd_scan(*args, chunk), torch)
+        dev_ms = device_ms(lambda: ssd_ops.ssd_scan(*args, chunk), torch)
         chunked = time_ms(lambda: ssd_ref.ssd_chunked_ref(*args, chunk=chunk),
                           torch, reps=10)
         seq = time_ms(lambda: ssd_ref.ssd_ref(*args), torch, reps=3)
         bnd, by = ssd_bound(*SSD_MAIN, 2 if dt == torch.bfloat16 else 4)
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": chunked,
-                     "plain_sequential_ms": seq, "bound_ms": bnd,
-                     "bound_by": by}
+        res[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": chunked, "plain_sequential_ms": seq,
+                     "bound_ms": bnd, "bound_by": by}
         log(f"phase 9: ssd_scan {name} Bt={bt} L={l} H={h} P={p} G={g} N={n} "
             f"Q={chunk}: max |err| {err:.3g} (tolerance {tol}); kernel "
-            f"{ms:.4f} ms, ssd_chunked_ref {chunked:.4f} ms, ssd_ref "
-            f"{seq:.2f} ms, bound {bnd:.4f} ms by {by}")
+            f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), ssd_chunked_ref "
+            f"{chunked:.4f} ms, ssd_ref {seq:.2f} ms, bound {bnd:.4f} ms by "
+            f"{by}")
         del out, want
 
     # gradient at the full shape: the Function against autograd through
@@ -743,7 +857,7 @@ def ssd_scan_phase(dev):
                                    res["float32"]["max_abs_err"]]),
         "ms": bf["ms"], "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "device_ms": bf["device_ms"],
         "ms_float32": res["float32"]["ms"],
         "plain_ms_float32": res["float32"]["plain_ms"],
         "bound_ms_float32": res["float32"]["bound_ms"],

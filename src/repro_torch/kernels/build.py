@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+Every ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers it includes) is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into
 one shared library with a plain C interface, loaded with ``ctypes``.
 Each source compiles in its own ``nvcc`` process, all started together;
 a final ``nvcc -shared`` links them. The library lands in ``_build/``
-next to this file, named by a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads at once.
+next to this file, named by a hash of the sources, headers and flags, so
+a changed source or header rebuilds and an unchanged one loads at once.
 
 Nothing here runs at import: the first kernel launch calls
 :func:`load_library`.
@@ -51,7 +52,7 @@ def _sources() -> list[pathlib.Path]:
 
 def library_path(sources=None) -> pathlib.Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources or _sources():
+    for src in list(sources or _sources()) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"
@@ -73,7 +74,10 @@ def build(sources=None) -> pathlib.Path:
         for src in sources:
             obj = pathlib.Path(tmp) / (src.stem + ".o")
             procs.append((src, obj, subprocess.Popen(
-                [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
+                # -I csrc: a source built from elsewhere (an A/B variant)
+                # still finds the shared headers
+                [nvcc, *COMPILE_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+                 str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         log, failed = [], []
         for src, _, proc in procs:
@@ -109,11 +113,23 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
         ctypes.c_float, ctypes.c_float, vp]
     lib.flash_attention_launch.restype = ci
+    lib.flash_attention_decode_launch.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+        ctypes.c_float, ctypes.c_float, ci, ci, ci, vp, vp, vp]
+    lib.flash_attention_decode_launch.restype = ci
     lib.ssd_scan_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
     lib.ssd_scan_launch.restype = ci
     lib.ssd_scan_smem_bytes.argtypes = [ci, ci, ci]
     lib.ssd_scan_smem_bytes.restype = ll
+    lib.ssd_scan_bf16_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+        ci, vp]
+    lib.ssd_scan_bf16_launch.restype = ci
+    lib.ssd_scan_bf16_smem_bytes.argtypes = [ci, ci, ci]
+    lib.ssd_scan_bf16_smem_bytes.restype = ll
+    lib.ssd_scan_bf16_chunk_pad.argtypes = [ci]
+    lib.ssd_scan_bf16_chunk_pad.restype = ci
     return lib
 
 

@@ -4,9 +4,18 @@ through :func:`ref.attention_ref` (the JAX package's custom vjp,
 ``src/repro/kernels/flash_attention/ops.py``).
 
 On a CUDA tensor the forward launches the kernel or raises; it never
-gives way to the plain version. ``flash_attention.launches`` counts kernel
-launches (one per forward on the card; the backward launches none).
-Differentiable in q, k and v; a ``q_offset`` tensor is not.
+gives way to the plain version. By dtype and query length:
+
+- bfloat16, Lq > 1: the tensor-core kernel (``flash_fwd_mma_kernel``);
+- bfloat16, Lq = 1 (decode): split-K, ``flash_decode_split_kernel`` over
+  :func:`decode_splits` splits of the keys, then
+  ``flash_decode_merge_kernel``, with float32 partials in scratch
+  allocated here;
+- float32: the CUDA-core kernel (``flash_fwd_kernel``).
+
+``flash_attention.launches`` counts wrapper calls that launched: one per
+forward on the card, the decode's two kernels counting once (the backward
+launches none). Differentiable in q, k and v; a ``q_offset`` tensor is not.
 """
 from __future__ import annotations
 
@@ -20,6 +29,28 @@ HEAD_DIMS = (16, 24, 32, 64, 112, 128, 256)
 #: most query heads that share one kv head (rows of the kernel's tile)
 MAX_GROUP = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: keys a decode tile; a decode part is a whole number of them
+DECODE_TILE = 64
+#: parts (warps) a decode split (CTA) has: flash_attention.cu's kDecWarps
+PARTS_PER_SPLIT = 4
+
+
+def decode_splits(b: int, hkv: int, group: int, lk: int, n_sm: int) -> int:
+    """Key splits (CTAs along the keys) of a decode launch: enough that the
+    grid (splits, Hkv x 16-row tiles of the group, B) puts two CTAs on each
+    of ``n_sm`` SMs, but no more than leave each of a split's
+    ``PARTS_PER_SPLIT`` parts one tile of keys."""
+    ctas = b * hkv * -(-group // 16)
+    want = -(-2 * n_sm // max(ctas, 1))
+    most = -(-lk // (PARTS_PER_SPLIT * DECODE_TILE))
+    return max(1, min(want, most))
+
+
+def decode_part_len(lk: int, splits: int) -> int:
+    """Keys each decode part covers: a multiple of ``DECODE_TILE``, so the
+    ``splits * PARTS_PER_SPLIT`` parts cover all ``lk`` keys."""
+    parts = splits * PARTS_PER_SPLIT
+    return max(1, -(-lk // (parts * DECODE_TILE))) * DECODE_TILE
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -104,6 +135,23 @@ def _forward(q, k, v, *, causal, window, softcap, scale, q_offset):
     out = torch.empty_like(q)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16 and lq == 1:
+        splits = decode_splits(b, hkv, hq // hkv, lk, torch.cuda
+                               .get_device_properties(q.device)
+                               .multi_processor_count)
+        rows = b * hq * splits * PARTS_PER_SPLIT
+        # one scratch: (m, l) of every part, then its float32 acc
+        part = torch.empty(rows * (2 + d), dtype=torch.float32,
+                           device=q.device)
+        _build.check(lib.flash_attention_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), off_ptr,
+            off_scalar, b, hq, hkv, lk, d, int(causal),
+            -1 if window is None else int(window), int(softcap is not None),
+            0.0 if softcap is None else float(softcap), float(scale), splits,
+            PARTS_PER_SPLIT, decode_part_len(lk, splits), part.data_ptr(),
+            part.data_ptr() + 4 * 2 * rows, stream), "flash_attention")
+        flash_attention.launches += 1
+        return out
     _build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), off_ptr,
         off_scalar, b, hq, hkv, lq, lk, d, _DTYPES[q.dtype], int(causal),

@@ -5,10 +5,17 @@ sequential scan for CPU tensors, and a backward that recomputes through
 
 On a CUDA tensor the forward launches the kernel or raises; it never gives
 way to the plain version, and a ragged last chunk (L % chunk != 0) is
-masked by the kernel. ``ssd_scan.launches`` counts kernel launches (one
-per forward on the card). The backward goes through the sequential
-``ssd_ref`` and never through ``ssd_chunked_ref``, whose masked
-exponentials give NaN gradients at long sequences.
+masked by the kernel. By dtype:
+
+- bfloat16: the chunk-parallel tensor-core kernels (C B^T, chunk states,
+  state pass, chunk scan; four launches) with float32 scratch allocated
+  here; N and P must be multiples of 8 (N <= 256);
+- float32: the CUDA-core kernel, one launch.
+
+``ssd_scan.launches`` counts wrapper calls that launched (one per forward
+on the card, whatever the number of kernels). The backward goes through
+the sequential ``ssd_ref`` and never through ``ssd_chunked_ref``, whose
+masked exponentials give NaN gradients at long sequences.
 """
 from __future__ import annotations
 
@@ -65,16 +72,43 @@ def _launch(x, dt, A, B, C, D, chunk):
     if x.numel() == 0:
         return torch.empty_like(x)  # nothing to launch, nothing to count
     lib = _build.load_library()
-    smem = lib.ssd_scan_smem_bytes(n, p, chunk)
-    if smem > MAX_SMEM:
-        raise ValueError(f"ssd_scan: N={n}, P={p}, chunk={chunk} need {smem} "
-                         f"bytes of shared memory (at most {MAX_SMEM})")
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(lib.ssd_scan_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        None if D is None else D.data_ptr(), y.data_ptr(), bt, l, h, g, n, p,
-        chunk, _DTYPES[x.dtype], stream), "ssd_scan")
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), None if D is None else D.data_ptr(), y.data_ptr())
+    if x.dtype == torch.bfloat16:
+        if n % 8 or p % 8 or n > 256:
+            raise ValueError(f"ssd_scan: bfloat16 needs N and P multiples of "
+                             f"8 and N <= 256 (got N={n}, P={p})")
+        if any(t.data_ptr() % 16 for t in (x, B, C)):
+            raise ValueError("ssd_scan: bfloat16 x, B and C must be 16-byte "
+                             "aligned")
+        smem = lib.ssd_scan_bf16_smem_bytes(n, p, chunk)
+        if not 0 < smem <= MAX_SMEM:
+            raise ValueError(f"ssd_scan: N={n}, P={p}, chunk={chunk} need "
+                             f"{smem} bytes of shared memory (at most "
+                             f"{MAX_SMEM})")
+        nc, qp = -(-l // chunk), lib.ssd_scan_bf16_chunk_pad(chunk)
+        # one float32 scratch: C B^T (Bt, nc, G, the 16 x 16 blocks of the
+        # lower block triangle of qp x qp), the chunk states (Bt, H, nc, N,
+        # P) then as many bf16 entering states (half the floats), and the
+        # decays (Bt, H, nc), each 16-byte aligned
+        blocks = qp // 16 * (qp // 16 + 1) // 2
+        n_cb, n_st = bt * nc * g * blocks * 256, bt * h * nc * n * p * 3 // 2
+        scratch = torch.empty(n_cb + n_st + bt * h * nc, dtype=torch.float32,
+                              device=x.device)
+        base = scratch.data_ptr()
+        err = lib.ssd_scan_bf16_launch(
+            *ptrs, base, base + 4 * n_cb, base + 4 * (n_cb + n_st), bt, l,
+            h, g, n, p, chunk, qp, stream)
+    else:
+        smem = lib.ssd_scan_smem_bytes(n, p, chunk)
+        if smem > MAX_SMEM:
+            raise ValueError(f"ssd_scan: N={n}, P={p}, chunk={chunk} need "
+                             f"{smem} bytes of shared memory (at most "
+                             f"{MAX_SMEM})")
+        err = lib.ssd_scan_launch(*ptrs, bt, l, h, g, n, p, chunk, stream)
+    _build.check(err, "ssd_scan")
     ssd_scan.launches += 1
     return y
 

@@ -125,3 +125,79 @@ def ssd_chunked_ref(x, dt, A, B, C, D=None, chunk=256, initial_state=None,
             "bih,bihnp->bhnp", torch.exp(cum[:, -1:, :] - cum), s_chunk)
         return y, s_fin
     return y
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 and back (differentiable)."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def ssd_three_stage_ref(x, dt, A, B, C, D=None, chunk=256,
+                        bf16_points=False):
+    """The bf16 kernel's decomposition in plain torch: (1) each chunk's
+    state contribution sum_s B_s^T (w_s x_s), w_s = dt_s exp(lc_end -
+    lc_s); (2) the sequential pass S_c = exp(lc_end,c) S_{c-1} +
+    contribution_c; (3) each chunk's y = exp(lc_t) C_t S_{c-1} + ((C B^T)
+    . M . dt_s) x + D x, M[t,s] = exp(lc_t - lc_s) for s <= t.
+
+    The log-decay prefix lc is summed in float64 and only differences are
+    rounded to float32; exponents are taken only where s <= t (the masked
+    entries exponentiate 0), so the gradient is finite at any log-decay. A
+    ragged last chunk (L % chunk != 0) is zero-padded. With
+    ``bf16_points`` the operands the kernel rounds to bfloat16 before their
+    products are rounded here too: w . x and the state S_{c-1} to bfloat16,
+    and W = (C B^T) . M . dt_s as a high and a low bfloat16 part (two
+    products: rounded once, W alone takes most of the bf16 gate's 2e-2 in
+    the training regime, and with dt . x rounded too the gate is missed). Same
+    arguments and result as :func:`ssd_ref`; not on the main path."""
+    bt, l, h, p = x.shape
+    _, _, g, n = B.shape
+    rep = h // g
+    q = min(chunk, l)
+    nc = -(-l // q)
+    pad = nc * q - l
+    rnd = _bf16 if bf16_points else (lambda t: t)
+
+    def chunks(t):
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((bt, pad) + t.shape[2:])], dim=1)
+        return t.reshape((bt, nc, q) + t.shape[2:])
+
+    xf, dtf, Bf, Cf = chunks(x), chunks(dt), chunks(B), chunks(C)
+    lc = torch.cumsum((dtf * A.float()).double(), dim=2)   # (bt,nc,q,h)
+    lc_end = lc[:, :, -1:]                                 # pad: dt = 0
+    Bh = Bf.repeat_interleave(rep, dim=3)                  # (bt,nc,q,h,n)
+    Ch = Cf.repeat_interleave(rep, dim=3)
+    # (1) chunk states
+    w = dtf * torch.exp((lc_end - lc).float())
+    contrib = torch.einsum("bcshn,bcshp->bchnp", Bh,
+                           rnd(w[..., None] * xf))
+    # (2) the state entering each chunk
+    decay = torch.exp(lc_end[:, :, 0]).float()             # (bt,nc,h)
+    s = xf.new_zeros((bt, h, n, p))
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = decay[:, c, :, None, None] * s + contrib[:, c]
+    s_in = torch.stack(s_in, dim=1)                        # (bt,nc,h,n,p)
+    if bf16_points:
+        s_in = _bf16(s_in)
+    # (3) chunk scan
+    cb = torch.einsum("bctgn,bcsgn->bctsg", Cf, Bf).repeat_interleave(
+        rep, dim=4)                                        # (bt,nc,t,s,h)
+    seg = lc[:, :, :, None, :] - lc[:, :, None, :, :]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    mask = tri[None, None, :, :, None]
+    m = torch.where(mask, torch.exp(torch.where(mask, seg, 0.0).float()), 0.0)
+    w = cb * m * dtf[:, :, None, :, :]                     # dt_s folded in
+    if bf16_points:
+        hi = _bf16(w)
+        w = hi + _bf16(w - hi)
+    y = torch.einsum("bctsh,bcshp->bcthp", w, xf)
+    y = y + torch.exp(lc.float())[..., None] * torch.einsum(
+        "bcthn,bchnp->bcthp", Ch, s_in)
+    y = y.reshape(bt, nc * q, h, p)[:, :l]
+    if D is not None:
+        y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype)

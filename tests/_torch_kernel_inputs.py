@@ -94,3 +94,26 @@ def ssd_inputs(bt, l, h, g, n, p, seed, dtype=torch.float32):
     C = f(rng.normal(size=(bt, l, g, n)) * 0.5)
     D = f(rng.normal(size=(h,)), torch.float32)
     return x, dt, A, B, C, D
+
+
+#: ragged (L % chunk != 0) and grouped (G < H) SSD shapes (bt, l, h, g, n,
+#: p, chunk): two full chunks and a tail, G = 1 < H, mamba2-130m's widths,
+#: and one chunk of 130 steps (a ragged 16-row slab)
+SSD_RAGGED = [
+    (1, 300, 4, 2, 16, 32, 128),
+    (2, 100, 8, 1, 32, 16, 64),
+    (1, 1000, 24, 1, 128, 64, 256),
+    (1, 130, 6, 3, 64, 48, 130),
+]
+
+
+def ssd_training_inputs(bt, l, h, g, n, p, seed, dtype=torch.float32):
+    """The training regime: x, B, C, D as :func:`ssd_inputs`, but dt =
+    softplus(N(0, 1)) and A = -1, as at mamba2-130m's init, so a chunk of
+    256 steps sums its log-decay to about -200, far past float32's exp
+    underflow at -88."""
+    x, _, _, B, C, D = ssd_inputs(bt, l, h, g, n, p, seed, dtype)
+    rng = np.random.default_rng(seed + 1)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.normal(size=(bt, l, h)).astype(np.float32)))
+    return x, dt, -torch.ones(h), B, C, D

@@ -7,9 +7,10 @@ imports no jax, so it runs on a machine without it:
 import pytest
 import torch
 
-from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, SSD_CASES, SSD_TOL,
-                                  attn_inputs, chains, float_dist,
-                                  pack_inputs, ssd_inputs)
+from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, SSD_CASES,
+                                  SSD_RAGGED, SSD_TOL, attn_inputs, chains,
+                                  float_dist, pack_inputs, ssd_inputs,
+                                  ssd_training_inputs)
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.local_chase import ops as lc_ops, ref as lc_ref
@@ -93,6 +94,79 @@ def test_flash_attention_cuda_decode_per_slot(cuda, d):
 
 
 @pytest.mark.torch_cuda
+@pytest.mark.parametrize("d", fa_ops.HEAD_DIMS)
+@pytest.mark.parametrize("kw", [{}, {"window": 70, "softcap": 30.0},
+                                {"causal": False}], ids=["causal",
+                                                         "window", "full"])
+def test_flash_attention_cuda_bf16_tensor_cores(cuda, d, kw):
+    """The bf16 prefill kernel (mma.sync) for every head dim it is built
+    for: GQA group 4, 150 queries over 230 keys (ragged 64-key tiles and a
+    ragged 128-row tile), against the plain version at the bf16 tolerance."""
+    q, k, v = (t.to(cuda) for t in attn_inputs(2, 8, 2, 150, 230, d,
+                                                seed=d, dtype=torch.bfloat16))
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, q_offset=80, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(
+        out.float(), fa_ref.attention_ref(q, k, v, q_offset=80, **kw).float(),
+        **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("d", [24, 64, 128, 256])
+@pytest.mark.parametrize("kw", [{}, {"window": 300, "softcap": 30.0},
+                                {"causal": False}], ids=["causal",
+                                                         "window", "full"])
+def test_flash_attention_cuda_bf16_long_keys(cuda, d, kw):
+    """The bf16 prefill over 1600 keys (25 K/V tiles through the ring) at
+    per-slot offsets 1400 and -50 (under the causal mask the first 50 rows
+    of the second slot keep no key: exactly 0)."""
+    q, k, v = (t.to(cuda) for t in attn_inputs(2, 16, 2, 200, 1600, d,
+                                                seed=d, dtype=torch.bfloat16))
+    off = torch.tensor([1400, -50], dtype=torch.int32, device=cuda)
+    out = fa_ops.flash_attention(q, k, v, q_offset=off, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out.float(), fa_ref.attention_ref(q, k, v, q_offset=off, **kw).float(),
+        **ATTN_TOL[torch.bfloat16])
+    if kw.get("causal", True):
+        assert torch.count_nonzero(out[1, :, :50]) == 0
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("d", fa_ops.HEAD_DIMS)
+def test_flash_attention_cuda_split_decode(cuda, d):
+    """bf16 decode through split-K: per-slot offsets 0, 1, a part
+    boundary and Lk - 1, and -1 (a row with no kept key, exactly 0), with
+    the merge held to the plain version and to its plain split-and-merge."""
+    b, hq, hkv, lk = 5, 16, 2, 1000
+    splits = fa_ops.decode_splits(b, hkv, hq // hkv, lk, torch.cuda
+                                  .get_device_properties(cuda)
+                                  .multi_processor_count)
+    part = fa_ops.decode_part_len(lk, splits)
+    assert splits > 1 and part < lk
+    offsets = torch.tensor([0, 1, part, lk - 1, -1], dtype=torch.int32,
+                           device=cuda)
+    q, k, v = (t.to(cuda) for t in attn_inputs(b, hq, hkv, 1, lk, d, seed=d,
+                                                dtype=torch.bfloat16))
+    for kw in ({}, {"window": 300, "softcap": 30.0}):
+        before = fa_ops.flash_attention.launches
+        out = fa_ops.flash_attention(q, k, v, q_offset=offsets, **kw)
+        torch.cuda.synchronize()
+        assert fa_ops.flash_attention.launches == before + 1
+        want = fa_ref.attention_ref(q, k, v, q_offset=offsets, **kw).float()
+        torch.testing.assert_close(out.float(), want,
+                                   **ATTN_TOL[torch.bfloat16])
+        torch.testing.assert_close(
+            out.float(), fa_ref.attention_split_ref(
+                q, k, v, part_len=part, q_offset=offsets, **kw).float(),
+            **ATTN_TOL[torch.bfloat16])
+        assert torch.count_nonzero(out[4]) == 0
+
+
+@pytest.mark.torch_cuda
 def test_flash_attention_cuda_rejects_what_it_does_not_take(cuda):
     q, k, v = (t.to(cuda) for t in attn_inputs(1, 4, 2, 8, 8, 48, seed=0))
     with pytest.raises(ValueError, match="head dim"):
@@ -164,6 +238,31 @@ def test_ssd_scan_cuda_underflowing_decays(cuda):
     assert torch.isfinite(y).all()
     torch.testing.assert_close(y, ssd_ref.ssd_ref(x, dt, A, B, C, D),
                                **SSD_TOL)
+
+
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("shape", SSD_CASES + SSD_RAGGED)
+def test_ssd_scan_cuda_bf16_tensor_cores(cuda, shape):
+    """The chunk-parallel bf16 kernels on the kernel sweep and the ragged
+    and grouped shapes, against ssd_ref on the same bf16 inputs."""
+    _ssd_check(cuda, shape, torch.bfloat16, BF16_TOL, seed=sum(shape))
+
+
+@pytest.mark.torch_cuda
+def test_ssd_scan_cuda_bf16_training_regime(cuda):
+    """bf16 at mamba2-130m's shape with dt = softplus(N(0, 1)) and A = -1:
+    log-decays of about -200 a chunk, where W rounded once to bf16 would
+    take most of the gate (the kernel splits it in two parts)."""
+    args = [t.to(cuda) for t in ssd_training_inputs(2, 1024, 24, 1, 128, 64,
+                                                    seed=5,
+                                                    dtype=torch.bfloat16)]
+    y = ssd_ops.ssd_scan(*args, 256)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y.float(), ssd_ref.ssd_ref(*args).float(),
+                               **BF16_TOL)
 
 
 @pytest.mark.torch_cuda

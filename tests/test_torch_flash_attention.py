@@ -6,6 +6,7 @@ autograd.Function against ``jax.grad`` through the reference's custom
 vjp. The CUDA kernel's twins of these checks are in
 ``test_torch_cuda.py``."""
 import functools
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -123,3 +124,56 @@ def test_offset_tensor_is_not_differentiated():
     off = torch.tensor([3, 19], dtype=torch.int32)
     fa_ops.flash_attention(*leaves, q_offset=off).sum().backward()
     assert all(t.grad is not None for t in leaves) and off.grad is None
+
+
+def test_decode_split_count():
+    """The split count of a bf16 decode: at the serving shape (8 slots, 4
+    kv heads, group 8, a 2048-key cache, 132 SMs) 8 splits of 4 parts of
+    64 keys, 256 CTAs; everywhere parts of whole tiles that cover the keys,
+    no split wholly past them, and two CTAs per SM unless that would leave
+    a part less than one tile."""
+    assert fa_ops.decode_splits(8, 4, 8, 2048, 132) == 8
+    assert fa_ops.decode_part_len(2048, 8) == 64
+    per_split = fa_ops.PARTS_PER_SPLIT * fa_ops.DECODE_TILE
+    for b, hkv, group, lk, n_sm in itertools.product(
+            (1, 8), (1, 4), (1, 8, 40), (1, 63, 64, 300, 2048, 5000),
+            (8, 132)):
+        splits = fa_ops.decode_splits(b, hkv, group, lk, n_sm)
+        part = fa_ops.decode_part_len(lk, splits)
+        assert splits >= 1 and part % fa_ops.DECODE_TILE == 0
+        assert splits * fa_ops.PARTS_PER_SPLIT * part >= lk
+        assert (splits - 1) * per_split < lk or splits == 1
+        ctas = b * hkv * -(-group // 16) * splits
+        assert ctas >= 2 * n_sm or splits == -(-lk // per_split)
+
+
+@pytest.mark.parametrize("part_len", [64, 128])
+@pytest.mark.parametrize("case", range(len(ATTN_CASES)))
+def test_split_merge_matches_reference(case, part_len):
+    """The split-K decomposition (attention per key part, merged by
+    log-sum-exp) against ``attention_ref`` and the JAX reference on the
+    kernel sweep, float32 at the kernel tolerance."""
+    b, hq, hkv, lq, lk, d, kw = ATTN_CASES[case]
+    q, k, v = attn_inputs(b, hq, hkv, lq, lk, d, seed=case)
+    out = fa_ref.attention_split_ref(q, k, v, part_len=part_len, **kw)
+    torch.testing.assert_close(out, fa_ref.attention_ref(q, k, v, **kw),
+                               **ATTN_TOL[torch.float32])
+    want = fa_ref_jax.attention_ref(_jax(q), _jax(k), _jax(v), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                               **ATTN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (100, 30.0)])
+def test_split_merge_per_slot_offsets(window, softcap):
+    """Decode slots at offsets 0 (three of four 64-key parts empty), 1, a
+    part boundary, the last key, and -1 (no kept key: exactly 0)."""
+    offsets = np.array([0, 1, 64, 255, -1], np.int32)
+    q, k, v = attn_inputs(5, 8, 2, 1, 256, 16, seed=3)
+    kw = dict(window=window, softcap=softcap)
+    out = fa_ref.attention_split_ref(q, k, v, part_len=64, q_offset=torch
+                                     .from_numpy(offsets), **kw)
+    want = fa_ref_jax.attention_ref(_jax(q), _jax(k), _jax(v),
+                                    q_offset=jnp.asarray(offsets), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                               **ATTN_TOL[torch.float32])
+    assert torch.count_nonzero(out[4]) == 0 and torch.isfinite(out).all()

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import test_kernels
-from _torch_kernel_inputs import SSD_CASES, SSD_TOL, ssd_inputs
+from _torch_kernel_inputs import (SSD_CASES, SSD_RAGGED, SSD_TOL,
+                                  ssd_inputs, ssd_training_inputs)
 from repro.kernels.ssd_scan import ops as ssd_ops_jax
 from repro.kernels.ssd_scan import ref as ssd_ref_jax
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
@@ -173,3 +174,40 @@ def test_wrapper_rejects_bad_shapes_and_dtypes(change, match):
         ssd_ops.ssd_scan(**_bad(**change))
     with pytest.raises(ValueError, match="chunk"):
         ssd_ops.ssd_scan(**_bad(), chunk=0)
+
+
+@pytest.mark.parametrize("case", SSD_CASES + SSD_RAGGED)
+def test_three_stage_matches_references(case):
+    """The bf16 kernel's decomposition (chunk states, state pass, chunk
+    scan), in float32 without rounding points, against ``ssd_ref`` and the
+    JAX package's ``ssd_ref`` and Pallas kernel (interpret mode; the
+    reference op takes ``ssd_ref`` itself for a ragged L) within SSD_TOL."""
+    bt, l, h, g, n, p, chunk = case
+    args = ssd_inputs(bt, l, h, g, n, p, seed=sum(case))
+    y = ssd_ref.ssd_three_stage_ref(*args, chunk=chunk)
+    _close(y, ssd_ref.ssd_ref(*args))
+    args_j = tuple(map(_jax, args))
+    _close(y, _ref_j(*args_j))
+    _close(y, ssd_ops_jax.ssd_scan(*args_j, chunk, True))
+
+
+def test_three_stage_bf16_points_in_the_training_regime():
+    """With the kernel's bf16 rounding points, at a chunk log-decay past
+    -180 (dt = softplus(N(0, 1)), A = -1): within 2e-2 of ``ssd_ref`` and
+    of the JAX package's, and a finite gradient in every input."""
+    bt, l, h, g, n, p, chunk = 1, 512, 2, 1, 32, 16, 256
+    args = ssd_training_inputs(bt, l, h, g, n, p, seed=5,
+                               dtype=torch.bfloat16)
+    dt, A = args[1], args[2]
+    assert float((dt * A).reshape(bt, -1, chunk, h).sum(2).max()) < -180
+    y = ssd_ref.ssd_three_stage_ref(*args, chunk=chunk, bf16_points=True)
+    assert y.dtype == torch.bfloat16
+    tol = dict(atol=2e-2, rtol=2e-2)
+    _close(y, ssd_ref.ssd_ref(*args).float(), **tol)
+    _close(y, _ref_j(*(_jax(t.float()) for t in args)), **tol)
+    leaves = [t.float().requires_grad_() for t in args]
+    w = torch.from_numpy(np.random.default_rng(0).normal(
+        size=args[0].shape).astype(np.float32))
+    out = ssd_ref.ssd_three_stage_ref(*leaves, chunk=chunk, bf16_points=True)
+    grads = torch.autograd.grad((out * w).sum(), leaves)
+    assert all(torch.isfinite(t).all() for t in grads)

@@ -16,8 +16,10 @@ over a 2048-key cache:
 
 - prefill: B = 1, Lq = 1024, offset 0 (the serving path's 1024 bucket);
 - decode: B = 8, Lq = 1, per-slot offsets from seed 3 (as chip_smoke.py);
-- decode at one offset for every slot, 63, 511 and 2047: 1, 8 and 32
-  K/V tiles per CTA, which gives the kernel's time per tile.
+- decode at one offset for every slot, 63, 511 and 2047.
+
+Both versions must export the launch functions ``kernels/build.py``
+declares; ``csrc/`` is on the include path of both builds.
 """
 from __future__ import annotations
 

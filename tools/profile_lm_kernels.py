@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Device time of the port's two LM kernels beside SDPA, on one CUDA card.
+
+Run from the root of the repository, after or beside ``chip_smoke.py``:
+
+    python3 tools/profile_lm_kernels.py
+
+For bf16 inputs it prints, from torch.profiler's CUDA trace (10 calls
+each), every device kernel a wrapper call launched with its time per
+call, the host's time to enqueue one call (50 calls, no synchronisation
+inside), and for attention the rate in TFLOP/s over the unmasked pairs
+(4 D operations each):
+
+- ``flash_attention`` with tinyllama's heads (Hq 32, Hkv 4, D 64): the
+  serving prefill (Lq 1024 over 2048 keys, causal), the same without the
+  mask, a causal 4096 x 4096 prefill, and the serving decode (8 slots at
+  per-slot offsets), each beside ``scaled_dot_product_attention`` on the
+  same inputs (its backend's kernels are named);
+- ``ssd_scan`` at mamba2-130m's training shape (Bt 8, L 1024, H 24, P 64,
+  G 1, N 128, chunk 256) and at Bt 1, each of its four kernels apart.
+"""
+from __future__ import annotations
+
+import pathlib
+import sys
+import time
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "tools"))
+from profile_port import device_events, per_name  # noqa: E402
+
+
+def profile_calls(fn, torch, reps: int = 10):
+    """{device kernel name: ms per call} over ``reps`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {k: us / reps / 1e3 for k, (_, us) in
+            per_name(device_events(prof)).items()}
+
+
+def host_us(fn, torch, reps: int = 50) -> float:
+    """The host's time to enqueue one call of ``fn`` (microseconds)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def report(what: str, fn, torch, flops: float | None = None) -> None:
+    times = profile_calls(fn, torch)
+    total = sum(times.values())
+    rate = f", {flops / total / 1e9:.1f} TFLOP/s" if flops else ""
+    print(f"{what}: device {total:.4f} ms per call{rate}; host enqueue "
+          f"{host_us(fn, torch):.1f} us")
+    for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
+        print(f"    {ms:.4f} ms  {name[:100]}")
+
+
+def main() -> None:
+    import torch
+    import torch.nn.functional as F
+    if not torch.cuda.is_available():
+        sys.exit("profile_lm_kernels: needs a CUDA device")
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import ssd_inputs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    dev = torch.device("cuda", 0)
+    print(f"card {torch.cuda.get_device_name(0)}")
+    g = torch.Generator(device=dev).manual_seed(11)
+    hq, hkv, d = 32, 4, 64
+    for b, lq, lk, causal in ((1, 1024, 2048, True), (1, 1024, 2048, False),
+                              (1, 4096, 4096, True)):
+        q = torch.randn((b, hq, lq, d), generator=g, device=dev).bfloat16()
+        k = torch.randn((b, hkv, lk, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((b, hkv, lk, d), generator=g, device=dev).bfloat16()
+        pairs = (b * sum(min(i + 1, lk) for i in range(lq)) if causal
+                 else b * lq * lk)
+        flops = 4 * d * hq * pairs
+        what = f"B {b} Lq {lq} Lk {lk} {'causal' if causal else 'no mask'}"
+        report(f"flash_attention {what}", lambda: fa_ops.flash_attention(
+            q, k, v, causal=causal), torch, flops)
+        # SDPA's causal mask is aligned upper left: offset 0 over Lk keys
+        report(f"SDPA {what}", lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), torch, flops)
+
+    lk = 2048
+    offs = np.random.default_rng(3).integers(0, lk, 8).tolist()
+    q = torch.randn((8, hq, 1, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((8, hkv, lk, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((8, hkv, lk, d), generator=g, device=dev).bfloat16()
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    mask = (torch.arange(lk, device=dev)[None, :] <= off[:, None])[
+        :, None, None, :]
+    report("flash_attention decode B 8 at per-slot offsets",
+           lambda: fa_ops.flash_attention(q, k, v, q_offset=off), torch)
+    report("SDPA decode B 8 at per-slot offsets",
+           lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=mask, enable_gqa=True), torch)
+
+    for bt in (8, 1):
+        args = [t.to(dev) for t in ssd_inputs(bt, 1024, 24, 1, 128, 64,
+                                               seed=1, dtype=torch.bfloat16)]
+        report(f"ssd_scan bf16 Bt {bt} L 1024 H 24 P 64 N 128 chunk 256",
+               lambda: ssd_ops.ssd_scan(*args, 256), torch)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,13 @@ It prints, from the profiler's CUDA trace:
 - for one warm main-path solve (List(n, gamma=1), kernels on): the
   wall time, the summed device time of all kernels, memsets and copies,
   the device's busy and idle share, and the top device-time consumers;
-- the peak device memory of that solve.
+- the peak device memory of that solve;
+- ``mailbox_pack`` over every hop of that solve: its launches, its summed
+  kernel device time, the summed bound of each call (the bytes that call
+  must move at the card's memory rate, as ``chip_smoke.py`` counts them
+  for one hop) and their difference, launches x (time - bound) per solve
+  (the memsets before each launch are not counted: the profile does not
+  tell them from the solve's other memsets).
 
 The profile is read from a Chrome trace written to a temporary directory
 inside the repository and removed afterwards.
@@ -31,6 +37,9 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import HBM_BYTES_PER_S  # noqa: E402
+
 DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 
 
@@ -126,12 +135,26 @@ def main() -> None:
     solve()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, _, stats = solve()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    pack, pack_bounds = mp_ops.mailbox_pack, []
+
+    def recording_pack(cols, slots, n_rows):
+        cols = list(cols)
+        w, (pe, q_len) = len(cols), slots.shape
+        pack_bounds.append(4 * pe * (w * n_rows + (w + 1) * q_len)
+                           / HBM_BYTES_PER_S * 1e3)
+        return pack(cols, slots, n_rows)
+
+    recording_pack.launches = 0  # the wrapper counts on its module name
+    mp_ops.mailbox_pack = recording_pack
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, _, stats = solve()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        mp_ops.mailbox_pack = pack
     peak = torch.cuda.max_memory_allocated(dev)
     events = device_events(prof)
     busy_us = sum(float(e["dur"]) for e in events)
@@ -140,6 +163,12 @@ def main() -> None:
           f"idle {100 - 100 * busy_us / 1e6 / wall:.1f} %; "
           f"{len(events)} device events; peak memory {peak / 2**30:.2f} GiB")
     print(f"  stages: {stats['stage_wall_s']}")
+    pack_us = [float(e["dur"]) for e in events
+               if "mailbox_pack_kernel" in e["name"]]
+    print(f"  mailbox_pack over the solve: {len(pack_bounds)} calls, "
+          f"{len(pack_us)} kernels, device {sum(pack_us) / 1e3:.4f} ms, "
+          f"summed bound {sum(pack_bounds):.4f} ms, launches x (time - "
+          f"bound) {sum(pack_us) / 1e3 - sum(pack_bounds):.4f} ms per solve")
     top = sorted(per_name(events).items(), key=lambda kv: -kv[1][1])[:12]
     for kname, (count, us) in top:
         print(f"  {us / 1e3:9.2f} ms  {count:7d} x  {kname[:90]}")

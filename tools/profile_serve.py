@@ -33,12 +33,16 @@ sys.path.insert(0, str(ROOT / "tools"))
 from profile_port import device_events, per_name  # noqa: E402
 
 GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
+#: the port's attention kernels (flash_attention.cu): CUDA cores (float32),
+#: tensor cores (bf16 prefill), split-K decode and its merge
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_fwd_mma_kernel",
+                 "flash_decode_split_kernel", "flash_decode_merge_kernel")
 
 
 def kind(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in low:
-        return "flash_attention kernel"
+    if any(k in low for k in FLASH_KERNELS):
+        return "flash_attention kernels"
     if any(g in low for g in GEMM_NAMES):
         return "matrix products"
     return "other (elementwise, norms, rope, cache writes, copies)"

@@ -33,18 +33,23 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tools"))
 from profile_port import DEVICE_CATS, per_name  # noqa: E402
+from profile_serve import FLASH_KERNELS  # noqa: E402
 
 GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
+#: the port's SSD kernels (ssd_scan.cu): CUDA cores (float32), and the
+#: bf16 chunk-parallel four: C B^T, chunk states, state pass, chunk scan
+SSD_KERNELS = ("ssd_scan_kernel", "ssd_cb_kernel", "ssd_state_kernel",
+               "ssd_pass_kernel", "ssd_chunk_scan_kernel")
 WINDOWS = ("forward", "backward", "optimizer")
 RECOMPUTE = "ssd_ref recompute"
 
 
 def kind(name: str) -> str:
     low = name.lower()
-    if "ssd_scan_kernel" in low:
-        return "ssd_scan kernel"
-    if "flash_fwd_kernel" in low:
-        return "flash_attention kernel"
+    if any(k in low for k in SSD_KERNELS):
+        return "ssd_scan kernels"
+    if any(k in low for k in FLASH_KERNELS):
+        return "flash_attention kernels"
     if any(g in low for g in GEMM_NAMES):
         return "matrix products"
     return "other (elementwise, reductions, copies)"
