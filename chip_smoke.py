@@ -10,11 +10,16 @@ Phases, each fatal on failure:
 1. the card's name and power limit, torch and CUDA versions; build the
    kernel library from ``src/repro_torch/kernels/csrc`` and time it, and
    print ``nvcc -Xptxas -v``'s registers, shared memory and spills for
-   each tensor-core kernel;
+   the list-ranking and tensor-core kernels;
 2. each CUDA kernel against its plain torch version on the card, at the
    main path's shapes (exact equality), with kernel, plain-version and
-   library-call times (median of CUDA-event timings) and the kernel's
-   memory/compute bound;
+   library-call times (median of CUDA-event timings), device times
+   (torch.profiler) and the kernel's memory/compute bound: ``local_chase``
+   on the main path's doubling input (gamma=1; it must run the steps the
+   plain model of its fixed-point exit runs, 4 of 20 at full size) and on
+   List(2^24, gamma=0), whose every step changes something;
+   ``mailbox_pack`` on a level-0 hop, against its plain version and the
+   slot scatter of the path without the kernel;
 3. the main path: ``rank_list_with_stats`` on List(2^24, gamma=1) over 16
    virtual PEs with both kernels on — exact against the sequential
    oracle, both kernels launched (counts reset just before the solve),
@@ -147,29 +152,43 @@ def bound_ms(nbytes: float, nops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def pack_bytes(p: int, w: int, n_rows: int, shipping: int) -> int:
+    """Bytes ``mailbox_pack`` must move for one hop: the (p, w, n_rows)
+    int32 send buffer written once, and each of the ``shipping`` messages'
+    w - 1 payload words and its int64 index into the bucket sort's order
+    read once."""
+    return 4 * p * w * n_rows + shipping * (4 * (w - 1) + 8)
+
+
 def max_abs_err(a, b, torch) -> float:
     if torch.equal(a, b):
         return 0.0
     return float((a.double() - b.double()).abs().max())
 
 
-#: the tensor-core kernels whose ptxas report phase 1 prints
-TC_KERNELS = ("flash_fwd_mma_kernel", "flash_decode_split_kernel",
-              "flash_decode_merge_kernel", "ssd_cb_kernel", "ssd_state_kernel",
-              "ssd_pass_kernel", "ssd_chunk_scan_kernel")
+#: the kernels whose ptxas report phase 1 prints
+PTXAS_KERNELS = ("chase_persistent_kernel", "mailbox_pack_kernel",
+                 "flash_fwd_mma_kernel", "flash_decode_split_kernel",
+                 "flash_decode_merge_kernel", "ssd_cb_kernel",
+                 "ssd_state_kernel", "ssd_pass_kernel",
+                 "ssd_chunk_scan_kernel")
 
 
 def ptxas_summary(log_text: str) -> list[str]:
-    """One line per tensor-core kernel instantiation in nvcc's ``-Xptxas
-    -v`` output: registers, static shared memory, spill stores and loads."""
+    """One line per instantiation of a ``PTXAS_KERNELS`` kernel in nvcc's
+    ``-Xptxas -v`` output: registers, static shared memory, spill stores
+    and loads."""
     out, name, spills = [], None, ""
     for line in log_text.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            name = next((k for k in TC_KERNELS if k in mangled), None)
+            name = next((k for k in PTXAS_KERNELS if k in mangled), None)
             if name:
-                args = re.findall(r"Li(\d+)E", mangled.split(name, 1)[1])
+                rest = mangled.split(name, 1)[1]
+                args = re.findall(r"Li(\d+)E", rest)
+                if rest.startswith(("IiE", "IfE")):  # an int / float kernel
+                    args = ["int" if rest[1] == "i" else "float"]
                 name += f"<{','.join(args)}>" if args else ""
             continue
         if name and "spill" in line:
@@ -227,8 +246,9 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
     log(f"phase 1: kernel library built and loaded in "
         f"{results['build_s']:.1f} s")
     if "log" in build.build_info:
-        log("phase 1: ptxas (nvcc -Xptxas -v) for the tensor-core kernels; "
-            "their tiles are dynamic shared memory, sized at launch:")
+        log("phase 1: ptxas (nvcc -Xptxas -v) for the list-ranking and "
+            "tensor-core kernels; the tensor-core kernels' tiles are dynamic "
+            "shared memory, sized at launch:")
         for line in ptxas_summary(build.build_info["log"]):
             log("  " + line)
         log(f"  ssd_scan bf16 at mamba2-130m's shape needs "
@@ -259,36 +279,69 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
     base = plan.my_id() * m
     succ_l, dist0, steps, _ = local.chase_input(succ_d, rank_d, base, m)
     errs, times = [], {}
-    for dt in (torch.int32, torch.float32):
-        d = dist0.to(dt).contiguous()
+    elems = P_MAIN * m
+
+    def check_chase(succ_l, d, steps, what):
         s_k, d_k = lc_ops.local_chase(succ_l, d, steps)
+        run = lc_ops.local_chase.steps_run.tolist()
         s_p, d_p = lc_ref.local_chase_ref(succ_l, d, steps)
         torch.cuda.synchronize()
         if not (torch.equal(s_k, s_p) and torch.equal(
                 d_k.view(torch.int32), d_p.view(torch.int32))):
-            fail(f"local_chase ({dt}) differs from its plain version")
+            fail(f"local_chase ({what}) differs from its plain version")
         errs.append(max(max_abs_err(s_k, s_p, torch),
                         max_abs_err(d_k, d_p, torch)))
-        times[dt] = (time_ms(lambda: lc_ops.local_chase(succ_l, d, steps),
-                             torch),
-                     time_ms(lambda: lc_ref.local_chase_ref(succ_l, d, steps),
-                             torch))
-        log(f"phase 2: local_chase {dt} B={P_MAIN} m={m} steps={steps}: "
-            f"equal; kernel {times[dt][0]:.3f} ms, plain {times[dt][1]:.3f} ms")
-    elems = P_MAIN * m
-    lc_bound, lc_by = bound_ms(16 * elems, steps * elems)
+        t = (time_ms(lambda: lc_ops.local_chase(succ_l, d, steps), torch),
+             time_ms(lambda: lc_ref.local_chase_ref(succ_l, d, steps),
+                     torch),
+             device_ms(lambda: lc_ops.local_chase(succ_l, d, steps), torch))
+        log(f"phase 2: local_chase {what} B={P_MAIN} m={m}: equal; steps run "
+            f"per row {run} of {steps}; kernel {t[0]:.4f} ms (device "
+            f"{fmt_ms(t[2])}), plain {t[1]:.3f} ms")
+        return t, max(run)
+
+    # the plain model of the kernel's schedule says how many steps each
+    # row's group runs (the 4th is the first unchanged one at full size)
+    _, _, want_run = lc_ref.local_chase_fixed_point_ref(
+        succ_l.cpu(), dist0.cpu(), steps,
+        lc_ops.rows_per_group(P_MAIN, m, 4, dev))
+    for dt in (torch.int32, torch.float32):
+        times[dt], run = check_chase(succ_l, dist0.to(dt).contiguous(), steps,
+                                     f"gamma=1 {dt}")
+        if lc_ops.local_chase.steps_run.tolist() != want_run.tolist():
+            fail(f"local_chase ran {lc_ops.local_chase.steps_run.tolist()} "
+                 f"steps; its plain model {want_run.tolist()}")
+    steps_run = run
+    if n_main == N_MAIN and steps_run != 4:
+        fail(f"local_chase ran {steps_run} steps on the main path's input, "
+             f"where the 4th is the first that changes nothing")
+    # the worst case: each PE holds one chain of m, all 20 steps change it
+    succ_0, rank_0 = instances.gen_list(n_main, gamma=0.0, seed=1)
+    succ_l0, dist_0, _, _ = local.chase_input(
+        torch.from_numpy(succ_0).reshape(P_MAIN, m).to(dev),
+        torch.from_numpy(rank_0).reshape(P_MAIN, m).to(dev), base, m)
+    times["gamma0"], run0 = check_chase(succ_l0, dist_0, steps,
+                                        "gamma=0 torch.int32")
+    if run0 != steps:
+        fail(f"local_chase stopped after {run0} of {steps} steps on the "
+             f"gamma=0 input, whose every step changes something")
+    del succ_0, rank_0, succ_l0, dist_0
+    # inputs read once, outputs written once; one add per element per step
+    # that ran
+    lc_bound, lc_by = bound_ms(16 * elems, steps_run * elems)
     log(f"local_chase bound (inputs read once, outputs written once): "
-        f"{lc_bound:.4f} ms by {lc_by}; per-step traffic model "
-        f"(24 B/element/step): {24 * elems * steps / HBM_BYTES_PER_S * 1e3:.3f}"
-        f" ms")
+        f"{lc_bound:.4f} ms by {lc_by}")
     kernels.append({
         "name": "local_chase", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/local_chase.cu",
         "replaces": "src/repro/kernels/local_chase/kernel.py:27",
         "launches": 0, "max_abs_err": max(errs),
         "ms": times[torch.int32][0], "plain_ms": times[torch.int32][1],
+        "device_ms": times[torch.int32][2], "steps_run": steps_run,
         "ms_float32": times[torch.float32][0],
         "plain_ms_float32": times[torch.float32][1],
+        "ms_gamma0": times["gamma0"][0], "plain_ms_gamma0": times["gamma0"][1],
+        "device_ms_gamma0": times["gamma0"][2], "steps_run_gamma0": run0,
         "bound_ms": lc_bound, "bound_by": lc_by, "library_ms": None})
 
     # one chase-round hop at level 0: Q = queue + inbox + spawn window
@@ -306,19 +359,23 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
                                       generator=g, dtype=torch.int32),
                "weight": torch.rand((P_MAIN, q), device=dev, generator=g),
                "_dest": (target // m).to(torch.int32)}
-    order, row, col, fits, _, _ = exchange._bucket_indices(
+    order, row, col, fits, _, skey = exchange._bucket_indices(
         payload["_dest"], valid, s_hop, cap)
-    slots = exchange.unpermute(order, row * cap + col).to(
-        torch.int32).contiguous()
+    slots = exchange.unpermute(order, row * cap + col).contiguous()
     wf = exchange.WireFormat.from_payload(payload)
-    cols = [c.contiguous() for c in wf.columns(payload, valid)]
-    out_k = mp_ops.mailbox_pack(cols, slots, n_rows)
-    out_p = mp_ref.mailbox_pack_ref(cols, slots, n_rows)
+    cols = [c.contiguous() for c in wf.payload_columns(payload)]
+    out_k = mp_ops.mailbox_pack(cols, order, skey, s_hop, cap)
+    out_p = mp_ref.mailbox_pack_sorted_ref(cols, order, skey, s_hop, cap)
+    # the scatter formulation (the exchange's path without the kernel)
+    wire = [c.contiguous() for c in wf.columns(payload, valid)]
+    out_s = mp_ref.mailbox_pack_ref(wire, slots, n_rows)
     torch.cuda.synchronize()
     if not torch.equal(out_k, out_p):
         fail("mailbox_pack differs from its plain version")
-    w = len(cols)
-    stacked = torch.stack(cols, 1)
+    if not torch.equal(out_k, out_s):
+        fail("mailbox_pack differs from the slot scatter")
+    w = len(wire)
+    stacked = torch.stack(wire, 1)
     keep = (slots >= 0) & (slots < n_rows)
     lib_idx = (torch.arange(P_MAIN, device=dev)[:, None, None],
                torch.arange(w, device=dev)[None, :, None],
@@ -333,24 +390,32 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
     library_call()
     if not torch.equal(lib_buf[:, :, :n_rows], out_p):
         fail("the index_put_ yardstick computes another function")
-    mp_ms = time_ms(lambda: mp_ops.mailbox_pack(cols, slots, n_rows), torch)
-    mp_plain = time_ms(lambda: mp_ref.mailbox_pack_ref(cols, slots, n_rows),
-                       torch)
+
+    def kernel_call():
+        return mp_ops.mailbox_pack(cols, order, skey, s_hop, cap)
+
+    mp_ms = time_ms(kernel_call, torch)
+    mp_dev = device_ms(kernel_call, torch)
+    mp_plain = time_ms(lambda: mp_ref.mailbox_pack_sorted_ref(
+        cols, order, skey, s_hop, cap), torch)
     mp_lib = time_ms(library_call, torch)
-    mp_bound, mp_by = bound_ms(4 * P_MAIN * (w * n_rows + (w + 1) * q), 0)
+    shipping = int(fits.sum())
+    mp_bound, mp_by = bound_ms(pack_bytes(P_MAIN, w, n_rows, shipping), 0)
     log(f"phase 2: mailbox_pack p={P_MAIN} W={w} Q={q} n_rows={n_rows} "
-        f"shipping={int(fits.sum())}: equal; kernel {mp_ms:.3f} ms, plain "
-        f"{mp_plain:.3f} ms, zero fill + index_put_ {mp_lib:.3f} ms, "
-        f"bound {mp_bound:.4f} ms")
+        f"shipping={shipping}: equal to the sorted gather and to the slot "
+        f"scatter; kernel {mp_ms:.4f} ms (device {fmt_ms(mp_dev)}), plain "
+        f"{mp_plain:.3f} ms, zero fill + index_put_ {mp_lib:.3f} ms, bound "
+        f"{mp_bound:.4f} ms (the buffer written once, each shipping "
+        f"message's payload words and index read once)")
     kernels.append({
         "name": "mailbox_pack", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mailbox_pack.cu",
         "replaces": "src/repro/kernels/mailbox_pack/kernel.py:30",
         "launches": 0, "max_abs_err": max_abs_err(out_k, out_p, torch),
-        "ms": mp_ms, "plain_ms": mp_plain, "bound_ms": mp_bound,
-        "bound_by": mp_by, "library_ms": mp_lib})
+        "ms": mp_ms, "plain_ms": mp_plain, "device_ms": mp_dev,
+        "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": mp_lib})
     del valid, target, payload, order, row, col, fits, cols, out_k, out_p
-    del stacked, lib_buf, lib_idx, succ_l, dist0
+    del stacked, lib_buf, lib_idx, succ_l, dist0, skey, wire, out_s
 
     # ---------------------------------------------------------- phase 3
     def solve(rank, cfg, mesh=mesh, **kw):

@@ -232,16 +232,20 @@ class WireFormat:
         """Total int32 words per message, incl. the validity word."""
         return sum(self.leaf_words(i) for i in range(len(self.keys))) + 1
 
+    def payload_columns(self, payload: dict[str, torch.Tensor]
+                        ) -> list[torch.Tensor]:
+        """The ``width - 1`` (p, Q) int32 payload word-planes."""
+        cols: list[torch.Tensor] = []
+        for k in self.keys:
+            leaf = payload[k]
+            w = to_wire_word(leaf).reshape(leaf.shape[0], leaf.shape[1], -1)
+            cols.extend(w[:, :, j] for j in range(w.shape[2]))
+        return cols
+
     def columns(self, payload: dict[str, torch.Tensor],
                 valid: torch.Tensor) -> list[torch.Tensor]:
         """The ``width`` (p, Q) int32 word-planes of the wire matrix."""
-        p, q = valid.shape
-        cols: list[torch.Tensor] = []
-        for k in self.keys:
-            w = to_wire_word(payload[k]).reshape(p, q, -1)
-            cols.extend(w[:, :, j] for j in range(w.shape[2]))
-        cols.append(valid.to(torch.int32))
-        return cols
+        return self.payload_columns(payload) + [valid.to(torch.int32)]
 
     def unpack_cols(self, cols: torch.Tensor
                     ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
@@ -287,19 +291,21 @@ def _bucket_indices(coord: torch.Tensor, valid: torch.Tensor,
                     n_buckets: int, cap: int):
     """Mailbox scatter coordinates for one hop.
 
-    Returns (order, row, col, fits, leftover_sorted, pos); ``row``/
+    Returns (order, row, col, fits, leftover_sorted, skey); ``row``/
     ``col`` address the ``(n_buckets, cap)`` mailbox grid in *sorted*
     order with out-of-range sentinels for rows that don't ship this hop.
     ``leftover_sorted`` marks valid messages beyond bucket capacity.
     Every shipping row gets its own cell: (row, col) = (bucket, rank in
-    bucket) is unique.
+    bucket) is unique. ``skey`` is the sorted bucket key (``n_buckets``
+    for invalid rows), from which the ``mailbox_pack`` kernel finds each
+    bucket's run of ``order``.
     """
     order, skey, pos, _ = sort_and_group(coord, valid, n_buckets)
     infit = skey < n_buckets
     fits = infit & (pos < cap)
     row = torch.where(fits, skey, n_buckets).to(torch.int32)
     col = torch.where(fits, pos, cap).to(torch.int32)
-    return order, row, col, fits, infit & ~fits, pos
+    return order, row, col, fits, infit & ~fits, skey
 
 
 def _scatter_leaf(leaf: torch.Tensor, flat: torch.Tensor, n_rows: int):
@@ -359,11 +365,8 @@ def _route_impl(plan: MeshPlan, caps: Sequence[int],
     for h, (hop, cap) in enumerate(zip(hops, caps)):
         s = plan.hop_size(hop)
         coord = plan.hop_coord(cur["_dest"], hop)
-        order, row, col, fits, leftover_sorted, _ = _bucket_indices(
+        order, row, col, fits, leftover_sorted, skey = _bucket_indices(
             coord, cur_valid, s, cap)
-        flat = row * cap + col  # >= s*cap for non-shipping rows
-        # input-aligned mailbox slot: message i ships to slot io_flat[i]
-        io_flat = unpermute(order, flat)
 
         nl = _sum32(leftover_sorted)
         if queue_cap is None:
@@ -389,10 +392,12 @@ def _route_impl(plan: MeshPlan, caps: Sequence[int],
         # first); the collective splits/concats the mailbox-row axis.
         if plan.wire_packing:
             wf = WireFormat.from_payload(cur)
-            buf = _pack_scatter(plan, wf, cur, cur_valid, io_flat, s, cap)
+            buf = _pack_scatter(plan, wf, cur, cur_valid, order, row, col,
+                                skey, s, cap)
             recv = plan.all_to_all(buf, hop, 1)  # 1 collective
             cur, cur_valid = wf.unpack_cols(recv.reshape(p, wf.width, s * cap))
         else:
+            io_flat = _io_slots(order, row, col, cap)
             recv = {}
             for k, v in cur.items():
                 b = _scatter_leaf(v, io_flat, s * cap).reshape(
@@ -427,15 +432,28 @@ def _route_impl(plan: MeshPlan, caps: Sequence[int],
     return delivered, cur_valid, leftovers, stats
 
 
-def _pack_scatter(plan: MeshPlan, wf: WireFormat, payload, valid,
-                  io_flat, n_buckets: int, cap: int) -> torch.Tensor:
-    """Pack + bucket-scatter into the (p, W, n_buckets, cap) send buffer."""
-    cols = [c.contiguous() for c in wf.columns(payload, valid)]
-    slots = io_flat.to(torch.int32).contiguous()
+def _io_slots(order, row, col, cap: int) -> torch.Tensor:
+    """Input-aligned mailbox slots: message i ships to slot ``[i]``
+    (``>= n_buckets * cap`` if it does not ship this hop)."""
+    return unpermute(order, row * cap + col)
+
+
+def _pack_scatter(plan: MeshPlan, wf: WireFormat, payload, valid, order,
+                  row, col, skey, n_buckets: int, cap: int) -> torch.Tensor:
+    """Pack + bucket-fill the (p, W, n_buckets, cap) send buffer.
+
+    With ``pallas_pack`` the kernel gathers the payload planes through the
+    bucket sort's ``order``; a shipping message is always valid, so the
+    validity plane is "this cell is filled" and is never read. Otherwise
+    every plane, validity included, is scattered to input-aligned slots.
+    """
     if plan.pallas_pack:
-        buf = mp_ops.mailbox_pack(cols, slots, n_buckets * cap)
+        cols = [c.contiguous() for c in wf.payload_columns(payload)]
+        buf = mp_ops.mailbox_pack(cols, order, skey, n_buckets, cap)
     else:
-        buf = mp_ref.mailbox_pack_ref(cols, slots, n_buckets * cap)
+        cols = [c.contiguous() for c in wf.columns(payload, valid)]
+        buf = mp_ref.mailbox_pack_ref(cols, _io_slots(order, row, col, cap),
+                                      n_buckets * cap)
     return buf.reshape(plan.p, wf.width, n_buckets, cap)
 
 

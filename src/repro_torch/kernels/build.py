@@ -100,36 +100,39 @@ def build(sources=None) -> pathlib.Path:
     return lib
 
 
+_vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: argument and result types of every launch function
+SIGNATURES = {
+    "mailbox_pack_launch": (
+        [ctypes.POINTER(_vp), _ci, _vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp],
+        _ci),
+    "local_chase_launch": (
+        [_vp, _vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp],
+        _ci),
+    "flash_attention_launch": (
+        [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+         _ci, _ci, ctypes.c_float, ctypes.c_float, _vp], _ci),
+    "flash_attention_decode_launch": (
+        [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+         ctypes.c_float, ctypes.c_float, _ci, _ci, _ci, _vp, _vp, _vp], _ci),
+    "ssd_scan_launch": (
+        [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci, _ci, _ci, _ci,
+         _vp], _ci),
+    "ssd_scan_smem_bytes": ([_ci, _ci, _ci], _ll),
+    "ssd_scan_bf16_launch": (
+        [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ci, _ci, _ci, _ci,
+         _ci, _ci, _ci, _ci, _vp], _ci),
+    "ssd_scan_bf16_smem_bytes": ([_ci, _ci, _ci], _ll),
+    "ssd_scan_bf16_chunk_pad": ([_ci], _ci),
+}
+
+
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument and result types of every launch function."""
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.mailbox_pack_launch.argtypes = [
-        ctypes.POINTER(vp), ci, vp, ll, ll, ll, vp, vp]
-    lib.mailbox_pack_launch.restype = ci
-    lib.local_chase_launch.argtypes = [
-        vp, vp, ci, ll, ll, ci, vp, vp, vp, vp, vp]
-    lib.local_chase_launch.restype = ci
-    lib.flash_attention_launch.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,
-        ctypes.c_float, ctypes.c_float, vp]
-    lib.flash_attention_launch.restype = ci
-    lib.flash_attention_decode_launch.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci,
-        ctypes.c_float, ctypes.c_float, ci, ci, ci, vp, vp, vp]
-    lib.flash_attention_decode_launch.restype = ci
-    lib.ssd_scan_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
-    lib.ssd_scan_launch.restype = ci
-    lib.ssd_scan_smem_bytes.argtypes = [ci, ci, ci]
-    lib.ssd_scan_smem_bytes.restype = ll
-    lib.ssd_scan_bf16_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-        ci, vp]
-    lib.ssd_scan_bf16_launch.restype = ci
-    lib.ssd_scan_bf16_smem_bytes.argtypes = [ci, ci, ci]
-    lib.ssd_scan_bf16_smem_bytes.restype = ll
-    lib.ssd_scan_bf16_chunk_pad.argtypes = [ci]
-    lib.ssd_scan_bf16_chunk_pad.restype = ci
+    """Set the argument and result types of every launch function; a
+    library that lacks one raises (AttributeError) here, at load."""
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 

@@ -25,6 +25,46 @@ def local_chase_ref(succ: torch.Tensor, dist: torch.Tensor, steps: int):
     return s, d
 
 
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """The raw 32-bit pattern: -0.0 differs from +0.0, a NaN equals itself."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def local_chase_fixed_point_ref(succ: torch.Tensor, dist: torch.Tensor,
+                                steps: int, group_rows: int | None = None):
+    """The CUDA kernel's schedule, in plain torch: rows are walked in
+    groups of ``group_rows`` (all rows by default), and a group stops
+    after the first step that changes no bit of its (succ, dist), or
+    after ``steps`` steps.
+
+    A step is a deterministic function of the state, so once a step
+    leaves every bit as it was, so does every later one: the result is
+    :func:`local_chase_ref`'s bit for bit. Returns (succ, dist,
+    steps_run), ``steps_run`` a (B,) int32 count of the steps each row's
+    group ran, the unchanged one included.
+    """
+    m = succ.shape[-1]
+    s_all = succ.reshape(-1, m)
+    d_all = dist.reshape(-1, m)
+    b = s_all.shape[0]
+    g = b if group_rows is None else max(1, group_rows)
+    out_s, out_d = s_all.clone(), d_all.clone()
+    steps_run = torch.zeros(b, dtype=torch.int32)
+    for r0 in range(0, b, g):
+        s, d = s_all[r0:r0 + g], d_all[r0:r0 + g]
+        k = 0
+        while k < steps:
+            ns, nd = local_chase_ref(s, d, 1)
+            k += 1
+            same = torch.equal(ns, s) and torch.equal(_bits(nd), _bits(d))
+            s, d = ns, nd
+            if same:
+                break
+        out_s[r0:r0 + g], out_d[r0:r0 + g] = s, d
+        steps_run[r0:r0 + g] = k
+    return out_s.reshape(succ.shape), out_d.reshape(dist.shape), steps_run
+
+
 def sequential_chase_ref(succ, dist):
     """O(m) numpy pointer chasing oracle (ground truth for both the
     kernel and the doubling)."""

@@ -3,7 +3,7 @@ port only — no jax, so the card's tests can import it)."""
 import numpy as np
 import torch
 
-from repro_torch.core.listrank import instances, local
+from repro_torch.core.listrank import exchange, instances, local
 
 
 def chains(b, m, seed, gamma=0.3):
@@ -41,6 +41,73 @@ def pack_inputs(p, q, n_rows, seed, dtype):
     slots = np.stack([rng.permutation(n_rows + q)[:q] for _ in range(p)])
     slots[:, ::7] = n_rows + 3  # non-shipping rows (several per PE)
     return cols, slots.astype(np.int32)
+
+
+def chase_edge_case(kind, b=3, m=96, seed=0):
+    """(succ, dist, steps) local-chase inputs at the edges of exactness:
+
+    - ``"neg_zero"``: float32 weights, -0.0 on a third of the links and
+      of the stops (adding +0.0 would turn -0.0 into +0.0);
+    - ``"self_loop"``: stops carry nonzero int32 weights, so they double
+      every step and the state never stops changing;
+    - ``"wrap"``: int32 weights from 2^29 to 2^31, so the sums wrap.
+    """
+    succ, dist, steps = chains(b, m, seed=seed)
+    rng = np.random.default_rng(seed)
+    stop = succ == np.arange(m, dtype=np.int32)
+    if kind == "neg_zero":
+        out = float_dist(dist, seed)
+        out[rng.random(out.shape) < 1 / 3] = -0.0
+        return succ, out, steps
+    if kind == "self_loop":
+        out = dist.copy()
+        out[stop] = rng.integers(1, 9, int(stop.sum())).astype(np.int32)
+        return succ, out, steps
+    if kind == "wrap":
+        out = rng.integers(2 ** 29, 2 ** 31 - 1, dist.shape).astype(np.int32)
+        out[stop] = 0
+        return succ, out, steps
+    raise ValueError(kind)
+
+
+def bucket_hop(p, q, n_buckets, cap, seed, n_payload=4):
+    """One routing hop's ``mailbox_pack`` input from the port's own bucket
+    sort (``exchange._bucket_indices``): ``n_payload`` (p, q) int32
+    payload planes (one holding float32 bit patterns), skewed bucket keys
+    (low buckets over-full, bucket ``n_buckets - 2`` empty), 30 % invalid
+    messages and, with p > 1, one PE with none valid. Returns
+    (cols, valid, order, skey, slots): ``slots`` the input-aligned cells
+    the exchange scatters to without the kernel."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(-2 ** 31, 2 ** 31 - 1, (p, q), dtype=np.int64)
+            .astype(np.int32) for _ in range(n_payload)]
+    if n_payload > 1:
+        cols[1] = rng.normal(size=(p, q)).astype(np.float32).view(np.int32)
+    dest = np.minimum(rng.geometric(0.3, (p, q)) - 1, n_buckets - 1)
+    if n_buckets > 2:
+        dest[dest == n_buckets - 2] = 0
+    valid = rng.random((p, q)) < 0.7
+    if p > 1:
+        valid[-1] = False
+    dest_t, valid_t = torch.from_numpy(dest.astype(np.int32)), \
+        torch.from_numpy(valid)
+    order, row, col, _, _, skey = exchange._bucket_indices(
+        dest_t, valid_t, n_buckets, cap)
+    slots = exchange.unpermute(order, row * cap + col)
+    return ([torch.from_numpy(c) for c in cols], valid_t, order, skey,
+            slots)
+
+
+#: ``mailbox_pack`` hops (p, q, n_buckets, cap): over-full and empty
+#: buckets, an all-invalid PE, cap 1, a cap of several tiles, no messages
+PACK_HOPS = [
+    (4, 200, 8, 16),
+    (3, 500, 4, 37),
+    (2, 64, 16, 1),
+    (2, 5000, 3, 1500),
+    (1, 50, 5, 64),
+    (2, 0, 4, 8),
+]
 
 
 #: the flash-attention sweep of tests/test_kernels.py (b, hq, hkv, lq, lk,

@@ -4,13 +4,14 @@ imports no jax, so it runs on a machine without it:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m torch_cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
-from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, SSD_CASES,
-                                  SSD_RAGGED, SSD_TOL, attn_inputs, chains,
-                                  float_dist, pack_inputs, ssd_inputs,
-                                  ssd_training_inputs)
+from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, PACK_HOPS,
+                                  SSD_CASES, SSD_RAGGED, SSD_TOL, attn_inputs,
+                                  bucket_hop, chains, chase_edge_case,
+                                  float_dist, ssd_inputs, ssd_training_inputs)
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.local_chase import ops as lc_ops, ref as lc_ref
@@ -46,17 +47,174 @@ def test_local_chase_cuda_matches_plain(cuda, b, m, dtype):
     assert torch.equal(d_k.view(torch.int32), d_r.view(torch.int32))
 
 
+def _chase_on_card(succ, dist, steps, cuda):
+    """The kernel against the plain version and the plain model of its
+    schedule: equal bits, equal steps run."""
+    s, d = torch.from_numpy(succ).to(cuda), torch.from_numpy(dist).to(cuda)
+    s_k, d_k = lc_ops.local_chase(s, d, steps)
+    run = lc_ops.local_chase.steps_run.cpu()
+    s_r, d_r = lc_ref.local_chase_ref(s, d, steps)
+    assert torch.equal(s_k, s_r)
+    assert torch.equal(d_k.view(torch.int32), d_r.view(torch.int32))
+    g = lc_ops.rows_per_group(s.shape[0], s.shape[1], d.element_size(),
+                              cuda)
+    _, _, run_model = lc_ref.local_chase_fixed_point_ref(
+        torch.from_numpy(succ), torch.from_numpy(dist), steps, g)
+    assert torch.equal(run, run_model)
+    return run
+
+
 @pytest.mark.torch_cuda
-@pytest.mark.parametrize("p,q,n_rows", [(4, 37, 24), (16, 5000, 4096)])
-def test_mailbox_pack_cuda_matches_plain(cuda, p, q, n_rows):
-    cols, slots = pack_inputs(p, q, n_rows, seed=9, dtype="float32")
-    cols = [torch.from_numpy(c).to(cuda) for c in cols]
-    slots = torch.from_numpy(slots).to(cuda)
+@pytest.mark.parametrize("kind", ["neg_zero", "self_loop", "wrap"])
+def test_local_chase_cuda_fixed_point_at_the_edges(cuda, kind):
+    """-0.0 weights, weighted self-loops (no fixed point: every step
+    runs), wrapping int32 sums; an odd number of steps, so a stop at
+    step 0 or 1 ends in either buffer pair."""
+    succ, dist, steps = chase_edge_case(kind, seed=3)
+    run = _chase_on_card(succ, dist, steps, cuda)
+    if kind == "self_loop":
+        assert int(run.min()) == steps
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("steps", [1, 2, 3, 7])
+def test_local_chase_cuda_stops_at_step_0_or_runs_out(cuda, steps):
+    """All stops (step 0 changes nothing) and a chain longer than
+    2^steps (every step changes something), at both parities."""
+    m = 300
+    stops = np.tile(np.arange(m, dtype=np.int32), (2, 1))
+    run = _chase_on_card(stops, np.zeros((2, m), np.int32), steps, cuda)
+    assert run.tolist() == [1, 1]
+    chain = np.minimum(np.arange(m, dtype=np.int32) + 1, m - 1)[None]
+    run = _chase_on_card(chain, np.ones((1, m), np.float32), steps, cuda)
+    assert run.tolist() == [steps]
+
+
+def _main_chase_input(gamma):
+    """local contraction's doubling input of the main path: List(2^24,
+    gamma) over 16 PEs, seed 1 (B 16, m 2^20, 20 steps)."""
+    from repro_torch.core.listrank import instances, local
+    n, p = 1 << 24, 16
+    m = n // p
+    succ, rank = instances.gen_list(n, gamma, seed=1)
+    s, d, steps, _ = local.chase_input(
+        torch.from_numpy(succ).reshape(p, m),
+        torch.from_numpy(rank).reshape(p, m),
+        torch.arange(p, dtype=torch.int32) * m, m)
+    return s.numpy(), d.numpy(), steps
+
+
+@pytest.mark.torch_cuda
+def test_local_chase_cuda_main_path_stops_at_step_4(cuda):
+    """The main path's gamma=1 input reaches its fixed point on the 4th of
+    its 20 steps (in L2-sized groups of rows, two on an H100, each
+    stopping at its own)."""
+    succ, dist, steps = _main_chase_input(1.0)
+    assert steps == 20
+    run = _chase_on_card(succ, dist, steps, cuda)
+    assert int(run.max()) == 4
+
+
+@pytest.mark.torch_cuda
+def test_local_chase_cuda_gamma_0_runs_every_step(cuda):
+    """List(2^24, gamma=0): each PE holds one chain of 2^20, so all 20
+    steps change something."""
+    succ, dist, steps = _main_chase_input(0.0)
+    run = _chase_on_card(succ, dist, steps, cuda)
+    assert run.tolist() == [steps] * 16
+
+
+@pytest.mark.torch_cuda
+def test_local_chase_cuda_zero_steps_launches_nothing(cuda):
+    s = torch.arange(8, dtype=torch.int32, device=cuda)[None]
+    lc_ops.local_chase(s.expand(3, 8).contiguous(), s.expand(3, 8)
+                       .contiguous(), 2)
+    before = lc_ops.local_chase.launches
+    s_k, d_k = lc_ops.local_chase(s, s, 0)
+    assert lc_ops.local_chase.launches == before
+    assert torch.equal(s_k, s) and torch.equal(d_k, s)
+    # steps_run describes this call, not the one before
+    assert lc_ops.local_chase.steps_run.tolist() == [0]
+
+
+def _pack_on_card(cols, order, skey, valid, slots, n_buckets, cap, cuda):
+    cols = [c.to(cuda) for c in cols]
+    order, skey = order.to(cuda), skey.to(cuda)
     before = mp_ops.mailbox_pack.launches
-    out = mp_ops.mailbox_pack(cols, slots, n_rows)
+    out = mp_ops.mailbox_pack(cols, order, skey, n_buckets, cap)
     torch.cuda.synchronize()
-    assert mp_ops.mailbox_pack.launches == before + 1
-    assert torch.equal(out, mp_ref.mailbox_pack_ref(cols, slots, n_rows))
+    assert mp_ops.mailbox_pack.launches == before + (out.numel() > 0)
+    assert torch.equal(out, mp_ref.mailbox_pack_sorted_ref(
+        cols, order, skey, n_buckets, cap))
+    want = mp_ref.mailbox_pack_ref(
+        cols + [valid.to(cuda, torch.int32)], slots.to(cuda), n_buckets * cap)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("hop", range(len(PACK_HOPS)))
+def test_mailbox_pack_cuda_matches_plain(cuda, hop):
+    """Over-full and empty buckets, an all-invalid PE, cap 1, a bucket of
+    two tiles, no messages; float32 bit patterns in a payload plane."""
+    p, q, n_buckets, cap = PACK_HOPS[hop]
+    cols, valid, order, skey, slots = bucket_hop(p, q, n_buckets, cap,
+                                                 seed=hop)
+    _pack_on_card(cols, order, skey, valid, slots, n_buckets, cap, cuda)
+
+
+@pytest.mark.torch_cuda
+def test_mailbox_pack_cuda_cap_0_launches_nothing(cuda):
+    cols, valid, order, skey, slots = bucket_hop(2, 40, 4, 0, seed=1)
+    _pack_on_card(cols, order, skey, valid, slots, 4, 0, cuda)
+
+
+@pytest.mark.torch_cuda
+def test_mailbox_pack_cuda_main_path_hop(cuda):
+    """A level-0 hop of the main path: p 16, Q 196 800, 16 buckets of
+    4096, 4 payload planes, uniform destinations, 32 768 valid messages a
+    PE on average."""
+    from repro_torch.core.listrank import exchange
+    p, q, nb, cap = 16, 196800, 16, 4096
+    g = torch.Generator().manual_seed(7)
+    valid = torch.rand((p, q), generator=g) < 32768 / q
+    dest = torch.randint(0, nb, (p, q), generator=g, dtype=torch.int32)
+    cols = [torch.randint(-2 ** 31, 2 ** 31 - 1, (p, q), generator=g,
+                          dtype=torch.int32) for _ in range(4)]
+    order, row, col, fits, _, skey = exchange._bucket_indices(
+        dest, valid, nb, cap)
+    slots = exchange.unpermute(order, row * cap + col)
+    _pack_on_card(cols, order, skey, valid, slots, nb, cap, cuda)
+
+
+@pytest.mark.torch_cuda
+def test_route_cuda_sorted_pack_on_the_4x4_grid(cuda):
+    """Two-hop routing on a 4x4 grid (4 buckets per hop, different caps):
+    the kernel's packed route equals the slot scatter's, byte for byte."""
+    from repro_torch.core.listrank import exchange, transport
+    from repro_torch.core.listrank.config import IndirectionSpec
+    p, q = 16, 3000
+    g = torch.Generator().manual_seed(3)
+    payload = {"a": torch.randint(-9, 99, (p, q), generator=g,
+                                  dtype=torch.int32).to(cuda),
+               "f": torch.randn((p, q), generator=g).to(cuda)}
+    dest = torch.randint(0, p, (p, q), generator=g,
+                         dtype=torch.int32).to(cuda)
+    valid = (torch.rand((p, q), generator=g) < 0.8).to(cuda)
+    outs = []
+    for pallas_pack in (True, False):
+        plan = exchange.MeshPlan.from_mesh(
+            transport.sim_mesh((4, 4), ("row", "col")), ("row", "col"),
+            IndirectionSpec.grid(("row", "col")), pallas_pack=pallas_pack,
+            device=cuda)
+        before = mp_ops.mailbox_pack.launches
+        outs.append(exchange.route(plan, [700, 180], payload, dest, valid))
+        assert mp_ops.mailbox_pack.launches == before + 2 * pallas_pack
+    (d1, v1, _, s1), (d2, v2, _, s2) = outs
+    assert torch.equal(v1, v2)
+    for k in d1:
+        assert torch.equal(d1[k].view(torch.int32), d2[k].view(torch.int32))
+    for a, b in zip(s1["sent"], s2["sent"]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.torch_cuda

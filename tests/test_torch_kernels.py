@@ -13,7 +13,7 @@ from repro.kernels.mailbox_pack import kernel as mp_kernel_jax
 from repro.kernels.mailbox_pack import ref as mp_ref_jax
 from _torch_kernel_inputs import chains, float_dist, pack_inputs
 from repro_torch.kernels.local_chase import ops as lc_ops, ref as lc_ref
-from repro_torch.kernels.mailbox_pack import ops as mp_ops
+from repro_torch.kernels.mailbox_pack import ops as mp_ops, ref as mp_ref
 
 
 @pytest.mark.parametrize("b,m", [(1, 64), (8, 64), (3, 200)])
@@ -53,8 +53,8 @@ def test_local_chase_plain_matches_sequential(dtype):
 @pytest.mark.parametrize("dtype", ["int32", "float32"])
 def test_mailbox_pack_plain_matches_pallas(p, q, n_rows, dtype):
     cols, slots = pack_inputs(p, q, n_rows, seed=p * q + n_rows, dtype=dtype)
-    out = mp_ops.mailbox_pack([torch.from_numpy(c) for c in cols],
-                              torch.from_numpy(slots), n_rows)
+    out = mp_ref.mailbox_pack_ref([torch.from_numpy(c) for c in cols],
+                                  torch.from_numpy(slots), n_rows)
     assert out.shape == (p, len(cols), n_rows) and out.dtype == torch.int32
     for pe in range(p):
         pe_cols = tuple(jnp.asarray(c[pe]) for c in cols)
@@ -73,4 +73,4 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         lc_ops.local_chase(s, s, 3)
     with pytest.raises(ValueError):
-        mp_ops.mailbox_pack([s], s, 8)
+        mp_ops.mailbox_pack([s], s.long(), s, 2, 4)
