@@ -27,24 +27,44 @@ Phases, each fatal on failure:
    with per-stage wall times;
 4. the same solve with both kernels off: identical outputs and counters;
 5. two-hop grid routing: n = 2^20 on a 4x4 virtual mesh, kernels on;
-6. the ``flash_attention`` kernel against its plain version on the card:
+6. the tree path: ``treealg.tree_stats`` on ``gen_tree_parents(2^22,
+   seed=0)`` over 16 virtual PEs, kernels on (its batched solve ranks
+   2 x 2^23 arcs) — depth, subtree size, pre- and postorder exact
+   against a host oracle (the numpy ``oracle_tour``, ``rank_list_seq`` of
+   both weightings, the closed forms of ``treealg/ops.py``), both kernels
+   launched (counts reset just before), a warm rerun with per-stage
+   wall, peak memory, the two kernels' device time over the call against
+   their summed bounds and the device's idle share under the profiler
+   (``devtime.kernel_times_over``: read only from a window that holds
+   every launch the wrappers counted and as many device events as
+   another such window, else "not measured"); then kernels off
+   (identical outputs and counters); ``root_tree`` and ``solve_forest``
+   (64 trees of 2^14 nodes) once each, exact against the oracle;
+7. the graph path: ``graphalg.graph_stats`` on ``gen_graph_edges(2^20,
+   2^22, seed=0, num_components=4)`` (GNM, average degree 8) over 16
+   virtual PEs, kernels on (two solves of 2 x 2^22 arcs) — components
+   against ``scipy.sparse.csgraph.connected_components`` (min-id labels),
+   the forest's edges, roots and span checked, its statistics against
+   the tree oracle on the emitted parent array; the same measurements as
+   phase 6, the hooking and shortcut rounds, then kernels off;
+8. the ``flash_attention`` kernel against its plain version on the card:
    the kernel sweep of ``tests/test_kernels.py`` in float32 (atol 2e-5,
    rtol 1e-4) and bfloat16 (2e-2), then the serving path's shapes in
    bfloat16 (tinyllama heads: prefill Lq=1024 over a 2048-key cache,
    decode Lq=1 at per-slot offsets: the tensor-core kernel and the split-K
    pair) with kernel, plain-version and ``scaled_dot_product_attention``
    times, the SDPA backend that ran, and the kernel's bound;
-7. the serving path: ``ServingEngine`` serves 16 requests (prompts of
+9. the serving path: ``ServingEngine`` serves 16 requests (prompts of
    32..1024 tokens) with tinyllama-1.1b at full width in bfloat16,
    random weights from a seeded generator, 8 slots, kernels on — every
    request completes, every attention call launched the kernel (counts
    reset just before the run); prefill ms per bucket, decode ms per tick,
    tokens/s and peak memory;
-8. kernels on against off at full width in float32 (TF32 off): prefill
+10. kernels on against off at full width in float32 (TF32 off): prefill
    one long prompt and 16 teacher-forced decode steps, logits within
    atol 2e-3, rtol 1e-3; the bfloat16 difference is printed as
    information;
-9. the ``ssd_scan`` kernel against its plain version (``ssd_ref``) on the
+11. the ``ssd_scan`` kernel against its plain version (``ssd_ref``) on the
    card: the kernel sweep of ``tests/test_kernels.py`` in float32 (atol
    1e-5, rtol 1e-4), mamba2-130m's training shape (Bt 8, L 1024, H 24,
    P 64, G 1, N 128, chunk 256) in bfloat16 (2e-2) and float32, and the
@@ -52,13 +72,13 @@ Phases, each fatal on failure:
    autograd through ``ssd_ref`` at that shape; kernel (bfloat16: the
    chunk-parallel tensor-core kernels; float32: the CUDA-core kernel),
    ``ssd_chunked_ref`` and ``ssd_ref`` times and the kernel's bound;
-10. the training path: ``launch.train`` trains mamba2-130m at full width
+12. the training path: ``launch.train`` trains mamba2-130m at full width
    and depth (24 layers, d_model 768, bfloat16) with kernels on, batch 8
    x 1024 tokens from ``pipeline.global_batch``, 5 AdamW steps — finite
    losses and gradient norms, the last loss below the first, 24
    ``ssd_scan`` launches per forward (counts reset just before); ms per
    step, tokens/s and peak memory;
-11. kernels on against off in training: mamba2-130m at full width in
+13. kernels on against off in training: mamba2-130m at full width in
    float32 (TF32 off), the loss of one batch with ``ssd_scan`` against
    ``ssd_chunked_ref`` (1e-4 relative); tinyllama-1.1b at full width and
    2 layers, one train step with ``flash_attention`` on in bfloat16
@@ -86,13 +106,12 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: NVIDIA H100 SXM data-sheet peaks (at the full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-
 N_MAIN, P_MAIN, SEED = 1 << 24, 16, 0
 N_GRID = 1 << 20
+#: the tree path's nodes; the graph path's nodes (edges: 4x, components 4)
+N_TREE, N_GRAPH = 1 << 22, 1 << 20
+#: solve_forest's batch in phase 6: trees x nodes
+FOREST_TREES, FOREST_NODES = 64, 1 << 14
 
 
 def fail(msg: str) -> None:
@@ -120,44 +139,23 @@ def time_ms(fn, torch, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, torch, reps: int = 10):
-    """Device time of one call of ``fn`` (kernels, memsets and copies it
-    launched, summed; torch.profiler over ``reps`` calls), or None if the
-    profiler gave no device events: CUDA-event timing of a wrapper call
-    also holds the host's time to launch it."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+def device_ms(fn, torch, expect: dict, reps: int = 10):
+    """Device time of one call of ``fn`` (kernels, fills and copies it
+    launched, summed; one torch.profiler window of ``reps`` calls, up to
+    five windows), or None unless a window saw every call's ``expect``
+    ({kernel name: launches per call}, ``devtime.EXPECT``) exactly:
+    CUDA-event timing of a wrapper call also holds the host's time to
+    launch it, and a window that drops calls would read low."""
+    from repro_torch import devtime
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        return devtime.profiled_ms(fn, torch, expect, reps=reps, log=log)[0]
     except Exception as exc:  # the profiler is information here, no gate
         log(f"  (no device time: {type(exc).__name__}: {exc})")
         return None
-    return us / reps / 1e3 if us > 0 else None
 
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
-
-
-def bound_ms(nbytes: float, nops: float,
-             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def pack_bytes(p: int, w: int, n_rows: int, shipping: int) -> int:
-    """Bytes ``mailbox_pack`` must move for one hop: the (p, w, n_rows)
-    int32 send buffer written once, and each of the ``shipping`` messages'
-    w - 1 payload words and its int64 index into the bucket sort's order
-    read once."""
-    return 4 * p * w * n_rows + shipping * (4 * (w - 1) + 8)
 
 
 def max_abs_err(a, b, torch) -> float:
@@ -218,12 +216,15 @@ def main() -> None:
     run(torch.device("cuda", 0), N_MAIN, N_GRID, args.out, t0)
 
 
-def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
-    """Phases 1-11 on device ``dev`` at ``n_main`` / ``n_grid`` elements."""
+def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
+        n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
+    """Phases 1-13 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
                                            instances, rank_list_seq,
                                            rank_list_with_stats, sim_mesh)
+    from repro_torch import devtime
     from repro_torch.core.listrank import api, exchange, local
     from repro_torch.kernels import build
     from repro_torch.kernels.local_chase import ops as lc_ops, ref as lc_ref
@@ -283,7 +284,7 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
 
     def check_chase(succ_l, d, steps, what):
         s_k, d_k = lc_ops.local_chase(succ_l, d, steps)
-        run = lc_ops.local_chase.steps_run.tolist()
+        run = lc_ops.STEPS_RUN.tolist()
         s_p, d_p = lc_ref.local_chase_ref(succ_l, d, steps)
         torch.cuda.synchronize()
         if not (torch.equal(s_k, s_p) and torch.equal(
@@ -294,10 +295,13 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
         t = (time_ms(lambda: lc_ops.local_chase(succ_l, d, steps), torch),
              time_ms(lambda: lc_ref.local_chase_ref(succ_l, d, steps),
                      torch),
-             device_ms(lambda: lc_ops.local_chase(succ_l, d, steps), torch))
+             device_ms(lambda: lc_ops.local_chase(succ_l, d, steps), torch,
+                       devtime.EXPECT["local_chase"]),
+             devtime.queued_ms(
+                 lambda: lc_ops.local_chase(succ_l, d, steps), torch))
         log(f"phase 2: local_chase {what} B={P_MAIN} m={m}: equal; steps run "
             f"per row {run} of {steps}; kernel {t[0]:.4f} ms (device "
-            f"{fmt_ms(t[2])}), plain {t[1]:.3f} ms")
+            f"{fmt_ms(t[2])}, queued {fmt_ms(t[3])}), plain {t[1]:.3f} ms")
         return t, max(run)
 
     # the plain model of the kernel's schedule says how many steps each
@@ -308,8 +312,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
     for dt in (torch.int32, torch.float32):
         times[dt], run = check_chase(succ_l, dist0.to(dt).contiguous(), steps,
                                      f"gamma=1 {dt}")
-        if lc_ops.local_chase.steps_run.tolist() != want_run.tolist():
-            fail(f"local_chase ran {lc_ops.local_chase.steps_run.tolist()} "
+        if lc_ops.STEPS_RUN.tolist() != want_run.tolist():
+            fail(f"local_chase ran {lc_ops.STEPS_RUN.tolist()} "
                  f"steps; its plain model {want_run.tolist()}")
     steps_run = run
     if n_main == N_MAIN and steps_run != 4:
@@ -328,7 +332,7 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
     del succ_0, rank_0, succ_l0, dist_0
     # inputs read once, outputs written once; one add per element per step
     # that ran
-    lc_bound, lc_by = bound_ms(16 * elems, steps_run * elems)
+    lc_bound, lc_by = devtime.bound_ms(16 * elems, steps_run * elems)
     log(f"local_chase bound (inputs read once, outputs written once): "
         f"{lc_bound:.4f} ms by {lc_by}")
     kernels.append({
@@ -337,7 +341,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
         "replaces": "src/repro/kernels/local_chase/kernel.py:27",
         "launches": 0, "max_abs_err": max(errs),
         "ms": times[torch.int32][0], "plain_ms": times[torch.int32][1],
-        "device_ms": times[torch.int32][2], "steps_run": steps_run,
+        "device_ms": times[torch.int32][2],
+        "queued_ms": times[torch.int32][3], "steps_run": steps_run,
         "ms_float32": times[torch.float32][0],
         "plain_ms_float32": times[torch.float32][1],
         "ms_gamma0": times["gamma0"][0], "plain_ms_gamma0": times["gamma0"][1],
@@ -395,15 +400,18 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
         return mp_ops.mailbox_pack(cols, order, skey, s_hop, cap)
 
     mp_ms = time_ms(kernel_call, torch)
-    mp_dev = device_ms(kernel_call, torch)
+    mp_dev = device_ms(kernel_call, torch, devtime.EXPECT["mailbox_pack"])
+    mp_queued = devtime.queued_ms(kernel_call, torch)
     mp_plain = time_ms(lambda: mp_ref.mailbox_pack_sorted_ref(
         cols, order, skey, s_hop, cap), torch)
     mp_lib = time_ms(library_call, torch)
     shipping = int(fits.sum())
-    mp_bound, mp_by = bound_ms(pack_bytes(P_MAIN, w, n_rows, shipping), 0)
+    mp_bound, mp_by = devtime.bound_ms(
+        devtime.pack_bytes(P_MAIN, w, n_rows, shipping), 0)
     log(f"phase 2: mailbox_pack p={P_MAIN} W={w} Q={q} n_rows={n_rows} "
         f"shipping={shipping}: equal to the sorted gather and to the slot "
-        f"scatter; kernel {mp_ms:.4f} ms (device {fmt_ms(mp_dev)}), plain "
+        f"scatter; kernel {mp_ms:.4f} ms (device {fmt_ms(mp_dev)}, queued "
+        f"{fmt_ms(mp_queued)}), plain "
         f"{mp_plain:.3f} ms, zero fill + index_put_ {mp_lib:.3f} ms, bound "
         f"{mp_bound:.4f} ms (the buffer written once, each shipping "
         f"message's payload words and index read once)")
@@ -413,6 +421,7 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
         "replaces": "src/repro/kernels/mailbox_pack/kernel.py:30",
         "launches": 0, "max_abs_err": max_abs_err(out_k, out_p, torch),
         "ms": mp_ms, "plain_ms": mp_plain, "device_ms": mp_dev,
+        "queued_ms": mp_queued,
         "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": mp_lib})
     del valid, target, payload, order, row, col, fits, cols, out_k, out_p
     del stacked, lib_buf, lib_idx, succ_l, dist0, skey, wire, out_s
@@ -431,11 +440,11 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
                 and r.cpu().numpy().tobytes() == r_ref.tobytes()):
             fail(f"{what}: output differs from the sequential oracle")
 
-    lc_ops.local_chase.launches = 0
-    mp_ops.mailbox_pack.launches = 0
+    lc_ops.LAUNCHES = 0
+    mp_ops.LAUNCHES = 0
     s_on, r_on, st_on, wall_cold = solve(rank_np, cfg_on)
-    launches = {"local_chase": lc_ops.local_chase.launches,
-                "mailbox_pack": mp_ops.mailbox_pack.launches}
+    launches = {"local_chase": lc_ops.LAUNCHES,
+                "mailbox_pack": mp_ops.LAUNCHES}
     check_oracle(s_on, r_on, s_ref, r_ref, "main path (int32)")
     ints_on = {k: v for k, v in st_on.items() if isinstance(v, int)}
     log(f"phase 3: n={n_main} p={P_MAIN} kernels on: exact; attempts "
@@ -491,14 +500,21 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
     log(f"phase 5: n={n_grid} on a 4x4 grid, two hops, kernels on: exact; "
         f"rounds {st_g['rounds']}, attempts {st_g['attempts']}")
 
-    # ------------------------------------------------------ phases 6-8
+    # ------------------------------------------------------ phases 6-7
+    results["tree"] = tree_phase(dev, n_tree, cfg_on, cfg_off)
+    results["graph"] = graph_phase(dev, n_graph, cfg_on, cfg_off)
+    for kern in kernels:
+        for path in ("tree", "graph"):
+            kern[f"launches_{path}"] = results[path]["launches"][kern["name"]]
+
+    # ------------------------------------------------------ phases 8-10
     fa_entry, results["flash_attention"] = flash_attention_phase(dev)
     results["serve"] = serve_phase(dev)
     fa_entry["launches"] = results["serve"]["launches"]
     kernels.append(fa_entry)
     results["kernels_on_off"] = kernels_on_off_phase(dev)
 
-    # ----------------------------------------------------- phases 9-11
+    # ----------------------------------------------------- phases 11-13
     ssd_entry, results["ssd_scan"] = ssd_scan_phase(dev)
     results["train"] = train_phase(dev)
     ssd_entry["launches"] = results["train"]["launches"]
@@ -519,7 +535,266 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None) -> None:
         "count": torch.cuda.device_count()}}))
 
 
-# ---------------------------------------------------------------- phase 6
+# ------------------------------------------------------------- phases 6-7
+def tree_oracle(parent: np.ndarray):
+    """(depth, subtree size, preorder, postorder) of a rooted forest on
+    the host, without recursion: the numpy ``oracle_tour``, the
+    sequential ranking of its unit and ±1 weightings, and the closed
+    forms of ``treealg/ops.py``'s module doc."""
+    from repro_torch.core.listrank import rank_list_seq
+    from repro_torch.core.treealg import oracle_tour
+    n = parent.shape[0]
+    succ = oracle_tour(n, parent)
+    arc = np.arange(2 * n)
+    live = succ != arc
+    _, r1 = rank_list_seq(succ, live.astype(np.int64))
+    _, rpm = rank_list_seq(succ, np.where(arc % 2 == 0, 1, -1) * live)
+    root = parent.copy()
+    while not np.array_equal(root, root[root]):
+        root = root[root]
+    size_of_tree = np.bincount(root, minlength=n)[root]
+    c = np.flatnonzero(parent != np.arange(n))
+    depth = np.zeros(n, np.int64)
+    size = size_of_tree.astype(np.int64)
+    pre = np.zeros(n, np.int64)
+    post = np.maximum(size - 1, 0)
+    arcs = 2 * (size_of_tree[c] - 1)
+    depth[c] = 2 - rpm[2 * c]
+    size[c] = (r1[2 * c] - r1[2 * c + 1] + 1) // 2
+    pre[c] = (arcs - r1[2 * c] + depth[c]) // 2
+    post[c] = (arcs + 1 - r1[2 * c + 1] - depth[c]) // 2 - 1
+    return depth, size, pre, post
+
+
+def check_tree_stats(what, got, parent):
+    """Fail unless ``got``'s four arrays equal the oracle's."""
+    for name, a, b in zip(("depth", "subtree_size", "preorder", "postorder"),
+                          (got.depth, got.subtree_size, got.preorder,
+                           got.postorder), tree_oracle(parent)):
+        if not np.array_equal(a, b):
+            fail(f"{what}: {name} differs from the host oracle at "
+                 f"{int(np.flatnonzero(a != b)[0])}")
+
+
+def log_kernel_times(phase, kt) -> None:
+    dm, bd = kt["device_ms"], kt["bound_ms"]
+    if dm is None:
+        log(f"phase {phase}: kernels' device time over the call not measured"
+            f"; summed bounds mailbox_pack {bd['mailbox_pack']:.4f} ms, "
+            f"local_chase {bd['local_chase']:.4f} ms")
+        return
+    log(f"phase {phase}: over one call (torch.profiler, launches counted "
+        f"{kt['launches']}): mailbox_pack {dm['mailbox_pack']:.4f} ms of "
+        f"device time against {bd['mailbox_pack']:.4f} ms of summed bounds, "
+        f"local_chase {dm['local_chase']:.4f} against "
+        f"{bd['local_chase']:.4f}; device busy {kt['busy_ms']:.1f} ms of "
+        f"{kt['profiled_wall_s']:.3f} s under the profiler (idle "
+        f"{100 * kt['idle_share']:.1f} %)")
+
+
+def run_path(phase, call, torch, dev) -> tuple:
+    """Cold call with both kernels' counts reset just before, then a warm
+    timed call with peak memory. Returns (cold output, warm output,
+    results)."""
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    lc_ops.LAUNCHES = 0
+    mp_ops.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cold = call()
+    torch.cuda.synchronize()
+    wall_cold = time.perf_counter() - t
+    launches = {"local_chase": lc_ops.LAUNCHES,
+                "mailbox_pack": mp_ops.LAUNCHES}
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"phase {phase}: {name} was not launched")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    warm = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    res = {"launches": launches, "cold_wall_s": wall_cold,
+           "warm_wall_s": wall,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    return cold, warm, res
+
+
+def int_counters(stats) -> dict:
+    return {k: v for k, v in stats.items() if isinstance(v, int)}
+
+
+def tree_phase(dev, n_tree: int, cfg_on, cfg_off) -> dict:
+    """Phase 6: tree statistics at ``n_tree`` nodes, kernels on and off."""
+    import torch
+    from repro_torch import devtime
+    from repro_torch.core import treealg
+    from repro_torch.core.listrank import instances, sim_mesh
+
+    t = time.time()
+    parent = instances.gen_tree_parents(n_tree, seed=SEED, locality=False)
+    tree_oracle(parent)  # timed here; the checks recompute it
+    oracle_s = time.time() - t
+    mesh = sim_mesh(P_MAIN)
+
+    def call(cfg=cfg_on):
+        return treealg.tree_stats(parent, mesh, cfg=cfg, seed=SEED,
+                                  device=dev)
+
+    cold, warm, res = run_path(6, call, torch, dev)
+    check_tree_stats("tree path (kernels on)", cold, parent)
+    st = warm.stats
+    if int_counters(st) != int_counters(cold.stats):
+        fail("tree path: the warm rerun's counters differ")
+    res.update(n=n_tree, p=P_MAIN, oracle_s=oracle_s,
+               arcs=4 * n_tree, counters=int_counters(st),
+               stage_wall_s=dict(st["stage_wall_s"]))
+    log(f"phase 6: tree_stats n={n_tree} p={P_MAIN} kernels on: exact "
+        f"against the host oracle ({oracle_s:.1f} s); batched solve of 2 x "
+        f"{2 * n_tree} arcs, attempts {st['attempts']}, rounds "
+        f"{st['rounds']}; launches per call {res['launches']}")
+    log(f"phase 6: cold {res['cold_wall_s']:.3f} s, warm "
+        f"{res['warm_wall_s']:.3f} s; solve stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in st["stage_wall_s"])
+        + f"; peak memory {res['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    res["kernel_times"] = kt = devtime.kernel_times_over(
+        call, torch, log=log)[0]
+    log_kernel_times(6, kt)
+
+    off = call(cfg_off)
+    for k in ("depth", "subtree_size", "preorder", "postorder", "root_of"):
+        if not np.array_equal(getattr(off, k), getattr(cold, k)):
+            fail(f"tree path, kernels off: {k} differs from kernels on")
+    if int_counters(off.stats) != int_counters(cold.stats):
+        fail(f"tree path, kernels off: counters differ: "
+             f"{int_counters(off.stats)} vs {int_counters(cold.stats)}")
+    log("phase 6: kernels off: identical outputs and counters")
+
+    # re-rooting and the batched forest door, once each
+    small = instances.gen_tree_parents(FOREST_NODES, seed=SEED)
+    new_root = FOREST_NODES // 2 + 1
+    newp = treealg.root_tree(small, new_root, mesh, cfg=cfg_on, device=dev)
+    e_old = np.sort(np.stack([np.arange(FOREST_NODES), small], 1)[
+        small != np.arange(FOREST_NODES)], axis=1)
+    e_new = np.sort(np.stack([np.arange(FOREST_NODES), newp], 1)[
+        newp != np.arange(FOREST_NODES)], axis=1)
+    depth = tree_oracle(newp)[0]
+    if not (newp[new_root] == new_root and np.array_equal(
+            e_old[np.lexsort(e_old.T[::-1])], e_new[np.lexsort(e_new.T[::-1])])
+            and (depth[np.arange(FOREST_NODES) != new_root] > 0).all()):
+        fail("root_tree: not the input's edges rooted at the new root")
+    parents = [instances.gen_tree_parents(FOREST_NODES, seed=s,
+                                          locality=bool(s % 2))
+               for s in range(FOREST_TREES)]
+    for b, st_b in enumerate(treealg.solve_forest(parents, mesh, cfg=cfg_on,
+                                                  device=dev)):
+        check_tree_stats(f"solve_forest tree {b}", st_b, parents[b])
+    log(f"phase 6: root_tree (n={FOREST_NODES}, new root {new_root}) and "
+        f"solve_forest ({FOREST_TREES} trees of {FOREST_NODES} nodes): exact")
+    return res
+
+
+def check_forest(edges, n, gs, comp) -> None:
+    """Fail unless ``gs.parent`` is a forest of input edges rooted at
+    each component's minimum id that spans each component."""
+    parent = gs.parent.astype(np.int64)
+    v = np.flatnonzero(parent != np.arange(n))
+    lo, hi = np.minimum(edges[:, 0], edges[:, 1]), np.maximum(edges[:, 0],
+                                                                edges[:, 1])
+    keys = np.unique(lo * n + hi)
+    fkeys = np.minimum(v, parent[v]) * n + np.maximum(v, parent[v])
+    pos = np.clip(np.searchsorted(keys, fkeys), 0, keys.size - 1)
+    if v.size and not (keys[pos] == fkeys).all():
+        fail("graph path: a forest parent link is not an input edge")
+    if not np.array_equal(np.flatnonzero(parent == np.arange(n)),
+                          np.unique(comp)):
+        fail("graph path: the roots are not the components' minimum ids")
+    root = parent.copy()
+    for _ in range(max(int(n).bit_length(), 1) + 1):
+        root = root[root]
+    if not np.array_equal(root, comp):
+        fail("graph path: the forest does not span each component "
+             "(or has a cycle)")
+
+
+def graph_phase(dev, n_graph: int, cfg_on, cfg_off) -> dict:
+    """Phase 7: graph statistics at ``n_graph`` nodes, 4 x as many edges
+    in 4 components, kernels on and off."""
+    import scipy.sparse
+    import scipy.sparse.csgraph
+    import torch
+    from repro_torch import devtime
+    from repro_torch.core import graphalg
+    from repro_torch.core.listrank import instances, sim_mesh
+
+    n = n_graph
+    t = time.time()
+    edges = instances.gen_graph_edges(n, 4 * n, seed=SEED, locality=False,
+                                      num_components=4)
+    ncomp, lab = scipy.sparse.csgraph.connected_components(
+        scipy.sparse.coo_matrix((np.ones(edges.shape[0], np.int8),
+                                 (edges[:, 0], edges[:, 1])), shape=(n, n)),
+        directed=False)
+    mins = np.full(ncomp, n, np.int64)
+    np.minimum.at(mins, lab, np.arange(n))
+    comp = mins[lab]
+    oracle_s = time.time() - t
+    mesh = sim_mesh(P_MAIN)
+
+    def call(cfg=cfg_on):
+        return graphalg.graph_stats(edges, n, mesh, cfg=cfg, seed=SEED,
+                                    device=dev)
+
+    cold, warm, res = run_path(7, call, torch, dev)
+    if not np.array_equal(cold.components, comp):
+        fail("graph path: components differ from scipy's")
+    check_forest(edges, n, cold, comp)
+    check_tree_stats("graph path (kernels on)", cold, cold.parent)
+    st = warm.stats
+    if int_counters(st) != int_counters(cold.stats):
+        fail("graph path: the warm rerun's counters differ")
+    res.update(n=n, edges=int(edges.shape[0]), p=P_MAIN, components=ncomp,
+               oracle_s=oracle_s, counters=int_counters(st),
+               stage_wall_s=dict(st["stage_wall_s"]))
+    log(f"phase 7: graph_stats n={n} E={edges.shape[0]} p={P_MAIN} kernels "
+        f"on: {ncomp} components equal to scipy's, the forest valid, its "
+        f"statistics exact against the tree oracle; hooking rounds "
+        f"{st['cc_rounds']}, forest edges {st['forest_edges']}, attempts "
+        f"{st['attempts']}, solver rounds {st['rounds']}; launches per call "
+        f"{res['launches']}")
+    log(f"phase 7: cold {res['cold_wall_s']:.3f} s, warm "
+        f"{res['warm_wall_s']:.3f} s; per phase "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in st["stage_wall_s"])
+        + f"; peak memory {res['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    fp = graphalg.frontdoor.footprint_of(st["stage_collectives"])
+    jumps = fp["cc:jump"] if isinstance(fp["cc:jump"], tuple) \
+        else (fp["cc:jump"],)
+    res["shortcut_iterations"] = sum(
+        label == "cc:jump" for label, _ in st["stage_collectives"])
+    res["collectives"] = {k: v for k, v in fp.items()
+                          if not k.startswith("solve")}
+    log(f"phase 7: {st['cc_rounds']} hooking rounds, "
+        f"{res['shortcut_iterations']} shortcut iterations; collectives per "
+        f"hooking round {fp['cc:hook']}, per shortcut iteration "
+        f"{list(jumps)}, tour {fp['tour']}, finalize {fp['finalize']}")
+    res["kernel_times"] = kt = devtime.kernel_times_over(
+        call, torch, log=log)[0]
+    log_kernel_times(7, kt)
+
+    off = call(cfg_off)
+    for k in ("components", "parent", "depth", "subtree_size", "preorder",
+              "postorder"):
+        if not np.array_equal(getattr(off, k), getattr(cold, k)):
+            fail(f"graph path, kernels off: {k} differs from kernels on")
+    if int_counters(off.stats) != int_counters(cold.stats):
+        fail(f"graph path, kernels off: counters differ: "
+             f"{int_counters(off.stats)} vs {int_counters(cold.stats)}")
+    log("phase 7: kernels off: identical outputs and counters")
+    return res
+
+
+# ---------------------------------------------------------------- phase 8
 SERVE_ARCH = "tinyllama-1.1b"
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW, SERVE_REQUESTS = 8, 2048, 32, 16
 
@@ -532,6 +807,7 @@ def attention_bound(b, hq, hkv, lq, d, offsets, lk, elem_bytes):
     pairs = int(np.clip(pos + 1, 0, lk).sum())
     kv_rows = int(np.clip(pos.max(axis=1) + 1, 0, lk).sum())
     nbytes = elem_bytes * (2 * b * hq * lq * d + 2 * hkv * kv_rows * d)
+    from repro_torch.devtime import BF16_OPS_PER_S, bound_ms
     return bound_ms(nbytes, 4 * hq * d * pairs, BF16_OPS_PER_S)
 
 
@@ -542,25 +818,25 @@ def sdpa_backend(fn, torch) -> tuple[list[str], dict]:
     flags = {k: getattr(torch.backends.cuda, f"{k}_sdp_enabled")()
              for k in ("flash", "mem_efficient", "math", "cudnn")
              if hasattr(torch.backends.cuda, f"{k}_sdp_enabled")}
+    from repro_torch import devtime
     try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = sorted({e.name[:100] for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        _, events, _ = devtime.checked_window(
+            lambda: devtime.window(fn, torch),
+            lambda ev: None if ev else "no device events", log=log)
+        names = sorted({e["name"][:100] for e in events or ()})
     except Exception as exc:  # the profiler is information here, no gate
         names = [f"(no profile: {type(exc).__name__}: {exc})"]
     return names, flags
 
 
 def flash_attention_phase(dev):
-    """Phase 6: the kernel against its plain version; times at the serving
+    """Phase 8: the kernel against its plain version; times at the serving
     path's shapes. Returns (the kernels-line entry, results)."""
     import torch
     import torch.nn.functional as F
     sys.path.insert(0, str(ROOT / "tests"))
     from _torch_kernel_inputs import ATTN_CASES, ATTN_TOL, attn_inputs
+    from repro_torch import devtime
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -577,7 +853,7 @@ def flash_attention_phase(dev):
                 fail(f"flash_attention case {i} {dt} differs from its plain "
                      f"version by {max_abs_err(out, want, torch)}")
             errs.append(max_abs_err(out, want, torch))
-        log(f"phase 6: flash_attention {dt}: {len(ATTN_CASES)} cases within "
+        log(f"phase 8: flash_attention {dt}: {len(ATTN_CASES)} cases within "
             f"{tol}; max |err| {max(errs):.3g}")
 
     # the serving path's shapes: tinyllama's heads over a 2048-key cache
@@ -621,29 +897,36 @@ def flash_attention_phase(dev):
                                                      q_offset=q_offset), torch)
         lib_ms = time_ms(library_call, torch)
         dev_ms = device_ms(lambda: fa_ops.flash_attention(
+            q, k, v, q_offset=q_offset), torch,
+            devtime.EXPECT[f"flash_attention_{name}_bf16"])
+        queued = devtime.queued_ms(lambda: fa_ops.flash_attention(
             q, k, v, q_offset=q_offset), torch)
-        lib_dev_ms = device_ms(library_call, torch)
+        # SDPA's kernels are cuDNN's or another backend's: no names to
+        # count, so its device time is the queued reading only
+        lib_dev_ms = devtime.queued_ms(library_call, torch)
         sdpa_kernels, sdpa_flags = sdpa_backend(library_call, torch)
         bnd, by = attention_bound(b, hq, hkv, lq, d, offs, lk, 2)
         rows[name] = {"b": b, "lq": lq, "lk": lk, "offsets": offs,
                       "max_abs_err": max_abs_err(out, want, torch), "ms": ms,
                       "plain_ms": plain, "library_ms": lib_ms,
                       "bound_ms": bnd, "bound_by": by,
-                      "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+                      "device_ms": dev_ms, "queued_ms": queued,
+                      "library_device_ms": lib_dev_ms,
                       "sdpa_kernels": sdpa_kernels, "sdpa_flags": sdpa_flags}
         if name == "decode":
             rows[name]["splits"] = fa_ops.decode_splits(
                 b, hkv, hq // hkv, lk, torch.cuda.get_device_properties(
                     dev).multi_processor_count)
-        log(f"phase 6: SDPA ({name}) ran {sdpa_kernels}; enabled backends "
+        log(f"phase 8: SDPA ({name}) ran {sdpa_kernels}; enabled backends "
             f"{sdpa_flags}")
-        log(f"phase 6: flash_attention {name} bf16 B={b} Hq={hq} Hkv={hkv} "
+        log(f"phase 8: flash_attention {name} bf16 B={b} Hq={hq} Hkv={hkv} "
             f"D={d} Lq={lq} Lk={lk}: max |err| {rows[name]['max_abs_err']:.3g};"
             f" kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib_ms:.4f} ms,"
             f" bound {bnd:.4f} ms by {by}"
             + (f"; split-K over {rows[name]['splits']} splits"
                if name == "decode" else "; tensor cores (mma.sync)")
-            + f"; device time (torch.profiler) kernel {fmt_ms(dev_ms)}, SDPA "
+            + f"; device time kernel {fmt_ms(dev_ms)} (torch.profiler, "
+              f"launches counted), queued {fmt_ms(queued)}; SDPA queued "
               f"{fmt_ms(lib_dev_ms)}")
     pre, dec = rows["prefill"], rows["decode"]
     entry = {
@@ -655,19 +938,20 @@ def flash_attention_phase(dev):
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": pre["library_ms"],
-        "device_ms": pre["device_ms"],
+        "device_ms": pre["device_ms"], "queued_ms": pre["queued_ms"],
         "library_device_ms": pre["library_device_ms"],
         "ms_decode": dec["ms"], "plain_ms_decode": dec["plain_ms"],
         "bound_ms_decode": dec["bound_ms"], "bound_by_decode": dec["bound_by"],
         "library_ms_decode": dec["library_ms"],
         "device_ms_decode": dec["device_ms"],
+        "queued_ms_decode": dec["queued_ms"],
         "library_device_ms_decode": dec["library_device_ms"]}
     return entry, {"max_abs_err_cases": max(errs), **rows}
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 9
 def serve_phase(dev) -> dict:
-    """Phase 7: tinyllama-1.1b at full width served through the engine."""
+    """Phase 9: tinyllama-1.1b at full width served through the engine."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -702,12 +986,12 @@ def serve_phase(dev) -> dict:
         int(a[1].shape[1]), []).append(ms))
     eng._decode = timed(eng._decode, lambda a, ms: decode_ms.append(ms))
     torch.cuda.reset_peak_memory_stats(dev)
-    fa_ops.flash_attention.launches = 0
+    fa_ops.LAUNCHES = 0
     t0 = time.perf_counter()
     out = eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa_ops.flash_attention.launches
+    launches = fa_ops.LAUNCHES
 
     n_prefill = sum(len(v) for v in prefill_ms.values())
     ticks = len(decode_ms)
@@ -733,7 +1017,7 @@ def serve_phase(dev) -> dict:
            "decode_ms_median": statistics.median(decode_ms),
            "decode_ms": decode_ms, "launches": launches,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
-    log(f"phase 7: served {SERVE_REQUESTS} requests with {cfg.name} "
+    log(f"phase 9: served {SERVE_REQUESTS} requests with {cfg.name} "
         f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{str(cfg.dtype).removeprefix('torch.')}, kernels on):"
         f" {n_prefill} prefills, {ticks} decode ticks, {tokens} tokens in "
@@ -748,9 +1032,9 @@ def serve_phase(dev) -> dict:
     return res
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 10
 def kernels_on_off_phase(dev) -> dict:
-    """Phase 8: full-width logits with the kernel on and off, prefill plus
+    """Phase 10: full-width logits with the kernel on and off, prefill plus
     16 decode steps fed the kernels-off greedy tokens."""
     import torch
     from repro_torch import configs
@@ -759,7 +1043,7 @@ def kernels_on_off_phase(dev) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"phase 8: torch.backends.cuda.matmul.allow_tf32="
+    log(f"phase 10: torch.backends.cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
     vocab = configs.get_config(SERVE_ARCH).vocab_size
@@ -785,14 +1069,14 @@ def kernels_on_off_phase(dev) -> dict:
         cfg = configs.get_config(SERVE_ARCH).with_(dtype=dt)
         params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
         off, fed = logits_of(params, cfg)
-        fa_ops.flash_attention.launches = 0
+        fa_ops.LAUNCHES = 0
         on, _ = logits_of(params, cfg.with_(use_kernels=True), teacher=fed)
-        launches = fa_ops.flash_attention.launches
+        launches = fa_ops.LAUNCHES
         torch.cuda.synchronize()
         diff = max_abs_err(on, off, torch)
         name = str(dt).removeprefix("torch.")
         res[name] = {"max_abs_diff": diff, "launches": launches}
-        log(f"phase 8: {cfg.name} {name}, prompt {prompt.shape[1]} + {steps} "
+        log(f"phase 10: {cfg.name} {name}, prompt {prompt.shape[1]} + {steps} "
             f"teacher-forced steps: max |logits on - off| {diff:.3g}; "
             f"flash_attention launches {launches}")
         if launches < cfg.num_layers * (1 + steps):
@@ -805,7 +1089,7 @@ def kernels_on_off_phase(dev) -> dict:
     return res
 
 
-# ---------------------------------------------------------------- phase 9
+# ---------------------------------------------------------------- phase 11
 TRAIN_ARCH = "mamba2-130m"
 #: mamba2-130m's training shape: (Bt, L, H, G, N, P, chunk)
 SSD_MAIN = (8, 1024, 24, 1, 128, 64, 256)
@@ -825,15 +1109,17 @@ def ssd_bound(bt, l, h, g, n, p, chunk, elem_bytes, skip=True):
     ops = bt * h * sum(r * (r + 1) * (n + p) + 4 * r * n * p for r in rows)
     nbytes = (elem_bytes * (2 * bt * l * h * p + 2 * bt * l * g * n)
               + 4 * (bt * l * h + h * (2 if skip else 1)))
+    from repro_torch.devtime import BF16_OPS_PER_S, bound_ms
     return bound_ms(nbytes, ops, BF16_OPS_PER_S)
 
 
 def ssd_scan_phase(dev):
-    """Phase 9: the kernel against its plain version, forward and gradient,
+    """Phase 11: the kernel against its plain version, forward and gradient,
     and its times. Returns (the kernels-line entry, results)."""
     import torch
     sys.path.insert(0, str(ROOT / "tests"))
     from _torch_kernel_inputs import SSD_CASES, SSD_TOL, ssd_inputs
+    from repro_torch import devtime
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
@@ -851,7 +1137,7 @@ def ssd_scan_phase(dev):
                 fail(f"ssd_scan case {i} (D={skip}) differs from its plain "
                      f"version by {max_abs_err(out, want, torch)}")
             errs.append(max_abs_err(out, want, torch))
-    log(f"phase 9: ssd_scan float32: {len(SSD_CASES)} cases x (D, no D) "
+    log(f"phase 11: ssd_scan float32: {len(SSD_CASES)} cases x (D, no D) "
         f"within {SSD_TOL}; max |err| {max(errs):.3g}")
 
     bt, l, h, g, n, p, chunk = SSD_MAIN
@@ -869,18 +1155,23 @@ def ssd_scan_phase(dev):
             fail(f"ssd_scan {name} at the mamba2-130m shape differs from its "
                  f"plain version by {err}")
         ms = time_ms(lambda: ssd_ops.ssd_scan(*args, chunk), torch)
-        dev_ms = device_ms(lambda: ssd_ops.ssd_scan(*args, chunk), torch)
+        kind = "bf16" if dt == torch.bfloat16 else "f32"
+        dev_ms = device_ms(lambda: ssd_ops.ssd_scan(*args, chunk), torch,
+                           devtime.EXPECT[f"ssd_scan_{kind}"])
+        queued = devtime.queued_ms(lambda: ssd_ops.ssd_scan(*args, chunk),
+                                   torch)
         chunked = time_ms(lambda: ssd_ref.ssd_chunked_ref(*args, chunk=chunk),
                           torch, reps=10)
         seq = time_ms(lambda: ssd_ref.ssd_ref(*args), torch, reps=3)
         bnd, by = ssd_bound(*SSD_MAIN, 2 if dt == torch.bfloat16 else 4)
         res[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                     "queued_ms": queued,
                      "plain_ms": chunked, "plain_sequential_ms": seq,
                      "bound_ms": bnd, "bound_by": by}
-        log(f"phase 9: ssd_scan {name} Bt={bt} L={l} H={h} P={p} G={g} N={n} "
+        log(f"phase 11: ssd_scan {name} Bt={bt} L={l} H={h} P={p} G={g} N={n} "
             f"Q={chunk}: max |err| {err:.3g} (tolerance {tol}); kernel "
-            f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), ssd_chunked_ref "
-            f"{chunked:.4f} ms, ssd_ref {seq:.2f} ms, bound {bnd:.4f} ms by "
+            f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}, queued "
+            f"{fmt_ms(queued)}), ssd_chunked_ref {chunked:.4f} ms, ssd_ref {seq:.2f} ms, bound {bnd:.4f} ms by "
             f"{by}")
         del out, want
 
@@ -907,7 +1198,7 @@ def ssd_scan_phase(dev):
                  f"{max_abs_err(a, b, torch)}")
         gerr = max(gerr, max_abs_err(a, b, torch))
     res["grad_max_abs_err"], res["grad_s"] = gerr, grad_s
-    log(f"phase 9: ssd_scan gradient of x, dt, A, B, C, D at the full shape "
+    log(f"phase 11: ssd_scan gradient of x, dt, A, B, C, D at the full shape "
         f"(float32) within {SSD_TOL} of autograd through ssd_ref: max |err| "
         f"{gerr:.3g}; forward + backward {grad_s:.2f} s (host clock)")
     del got, want, args, w
@@ -930,9 +1221,9 @@ def ssd_scan_phase(dev):
     return entry, res
 
 
-# --------------------------------------------------------------- phase 10
+# --------------------------------------------------------------- phase 12
 def train_phase(dev) -> dict:
-    """Phase 10: mamba2-130m at full width trained through launch.train."""
+    """Phase 12: mamba2-130m at full width trained through launch.train."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -941,7 +1232,7 @@ def train_phase(dev) -> dict:
     cfg = configs.get_config(TRAIN_ARCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    ssd_ops.ssd_scan.launches = 0
+    ssd_ops.LAUNCHES = 0
     t0 = time.perf_counter()
     history = train_launch.main([
         "--arch", TRAIN_ARCH, "--use-kernels", "--batch", str(TRAIN_BATCH),
@@ -949,7 +1240,7 @@ def train_phase(dev) -> dict:
         "--log-every", "1", "--device", str(dev)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ssd_ops.ssd_scan.launches
+    launches = ssd_ops.LAUNCHES
     peak = torch.cuda.max_memory_allocated(dev)
 
     losses = [h["loss"] for h in history]
@@ -973,7 +1264,7 @@ def train_phase(dev) -> dict:
            "first_step_ms": ms[0], "warm_step_ms_mean": statistics.mean(warm),
            "tokens_per_s": tokens * len(warm) / (sum(warm) / 1e3),
            "wall_s": wall, "launches": launches, "peak_memory_bytes": peak}
-    log(f"phase 10: trained {cfg.name} ({cfg.num_layers} layers, d_model "
+    log(f"phase 12: trained {cfg.name} ({cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {str(cfg.dtype).removeprefix('torch.')}, kernels "
         f"on) {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}; gradient norms "
@@ -987,9 +1278,9 @@ def train_phase(dev) -> dict:
     return res
 
 
-# --------------------------------------------------------------- phase 11
+# --------------------------------------------------------------- phase 13
 def train_on_off_phase(dev) -> dict:
-    """Phase 11: kernels on against off on the training path."""
+    """Phase 13: kernels on against off on the training path."""
     import torch
     from repro_torch import configs
     from repro_torch.data import pipeline
@@ -1023,7 +1314,7 @@ def train_on_off_phase(dev) -> dict:
     # every layer's kernel call of the kernels-on forward is recorded, inputs
     # and output, and held against ssd_ref below: the model's own dt and A
     # drive a chunk's summed log-decay far below -88, where exp underflows
-    # in float32, which phase 9's drawn inputs never reach
+    # in float32, which phase 11's drawn inputs never reach
     calls, launch = [], ssd_ops._launch
 
     def recording_launch(*a):
@@ -1031,19 +1322,19 @@ def train_on_off_phase(dev) -> dict:
         calls.append((a, y))
         return y
 
-    ssd_ops.ssd_scan.launches = 0
+    ssd_ops.LAUNCHES = 0
     ssd_ops._launch = recording_launch
     try:
         logits_on, on = loss_of(cfg.with_(use_kernels=True))
     finally:
         ssd_ops._launch = launch
-    launches = ssd_ops.ssd_scan.launches
+    launches = ssd_ops.LAUNCHES
     logits_off, off = loss_of(cfg)
     rel = abs(on - off) / abs(off)
     diff = max_abs_err(logits_on, logits_off, torch)
     res["mamba_float32"] = {"loss_on": on, "loss_off": off, "rel_diff": rel,
                             "logits_max_abs_diff": diff, "launches": launches}
-    log(f"phase 11: {cfg.name} float32 loss of one {TRAIN_BATCH} x "
+    log(f"phase 13: {cfg.name} float32 loss of one {TRAIN_BATCH} x "
         f"{TRAIN_SEQ} batch: ssd_scan {on:.7f}, ssd_chunked_ref {off:.7f}, "
         f"relative difference {rel:.3g} (max |logits on - off| {diff:.3g}, "
         f"information); launches {launches}")
@@ -1067,7 +1358,7 @@ def train_on_off_phase(dev) -> dict:
         del want
     res["mamba_float32"].update(layer_max_abs_err=max(layer_errs),
                                 chunk_log_decay_min=decay_min)
-    log(f"phase 11: ssd_scan on each of the {len(calls)} layers' own inputs "
+    log(f"phase 13: ssd_scan on each of the {len(calls)} layers' own inputs "
         f"(float32) within {SSD_TOL} of ssd_ref: max |err| "
         f"{max(layer_errs):.3g}; most negative summed log-decay of a chunk "
         f"{decay_min:.1f}")
@@ -1083,10 +1374,10 @@ def train_on_off_phase(dev) -> dict:
         name = str(dt).removeprefix("torch.")
         cfg = base.with_(dtype=dt)
         params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
-        fa_ops.flash_attention.launches = 0
+        fa_ops.LAUNCHES = 0
         (loss, _), g_on = steps.value_and_grad(
             params, batch, cfg.with_(use_kernels=True), tcfg)
-        launches = fa_ops.flash_attention.launches
+        launches = fa_ops.LAUNCHES
         flat_on = leaves(g_on)
         finite = bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(g).all()) for g in flat_on)
@@ -1106,7 +1397,7 @@ def train_on_off_phase(dev) -> dict:
                 fail(f"kernels on vs off (tinyllama, float32): gradients "
                      f"differ by {diff}")
         res[f"tinyllama_{name}"] = row
-        log(f"phase 11: {cfg.name} ({cfg.num_layers} layers, full width) "
+        log(f"phase 13: {cfg.name} ({cfg.num_layers} layers, full width) "
             f"{name} train step with flash_attention: loss {float(loss):.5f},"
             f" gradients finite, launches {launches}"
             + (f"; against the plain path: loss {row['loss_off']:.5f}, max "

@@ -238,9 +238,52 @@ def _restore_local(plan, spec, owner_of, st, aux, rep, succ_orig, rank_orig,
     return final_succ, final_rank, stats
 
 
+def _solve_sharded(succ, rank, perm_fn, *, plan: MeshPlan,
+                   cfg: ListRankConfig, specs, m: int, footprint=None):
+    """One attempt of the whole solve on (p, m) tensors, no retry: the
+    staged solve's stage bodies run back to back (the reference's
+    monolithic in-mesh solve, which the graph pipeline composes twice).
+    ``cfg.algorithm`` must be resolved. Returns (succ, rank, stats) with
+    0-dim stat totals; a caller that finds a fatal stat escalates and
+    reruns the whole attempt. ``footprint`` (a ``cut(label)`` recorder of
+    transport calls) is cut after every stage."""
+    state = None
+    for stage in resume_lib.schedule_for(cfg):
+        state = resume_lib._run_stage(stage, state, succ, rank, perm_fn,
+                                      plan=plan, cfg=cfg, specs=specs, m=m)
+        if footprint is not None:
+            footprint.cut(stage.label)
+    return state
+
+
 # --------------------------------------------------------------------------
 # front door
 # --------------------------------------------------------------------------
+
+def reject_unported(cfg: ListRankConfig, **options) -> None:
+    """Raise NotImplementedError for the options that belong to later
+    slices of the port: any of ``options`` given, or ``cfg.telemetry``."""
+    for name, val in options.items():
+        if val is not None:
+            raise NotImplementedError(f"{name} is not ported yet")
+    if cfg.telemetry:
+        raise NotImplementedError("telemetry=True is not ported yet")
+
+
+def make_plan(mesh, pe_axes: Sequence[str], cfg: ListRankConfig, device,
+              indirection: IndirectionSpec | None = None) -> MeshPlan:
+    """The routing plan of a solve or a tree/graph front door: the
+    virtual-PE transport on ``device`` behind a call-counting wrapper,
+    with the config's wire format and ``mailbox_pack`` flag."""
+    pe_axes = tuple(pe_axes)
+    transport = transport_lib.CountingTransport(
+        transport_lib.VirtualTransport(
+            pe_axes, tuple(mesh.shape[a] for a in pe_axes), device))
+    return MeshPlan.from_mesh(mesh, pe_axes, indirection,
+                              wire_packing=cfg.wire_packing,
+                              pallas_pack=cfg.use_pallas_pack,
+                              transport=transport)
+
 
 def _host_array(x, dtype) -> np.ndarray:
     if isinstance(x, torch.Tensor):
@@ -269,12 +312,7 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
     to later slices of the port and raise NotImplementedError.
     """
     cfg = cfg or ListRankConfig()
-    for name, val in (("supervisor", supervisor), ("inject", inject),
-                      ("tracer", tracer)):
-        if val is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
-    if cfg.telemetry:
-        raise NotImplementedError("telemetry=True is not ported yet")
+    reject_unported(cfg, supervisor=supervisor, inject=inject, tracer=tracer)
     device = resolve_device(device)
     pe_axes = tuple(pe_axes) if pe_axes is not None else tuple(mesh.axis_names)
     _, mesh = transport_lib.resolve_backend(cfg.backend, mesh, pe_axes)
@@ -283,13 +321,7 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
     if indirection is None and cfg.auto_indirection:
         axis_sizes = tuple(mesh.shape[a] for a in pe_axes)
         indirection = tuner.choose_indirection(cfg, pe_axes, axis_sizes, n)
-    transport = transport_lib.CountingTransport(
-        transport_lib.VirtualTransport(
-            pe_axes, tuple(mesh.shape[a] for a in pe_axes), device))
-    plan = MeshPlan.from_mesh(mesh, pe_axes, indirection,
-                              wire_packing=cfg.wire_packing,
-                              pallas_pack=cfg.use_pallas_pack,
-                              transport=transport)
+    plan = make_plan(mesh, pe_axes, cfg, device, indirection)
     p = plan.p
     if n % p != 0:
         raise ValueError(f"n={n} must be divisible by p={p} (pad the input)")

@@ -13,7 +13,7 @@ gives way to the plain version. By dtype and query length:
   allocated here;
 - float32: the CUDA-core kernel (``flash_fwd_kernel``).
 
-``flash_attention.launches`` counts wrapper calls that launched: one per
+:data:`LAUNCHES` counts wrapper calls that launched: one per
 forward on the card, the decode's two kernels counting once (the backward
 launches none). Differentiable in q, k and v; a ``q_offset`` tensor is not.
 """
@@ -29,6 +29,8 @@ HEAD_DIMS = (16, 24, 32, 64, 112, 128, 256)
 #: most query heads that share one kv head (rows of the kernel's tile)
 MAX_GROUP = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: wrapper calls that launched so far (callers may reset it to 0)
+LAUNCHES = 0
 #: keys a decode tile; a decode part is a whole number of them
 DECODE_TILE = 64
 #: parts (warps) a decode split (CTA) has: flash_attention.cu's kDecWarps
@@ -89,6 +91,7 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _forward(q, k, v, *, causal, window, softcap, scale, q_offset):
+    global LAUNCHES
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                   softcap=softcap, scale=scale,
@@ -150,7 +153,7 @@ def _forward(q, k, v, *, causal, window, softcap, scale, q_offset):
             0.0 if softcap is None else float(softcap), float(scale), splits,
             PARTS_PER_SPLIT, decode_part_len(lk, splits), part.data_ptr(),
             part.data_ptr() + 4 * 2 * rows, stream), "flash_attention")
-        flash_attention.launches += 1
+        LAUNCHES += 1
         return out
     _build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), off_ptr,
@@ -158,8 +161,5 @@ def _forward(q, k, v, *, causal, window, softcap, scale, q_offset):
         -1 if window is None else int(window), int(softcap is not None),
         0.0 if softcap is None else float(softcap), float(scale), stream),
         "flash_attention")
-    flash_attention.launches += 1
+    LAUNCHES += 1
     return out
-
-
-flash_attention.launches = 0

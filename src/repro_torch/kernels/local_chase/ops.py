@@ -2,10 +2,10 @@
 plain torch version for CPU tensors.
 
 On a CUDA tensor the kernel is launched or the call raises; it never
-gives way to the plain version. ``local_chase.launches`` counts kernel
-launches: one per call on the card (one cooperative launch runs every
-doubling step, and stops at the first step that changes nothing).
-``local_chase.steps_run`` is a (B,) int32 device tensor, set by every
+gives way to the plain version. :data:`LAUNCHES` counts kernel launches:
+one per call on the card (one cooperative launch runs every doubling
+step, and stops at the first step that changes nothing).
+:data:`STEPS_RUN` is a (B,) int32 device tensor, set by every
 call on the card, of the steps each row's group ran (zeros for a call
 that runs no step); the solve never reads it (that would add a host
 sync), the tools do.
@@ -16,6 +16,11 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.local_chase import ref as _ref
+
+#: kernel launches so far (callers may reset it to 0)
+LAUNCHES = 0
+#: the steps each row's group ran in the last call on the card
+STEPS_RUN = None
 
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 
@@ -49,6 +54,7 @@ def local_chase(succ: torch.Tensor, dist: torch.Tensor, steps: int):
     :func:`repro_torch.kernels.local_chase.ref.local_chase_ref`. The
     kernel walks the rows in groups of :func:`rows_per_group`.
     """
+    global LAUNCHES, STEPS_RUN
     if succ.device.type == "cpu":
         return _ref.local_chase_ref(succ, dist, steps)
     if succ.device.type != "cuda":
@@ -69,8 +75,7 @@ def local_chase(succ: torch.Tensor, dist: torch.Tensor, steps: int):
     if b >= 2 ** 31 or m >= 2 ** 31:
         raise ValueError(f"local_chase: (B, m) = ({b}, {m}) out of range")
     if steps == 0 or succ.numel() == 0:
-        local_chase.steps_run = torch.zeros(b, dtype=torch.int32,
-                                            device=succ.device)
+        STEPS_RUN = torch.zeros(b, dtype=torch.int32, device=succ.device)
         return succ.clone(), dist.clone()
     g = rows_per_group(b, m, dist.element_size(), succ.device)
     n_groups = -(-b // g)
@@ -83,10 +88,6 @@ def local_chase(succ: torch.Tensor, dist: torch.Tensor, steps: int):
         succ.data_ptr(), dist.data_ptr(), _DTYPE_CODE[dist.dtype], b, m,
         steps, g, out_s.data_ptr(), out_d.data_ptr(), tmp_s.data_ptr(),
         tmp_d.data_ptr(), ctrl.data_ptr(), stream), "local_chase")
-    local_chase.launches += 1
-    local_chase.steps_run = ctrl[n_groups:]
+    LAUNCHES += 1
+    STEPS_RUN = ctrl[n_groups:]
     return out_s, out_d
-
-
-local_chase.launches = 0
-local_chase.steps_run = None

@@ -2,8 +2,8 @@
 plain torch version for CPU tensors.
 
 On a CUDA tensor the kernel is launched or the call raises; it never
-gives way to the plain version. ``mailbox_pack.launches`` counts kernel
-launches (one per call on the card with a non-empty buffer).
+gives way to the plain version. :data:`LAUNCHES` counts kernel launches
+(one per call on the card with a non-empty buffer).
 """
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.mailbox_pack import ref as _ref
+
+#: kernel launches so far (callers may reset it to 0)
+LAUNCHES = 0
 
 #: most word-planes one launch writes, the validity plane included (the
 #: kernel's pointer table)
@@ -31,6 +34,7 @@ def mailbox_pack(cols, order: torch.Tensor, skey: torch.Tensor,
     ``c < min(run_b, cap)``, with its validity word 1; every other word
     is zero. Equal to :func:`ref.mailbox_pack_sorted_ref`.
     """
+    global LAUNCHES
     if skey.device.type == "cpu":
         return _ref.mailbox_pack_sorted_ref(cols, order, skey, n_buckets, cap)
     if skey.device.type != "cuda":
@@ -70,8 +74,5 @@ def mailbox_pack(cols, order: torch.Tensor, skey: torch.Tensor,
     _build.check(lib.mailbox_pack_launch(
         ptrs, len(cols), order.data_ptr(), skey.data_ptr(), p, q, n_buckets,
         cap, out.data_ptr(), stream), "mailbox_pack")
-    mailbox_pack.launches += 1
+    LAUNCHES += 1
     return out
-
-
-mailbox_pack.launches = 0

@@ -12,7 +12,7 @@ masked by the kernel. By dtype:
   here; N and P must be multiples of 8 (N <= 256);
 - float32: the CUDA-core kernel, one launch.
 
-``ssd_scan.launches`` counts wrapper calls that launched (one per forward
+:data:`LAUNCHES` counts wrapper calls that launched (one per forward
 on the card, whatever the number of kernels). The backward goes through
 the sequential ``ssd_ref`` and never through ``ssd_chunked_ref``, whose
 masked exponentials give NaN gradients at long sequences.
@@ -29,6 +29,8 @@ MAX_HEAD_DIM = 128
 #: shared memory a block may use on Hopper (bytes)
 MAX_SMEM = 232_448
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: wrapper calls that launched so far (callers may reset it to 0)
+LAUNCHES = 0
 
 
 def _check(x, dt, A, B, C, D, chunk):
@@ -57,6 +59,7 @@ def _check(x, dt, A, B, C, D, chunk):
 
 def _launch(x, dt, A, B, C, D, chunk):
     """The CUDA kernel on validated inputs; raises on what it cannot take."""
+    global LAUNCHES
     bt, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     tensors = (x, dt, A, B, C) + ((D,) if D is not None else ())
@@ -109,7 +112,7 @@ def _launch(x, dt, A, B, C, D, chunk):
                              f"{MAX_SMEM})")
         err = lib.ssd_scan_launch(*ptrs, bt, l, h, g, n, p, chunk, stream)
     _build.check(err, "ssd_scan")
-    ssd_scan.launches += 1
+    LAUNCHES += 1
     return y
 
 
@@ -152,5 +155,3 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, B, C, D, chunk)
     return _SSDScan.apply(x, dt, A, B, C, D, min(chunk, max(x.shape[1], 1)))
 
-
-ssd_scan.launches = 0

@@ -1,0 +1,139 @@
+"""The JAX package's tree and graph front doors, run in a child process
+for the port's parity tests (``tests/test_torch_treealg.py``,
+``tests/test_torch_graphalg.py``).
+
+Each of these calls compiles large simshard programs, and many such
+compiles in one pytest worker have crashed XLA's CPU compiler in a later
+test file of the same worker; a child process per test file keeps them
+out of the worker. :func:`run_reference` runs a batch of named jobs in
+one child and returns their results as numpy arrays, dicts and ints.
+
+    python tests/_torch_reference_child.py JOBS.pkl OUT.pkl
+"""
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+P = 8
+TREE_ARRAYS = ("parent", "root_of", "depth", "subtree_size", "preorder",
+               "postorder")
+GRAPH_ARRAYS = ("components", "parent", "depth", "subtree_size", "preorder",
+                "postorder")
+
+
+def run_reference(jobs: dict, tmp_dir) -> dict:
+    """Run ``jobs`` ({key: (job name, args)}) in one child process and
+    return {key: result}."""
+    inp = os.path.join(str(tmp_dir), "jobs.pkl")
+    out = os.path.join(str(tmp_dir), "out.pkl")
+    with open(inp, "wb") as f:
+        pickle.dump(jobs, f)
+    subprocess.run([sys.executable, os.path.abspath(__file__), inp, out],
+                   check=True, timeout=900)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+# --------------------------------------------------------------------------
+# the jobs (run in the child only)
+# --------------------------------------------------------------------------
+
+def _ints(stats) -> dict:
+    return {k: int(v) for k, v in stats.items()
+            if isinstance(v, (int, np.integer))}
+
+
+def _arrays(obj, names) -> dict:
+    return {**{k: np.asarray(getattr(obj, k)) for k in names},
+            "stats": _ints(obj.stats)}
+
+
+def build(parent, weighted, cut_at):
+    """The reference's tour (succ, w, stats) as its ``build_tour``
+    runs it (first attempt; caps are exact)."""
+    import jax.numpy as jnp
+    from repro.core.listrank import sim_mesh, transport
+    from repro.core.listrank.exchange import MeshPlan
+    from repro.core.treealg import euler
+    mesh = sim_mesh(P)
+    n = parent.shape[0]
+    closed = cut_at is not None and cut_at != int(
+        np.flatnonzero(parent == np.arange(n))[0])
+    pad = (-n) % P
+    parent_pad = np.concatenate([parent, np.arange(n, n + pad)])
+    m = parent_pad.shape[0] // P
+    cap1, cap2 = euler.tour_caps(parent_pad, P)
+    succ, w, stats = euler._jitted_builder(
+        mesh, MeshPlan.from_mesh(mesh, ("pe",), None), m, cap1, cap2,
+        weighted, closed)(
+            transport.put_sharded(mesh, ("pe",),
+                                  jnp.asarray(parent_pad, jnp.int32)),
+            jnp.int32(cut_at if closed else -1))
+    return {"succ": np.asarray(succ), "w": np.asarray(w),
+            "stats": {k: int(v) for k, v in stats.items()},
+            "parent_pad": parent_pad, "m": m, "caps": (cap1, cap2),
+            "closed": closed}
+
+
+def tree_stats(parent):
+    from repro.core import treealg
+    from repro.core.listrank import ListRankConfig, sim_mesh
+    return _arrays(treealg.tree_stats(parent, sim_mesh(P),
+                                      cfg=ListRankConfig()), TREE_ARRAYS)
+
+
+def root_tree(parent, new_root):
+    from repro.core import treealg
+    from repro.core.listrank import ListRankConfig, sim_mesh
+    return np.asarray(treealg.root_tree(parent, new_root, sim_mesh(P),
+                                        cfg=ListRankConfig()))
+
+
+def solve_forest(parents):
+    from repro.core import treealg
+    from repro.core.listrank import ListRankConfig, sim_mesh
+    return [_arrays(st, TREE_ARRAYS) for st in treealg.solve_forest(
+        parents, sim_mesh(P), cfg=ListRankConfig())]
+
+
+def graph_stats(edges, n):
+    from repro.core import graphalg
+    from repro.core.listrank import ListRankConfig, sim_mesh
+    return _arrays(graphalg.graph_stats(edges, n, sim_mesh(P),
+                                        cfg=ListRankConfig()), GRAPH_ARRAYS)
+
+
+def connected_components(edges, n):
+    from repro.core import graphalg
+    from repro.core.listrank import ListRankConfig, sim_mesh
+    labels, stats = graphalg.connected_components(edges, n, sim_mesh(P),
+                                                  cfg=ListRankConfig())
+    return np.asarray(labels), _ints(stats)
+
+
+def spanning_forest(edges, n):
+    from repro.core import graphalg
+    from repro.core.listrank import ListRankConfig, sim_mesh
+    parent, labels, stats = graphalg.spanning_forest(edges, n, sim_mesh(P),
+                                                     cfg=ListRankConfig())
+    return np.asarray(parent), np.asarray(labels), _ints(stats)
+
+
+JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
+                                graph_stats, connected_components,
+                                spanning_forest)}
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.join(HERE, "..", "src"))
+    import jax
+    jax.config.update("jax_platform_name", "cpu")
+    with open(sys.argv[1], "rb") as f:
+        jobs = pickle.load(f)
+    results = {key: JOBS[name](*args) for key, (name, args) in jobs.items()}
+    with open(sys.argv[2], "wb") as f:
+        pickle.dump(results, f)

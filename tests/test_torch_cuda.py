@@ -38,10 +38,10 @@ def test_local_chase_cuda_matches_plain(cuda, b, m, dtype):
     if dtype == "float32":
         dist = float_dist(dist, seed=3)
     s, d = torch.from_numpy(succ).to(cuda), torch.from_numpy(dist).to(cuda)
-    before = lc_ops.local_chase.launches
+    before = lc_ops.LAUNCHES
     s_k, d_k = lc_ops.local_chase(s, d, steps)
     torch.cuda.synchronize()
-    assert lc_ops.local_chase.launches == before + 1
+    assert lc_ops.LAUNCHES == before + 1
     s_r, d_r = lc_ref.local_chase_ref(s, d, steps)
     assert torch.equal(s_k, s_r)
     assert torch.equal(d_k.view(torch.int32), d_r.view(torch.int32))
@@ -52,7 +52,7 @@ def _chase_on_card(succ, dist, steps, cuda):
     schedule: equal bits, equal steps run."""
     s, d = torch.from_numpy(succ).to(cuda), torch.from_numpy(dist).to(cuda)
     s_k, d_k = lc_ops.local_chase(s, d, steps)
-    run = lc_ops.local_chase.steps_run.cpu()
+    run = lc_ops.STEPS_RUN.cpu()
     s_r, d_r = lc_ref.local_chase_ref(s, d, steps)
     assert torch.equal(s_k, s_r)
     assert torch.equal(d_k.view(torch.int32), d_r.view(torch.int32))
@@ -129,21 +129,21 @@ def test_local_chase_cuda_zero_steps_launches_nothing(cuda):
     s = torch.arange(8, dtype=torch.int32, device=cuda)[None]
     lc_ops.local_chase(s.expand(3, 8).contiguous(), s.expand(3, 8)
                        .contiguous(), 2)
-    before = lc_ops.local_chase.launches
+    before = lc_ops.LAUNCHES
     s_k, d_k = lc_ops.local_chase(s, s, 0)
-    assert lc_ops.local_chase.launches == before
+    assert lc_ops.LAUNCHES == before
     assert torch.equal(s_k, s) and torch.equal(d_k, s)
-    # steps_run describes this call, not the one before
-    assert lc_ops.local_chase.steps_run.tolist() == [0]
+    # STEPS_RUN describes this call, not the one before
+    assert lc_ops.STEPS_RUN.tolist() == [0]
 
 
 def _pack_on_card(cols, order, skey, valid, slots, n_buckets, cap, cuda):
     cols = [c.to(cuda) for c in cols]
     order, skey = order.to(cuda), skey.to(cuda)
-    before = mp_ops.mailbox_pack.launches
+    before = mp_ops.LAUNCHES
     out = mp_ops.mailbox_pack(cols, order, skey, n_buckets, cap)
     torch.cuda.synchronize()
-    assert mp_ops.mailbox_pack.launches == before + (out.numel() > 0)
+    assert mp_ops.LAUNCHES == before + (out.numel() > 0)
     assert torch.equal(out, mp_ref.mailbox_pack_sorted_ref(
         cols, order, skey, n_buckets, cap))
     want = mp_ref.mailbox_pack_ref(
@@ -206,9 +206,9 @@ def test_route_cuda_sorted_pack_on_the_4x4_grid(cuda):
             transport.sim_mesh((4, 4), ("row", "col")), ("row", "col"),
             IndirectionSpec.grid(("row", "col")), pallas_pack=pallas_pack,
             device=cuda)
-        before = mp_ops.mailbox_pack.launches
+        before = mp_ops.LAUNCHES
         outs.append(exchange.route(plan, [700, 180], payload, dest, valid))
-        assert mp_ops.mailbox_pack.launches == before + 2 * pallas_pack
+        assert mp_ops.LAUNCHES == before + 2 * pallas_pack
     (d1, v1, _, s1), (d2, v2, _, s2) = outs
     assert torch.equal(v1, v2)
     for k in d1:
@@ -224,10 +224,10 @@ def test_flash_attention_cuda_matches_plain(cuda, case, dtype):
     b, hq, hkv, lq, lk, d, kw = ATTN_CASES[case]
     q, k, v = (t.to(cuda) for t in attn_inputs(b, hq, hkv, lq, lk, d,
                                                 seed=case, dtype=dtype))
-    before = fa_ops.flash_attention.launches
+    before = fa_ops.LAUNCHES
     out = fa_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fa_ops.flash_attention.launches == before + 1
+    assert fa_ops.LAUNCHES == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(),
                                fa_ref.attention_ref(q, k, v, **kw).float(),
@@ -242,10 +242,10 @@ def test_flash_attention_cuda_decode_per_slot(cuda, d):
     q, k, v = (t.to(cuda) for t in attn_inputs(5, 16, 2, 1, 300, d, seed=d))
     offsets = torch.tensor([0, 63, 64, 200, 299], dtype=torch.int32,
                            device=cuda)
-    before = fa_ops.flash_attention.launches
+    before = fa_ops.LAUNCHES
     out = fa_ops.flash_attention(q, k, v, q_offset=offsets, window=100)
     torch.cuda.synchronize()
-    assert fa_ops.flash_attention.launches == before + 1
+    assert fa_ops.LAUNCHES == before + 1
     torch.testing.assert_close(
         out, fa_ref.attention_ref(q, k, v, q_offset=offsets, window=100),
         **ATTN_TOL[torch.float32])
@@ -262,10 +262,10 @@ def test_flash_attention_cuda_bf16_tensor_cores(cuda, d, kw):
     ragged 128-row tile), against the plain version at the bf16 tolerance."""
     q, k, v = (t.to(cuda) for t in attn_inputs(2, 8, 2, 150, 230, d,
                                                 seed=d, dtype=torch.bfloat16))
-    before = fa_ops.flash_attention.launches
+    before = fa_ops.LAUNCHES
     out = fa_ops.flash_attention(q, k, v, q_offset=80, **kw)
     torch.cuda.synchronize()
-    assert fa_ops.flash_attention.launches == before + 1
+    assert fa_ops.LAUNCHES == before + 1
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     torch.testing.assert_close(
         out.float(), fa_ref.attention_ref(q, k, v, q_offset=80, **kw).float(),
@@ -310,10 +310,10 @@ def test_flash_attention_cuda_split_decode(cuda, d):
     q, k, v = (t.to(cuda) for t in attn_inputs(b, hq, hkv, 1, lk, d, seed=d,
                                                 dtype=torch.bfloat16))
     for kw in ({}, {"window": 300, "softcap": 30.0}):
-        before = fa_ops.flash_attention.launches
+        before = fa_ops.LAUNCHES
         out = fa_ops.flash_attention(q, k, v, q_offset=offsets, **kw)
         torch.cuda.synchronize()
-        assert fa_ops.flash_attention.launches == before + 1
+        assert fa_ops.LAUNCHES == before + 1
         want = fa_ref.attention_ref(q, k, v, q_offset=offsets, **kw).float()
         torch.testing.assert_close(out.float(), want,
                                    **ATTN_TOL[torch.bfloat16])
@@ -344,10 +344,10 @@ def _ssd_check(cuda, shape, dtype, tol, skip=True, seed=0):
     x, dt, A, B, C, D = (t.to(cuda) for t in ssd_inputs(
         bt, l, h, g, n, p, seed=seed, dtype=dtype))
     D = D if skip else None
-    before = ssd_ops.ssd_scan.launches
+    before = ssd_ops.LAUNCHES
     y = ssd_ops.ssd_scan(x, dt, A, B, C, D, chunk)
     torch.cuda.synchronize()
-    assert ssd_ops.ssd_scan.launches == before + 1
+    assert ssd_ops.LAUNCHES == before + 1
     assert y.dtype == dtype and y.shape == x.shape
     torch.testing.assert_close(y.float(),
                                ssd_ref.ssd_ref(x, dt, A, B, C, D).float(),
@@ -427,9 +427,9 @@ def test_ssd_scan_cuda_bf16_training_regime(cuda):
 def test_ssd_scan_cuda_empty_launches_nothing(cuda):
     x, dt, A, B, C, D = (t.to(cuda)[:, :0] if t.dim() > 1 else t.to(cuda)
                          for t in ssd_inputs(2, 8, 4, 1, 16, 32, seed=0))
-    before = ssd_ops.ssd_scan.launches
+    before = ssd_ops.LAUNCHES
     y = ssd_ops.ssd_scan(x, dt, A, B, C, D, 64)
-    assert y.shape == x.shape and ssd_ops.ssd_scan.launches == before
+    assert y.shape == x.shape and ssd_ops.LAUNCHES == before
 
 
 @pytest.mark.torch_cuda
@@ -449,9 +449,9 @@ def test_ssd_scan_cuda_gradients(cuda, skip):
         y = fn(*leaves[:5], leaves[5] if skip else None)
         return torch.autograd.grad((y * w).sum(), leaves)
 
-    before = ssd_ops.ssd_scan.launches
+    before = ssd_ops.LAUNCHES
     got = grads(lambda *a: ssd_ops.ssd_scan(*a, chunk))
-    assert ssd_ops.ssd_scan.launches == before + 1
+    assert ssd_ops.LAUNCHES == before + 1
     want = grads(ssd_ref.ssd_ref)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **SSD_TOL)
@@ -468,3 +468,69 @@ def test_ssd_scan_cuda_rejects_what_it_does_not_take(cuda):
                                                          seed=0))
     with pytest.raises(ValueError, match="head dim"):
         ssd_ops.ssd_scan(x, dt, A, B, C, D)
+
+
+# --------------------------------------------------------------------------
+# the tree and graph paths on the card: kernels on equal kernels off
+# --------------------------------------------------------------------------
+
+def _counting_pack(monkeypatch):
+    """Count ``mailbox_pack`` calls on the path by wrapping the wrapper
+    (not by reading the profiler)."""
+    calls, real = [], mp_ops.mailbox_pack
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(mp_ops, "mailbox_pack", counting)
+    return calls
+
+
+def _int_stats(stats):
+    return {k: v for k, v in stats.items() if isinstance(v, int)}
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("n,num_trees", [(257, 1), (1000, 5)])
+def test_tree_stats_cuda_kernels_on_equal_off(cuda, monkeypatch, n,
+                                              num_trees):
+    from repro_torch.core import treealg
+    from repro_torch.core.listrank import ListRankConfig, instances, sim_mesh
+    parent = instances.gen_tree_parents(n, seed=n, locality=True,
+                                        num_trees=num_trees)
+    mesh = sim_mesh(8)
+    off = treealg.tree_stats(parent, mesh, cfg=ListRankConfig(), device=cuda)
+    calls = _counting_pack(monkeypatch)
+    chase = lc_ops.LAUNCHES
+    on = treealg.tree_stats(parent, mesh, device=cuda, cfg=ListRankConfig(
+        use_pallas=True, use_pallas_pack=True))
+    assert len(calls) > 0 and lc_ops.LAUNCHES > chase
+    for k in ("depth", "subtree_size", "preorder", "postorder", "root_of"):
+        np.testing.assert_array_equal(getattr(on, k), getattr(off, k))
+    assert _int_stats(on.stats) == _int_stats(off.stats)
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("n,e,comps", [(200, 600, 1), (512, 1024, 4)])
+def test_graph_stats_cuda_kernels_on_equal_off(cuda, monkeypatch, n, e,
+                                               comps):
+    from repro_torch.core import graphalg
+    from repro_torch.core.listrank import ListRankConfig, instances, sim_mesh
+    edges = instances.gen_graph_edges(n, e, seed=1, num_components=comps)
+    mesh = sim_mesh(8)
+    off = graphalg.graph_stats(edges, n, mesh, cfg=ListRankConfig(),
+                               device=cuda)
+    calls = _counting_pack(monkeypatch)
+    chase = lc_ops.LAUNCHES
+    on = graphalg.graph_stats(edges, n, mesh, device=cuda, cfg=ListRankConfig(
+        use_pallas=True, use_pallas_pack=True))
+    assert len(calls) > 0 and lc_ops.LAUNCHES > chase
+    for k in ("components", "parent", "depth", "subtree_size", "preorder",
+              "postorder"):
+        np.testing.assert_array_equal(getattr(on, k), getattr(off, k))
+    assert _int_stats(on.stats) == _int_stats(off.stats)
+    cpu = graphalg.graph_stats(edges, n, mesh, cfg=ListRankConfig(),
+                               device="cpu")
+    np.testing.assert_array_equal(on.parent, cpu.parent)
+    assert _int_stats(cpu.stats) == _int_stats(on.stats)

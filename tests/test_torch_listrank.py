@@ -9,40 +9,16 @@
 - an int and a float instance match the oracle at p in {8, 64};
 - the front door's contract: CUDA by default, later-slice options raise.
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import _simshard_cases as cases_lib
+from _torch_reference_perms import ReferencePerms
 from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
                                        instances, perm_fn_from_numpy,
                                        rank_list_seq, rank_list_with_stats,
                                        sim_mesh)
-
-
-class ReferencePerms(dict):
-    """``{(level, pe, cap): perm}`` filled on demand with the reference's
-    ruler permutations, ``permutation(fold_in(fold_in(PRNGKey(seed),
-    level), pe), cap)``, drawn under the legacy threefry mode the
-    committed goldens were produced with (scoped: the flag is restored
-    on exit)."""
-
-    def __init__(self, seed: int, p: int):
-        super().__init__()
-        self.seed, self.p = seed, p
-
-    def __missing__(self, key):
-        level, _, cap = key
-        with jax.threefry_partitionable(False):
-            k = jax.random.fold_in(jax.random.PRNGKey(self.seed), level)
-            perms = np.asarray(jax.vmap(lambda i: jax.random.permutation(
-                jax.random.fold_in(k, i), cap))(
-                    jnp.arange(self.p, dtype=jnp.int32)), np.int32)
-        for pe in range(self.p):
-            self[(level, pe, cap)] = perms[pe]
-        return self[key]
 
 
 BASE = ListRankConfig(srs_rounds=1, local_contraction=False)

@@ -71,9 +71,9 @@ def test_wrapper_cpu_path_matches_pallas(case):
     interpret mode by the reference's own op."""
     bt, l, h, g, n, p, chunk = case
     args = ssd_inputs(bt, l, h, g, n, p, seed=sum(case))
-    before = ssd_ops.ssd_scan.launches
+    before = ssd_ops.LAUNCHES
     y = ssd_ops.ssd_scan(*args, chunk)
-    assert ssd_ops.ssd_scan.launches == before  # the CPU launches nothing
+    assert ssd_ops.LAUNCHES == before  # the CPU launches nothing
     assert y.shape == args[0].shape and y.dtype == torch.float32
     _close(y, ssd_ops_jax.ssd_scan(*map(_jax, args), chunk, True))
 

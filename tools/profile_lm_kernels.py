@@ -6,8 +6,10 @@ Run from the root of the repository, after or beside ``chip_smoke.py``:
     python3 tools/profile_lm_kernels.py
 
 For bf16 inputs it prints, from torch.profiler's CUDA trace (10 calls
-each), every device kernel a wrapper call launched with its time per
-call, the host's time to enqueue one call (50 calls, no synchronisation
+each; "not measured" unless the window caught every call's kernels,
+``repro_torch.devtime``), every device kernel a wrapper call launched
+with its time per call, the device time of calls queued behind a device
+sleep (``devtime.queued_ms``), the host's time to enqueue one call (50 calls, no synchronisation
 inside), and for attention the rate in TFLOP/s over the unmasked pairs
 (4 D operations each):
 
@@ -28,22 +30,20 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "tools"))
-from profile_port import device_events, per_name  # noqa: E402
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch import devtime  # noqa: E402
 
 
-def profile_calls(fn, torch, reps: int = 10):
-    """{device kernel name: ms per call} over ``reps`` calls of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {k: us / reps / 1e3 for k, (_, us) in
-            per_name(device_events(prof)).items()}
+def profile_calls(fn, torch, expect: dict, reps: int = 10):
+    """{device kernel name: ms per call} over ``reps`` calls of ``fn``, or
+    None unless a window holds ``reps`` x ``expect`` ({kernel name:
+    launches per call}) of the named kernels and a whole number of
+    events per call (``devtime.profiled_ms``)."""
+    ms, events = devtime.profiled_ms(fn, torch, expect, reps=reps)
+    if ms is None:
+        return None
+    return {k: us / reps / 1e3
+            for k, (_, us) in devtime.per_name(events).items()}
 
 
 def host_us(fn, torch, reps: int = 50) -> float:
@@ -58,12 +58,25 @@ def host_us(fn, torch, reps: int = 50) -> float:
     return us
 
 
-def report(what: str, fn, torch, flops: float | None = None) -> None:
-    times = profile_calls(fn, torch)
+def report(what: str, fn, torch, expect: dict,
+           flops: float | None = None) -> None:
+    """One line per call kind: the profiled device time (checked against
+    ``expect``; SDPA's kernels are another library's, so its ``expect``
+    is empty and only whole calls are checked), the device time of calls
+    queued behind a device sleep (``devtime.queued_ms``), and the host's
+    enqueue time."""
+    times = profile_calls(fn, torch, expect)
+    queued = devtime.queued_ms(fn, torch)
+    q = "not measured" if queued is None else f"{queued:.4f} ms"
+    if times is None:
+        print(f"{what}: device time not measured (the profiler missed "
+              f"launches); queued {q}; host enqueue "
+              f"{host_us(fn, torch):.1f} us")
+        return
     total = sum(times.values())
     rate = f", {flops / total / 1e9:.1f} TFLOP/s" if flops else ""
-    print(f"{what}: device {total:.4f} ms per call{rate}; host enqueue "
-          f"{host_us(fn, torch):.1f} us")
+    print(f"{what}: device {total:.4f} ms per call{rate}; queued {q}; host "
+          f"enqueue {host_us(fn, torch):.1f} us")
     for name, ms in sorted(times.items(), key=lambda kv: -kv[1]):
         print(f"    {ms:.4f} ms  {name[:100]}")
 
@@ -73,7 +86,6 @@ def main() -> None:
     import torch.nn.functional as F
     if not torch.cuda.is_available():
         sys.exit("profile_lm_kernels: needs a CUDA device")
-    sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tests"))
     from _torch_kernel_inputs import ssd_inputs
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -93,10 +105,11 @@ def main() -> None:
         flops = 4 * d * hq * pairs
         what = f"B {b} Lq {lq} Lk {lk} {'causal' if causal else 'no mask'}"
         report(f"flash_attention {what}", lambda: fa_ops.flash_attention(
-            q, k, v, causal=causal), torch, flops)
+            q, k, v, causal=causal), torch,
+            devtime.EXPECT["flash_attention_prefill_bf16"], flops)
         # SDPA's causal mask is aligned upper left: offset 0 over Lk keys
         report(f"SDPA {what}", lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), torch, flops)
+            q, k, v, is_causal=causal, enable_gqa=True), torch, {}, flops)
 
     lk = 2048
     offs = np.random.default_rng(3).integers(0, lk, 8).tolist()
@@ -107,16 +120,18 @@ def main() -> None:
     mask = (torch.arange(lk, device=dev)[None, :] <= off[:, None])[
         :, None, None, :]
     report("flash_attention decode B 8 at per-slot offsets",
-           lambda: fa_ops.flash_attention(q, k, v, q_offset=off), torch)
+           lambda: fa_ops.flash_attention(q, k, v, q_offset=off), torch,
+           devtime.EXPECT["flash_attention_decode_bf16"])
     report("SDPA decode B 8 at per-slot offsets",
            lambda: F.scaled_dot_product_attention(
-               q, k, v, attn_mask=mask, enable_gqa=True), torch)
+               q, k, v, attn_mask=mask, enable_gqa=True), torch, {})
 
     for bt in (8, 1):
         args = [t.to(dev) for t in ssd_inputs(bt, 1024, 24, 1, 128, 64,
                                                seed=1, dtype=torch.bfloat16)]
         report(f"ssd_scan bf16 Bt {bt} L 1024 H 24 P 64 N 128 chunk 256",
-               lambda: ssd_ops.ssd_scan(*args, 256), torch)
+               lambda: ssd_ops.ssd_scan(*args, 256), torch,
+               devtime.EXPECT["ssd_scan_bf16"])
 
 
 if __name__ == "__main__":

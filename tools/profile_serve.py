@@ -5,7 +5,7 @@ Run from the root of the repository, after or beside ``chip_smoke.py``:
 
     python3 tools/profile_serve.py [--arch tinyllama-1.1b] [--ticks 16]
 
-It builds the ``ServingEngine`` of ``chip_smoke.py`` phase 7 (full width,
+It builds the ``ServingEngine`` of ``chip_smoke.py`` phase 9 (full width,
 bfloat16, random weights from seed 0, 8 slots, 2048 positions, the
 ``flash_attention`` kernel on), fills every slot with a 512-token prompt,
 and profiles with torch.profiler:
@@ -13,7 +13,11 @@ and profiles with torch.profiler:
 - one prefill of a 1024-token bucket (``ServingEngine._prefill``);
 - ``--ticks`` decode ticks with all slots active (``ServingEngine.step``).
 
-For each window it prints the wall time, the summed device time of all
+From the first of up to four windows of each that caught every
+attention kernel the wrapper launched and as many device events as
+another such window (``repro_torch.devtime``; otherwise "not measured")
+it prints the wall
+time, the summed device time of all
 kernels, memsets and copies, the device's busy and idle share, the device
 time by class (the attention kernel, matrix products, the rest) and the
 top device-time consumers.
@@ -29,8 +33,8 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "tools"))
-from profile_port import device_events, per_name  # noqa: E402
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch import devtime  # noqa: E402
 
 GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
 #: the port's attention kernels (flash_attention.cu): CUDA cores (float32),
@@ -48,9 +52,13 @@ def kind(name: str) -> str:
     return "other (elementwise, norms, rope, cache writes, copies)"
 
 
-def report(what: str, prof, wall: float, n: int) -> None:
-    events = device_events(prof)
-    busy_us = sum(float(e["dur"]) for e in events)
+def report(what: str, events, wall: float, n: int) -> None:
+    """Print a window's device time (``events``; None when no window
+    caught every attention kernel launched) over ``n`` calls."""
+    if events is None:
+        print(f"{what}: device time not measured")
+        return
+    busy_us = devtime.device_us(events)
     print(f"{what}: wall {wall * 1e3 / n:.3f} ms per call under the profiler "
           f"({n} calls); device busy {busy_us / 1e3 / n:.3f} ms per call "
           f"({100 * busy_us / 1e6 / wall:.1f} %), idle "
@@ -62,8 +70,8 @@ def report(what: str, prof, wall: float, n: int) -> None:
     for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {us / 1e3 / n:9.4f} ms per call ({100 * us / busy_us:5.1f} %"
               f" of device time)  {k}")
-    top = sorted(per_name(events).items(), key=lambda kv: -kv[1][1])[:10]
-    for kname, (count, us) in top:
+    top = sorted(devtime.per_name(events).items(), key=lambda kv: -kv[1][1])
+    for kname, (count, us) in top[:10]:
         print(f"  {us / 1e3 / n:9.4f} ms per call  {count // n:5d} x  "
               f"{kname[:90]}")
 
@@ -75,11 +83,10 @@ def main() -> None:
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         sys.exit("profile_serve: needs a CUDA device")
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
@@ -87,7 +94,7 @@ def main() -> None:
     cfg = configs.get_config(args.arch).with_(use_kernels=True)
     params = M.init(cfg, torch.Generator(dev).manual_seed(0), dev)
     scfg = ServeConfig(slots=8, max_seq=2048, eos_id=-1,
-                       max_new_tokens=args.ticks + 8)
+                       max_new_tokens=4 * args.ticks + 16)
     eng = ServingEngine(params, cfg, scfg, device=dev)
     rng = np.random.default_rng(0)
     for uid in range(scfg.slots):
@@ -103,22 +110,44 @@ def main() -> None:
           f"{cfg.dtype}, {scfg.slots} slots, max_seq {scfg.max_seq}; card "
           f"{torch.cuda.get_device_name(0)}")
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        eng._prefill(0, toks)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    report("prefill, bucket 1024", prof, wall, 1)
+    kinds = "bf16" if cfg.dtype == torch.bfloat16 else "f32"
 
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    def counted(fn, expect):
+        """Up to four windows of ``fn``, read from one that holds
+        ``expect`` ({kernel: launches per wrapper call}) per call it
+        launched and as many device events as another such window
+        (``devtime.repeat_check``)."""
+        want = {}
+
+        def run():
+            launched = fa_ops.LAUNCHES
+            out = devtime.window(fn, torch)
+            want.update({k: v * (fa_ops.LAUNCHES - launched)
+                         for k, v in expect.items()})
+            return out
+
+        def check(events):
+            if devtime.complete(events, want):
+                return None
+            return (f"the profiler caught "
+                    f"{devtime.kernel_counts(events, want)} of {want}")
+        _, events, wall = devtime.checked_window(
+            run, devtime.repeat_check(check), windows=4)
+        return events, wall
+
+    events, wall = counted(lambda: eng._prefill(0, toks), devtime.EXPECT[
+        f"flash_attention_prefill_{kinds}" if kinds == "bf16"
+        else "flash_attention_f32"])
+    report("prefill, bucket 1024", events, wall, 1)
+
+    def ticks():
         for _ in range(args.ticks):
             eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    report(f"decode tick, {int(eng.active.sum())} active slots", prof, wall,
-           args.ticks)
+    events, wall = counted(ticks, devtime.EXPECT[
+        f"flash_attention_decode_{kinds}" if kinds == "bf16"
+        else "flash_attention_f32"])
+    report(f"decode tick, {int(eng.active.sum())} active slots", events,
+           wall, args.ticks)
     t0 = time.perf_counter()
     for _ in range(4):
         eng.step()

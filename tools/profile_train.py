@@ -5,7 +5,7 @@ Run from the root of the repository, after or beside ``chip_smoke.py``:
 
     python3 tools/profile_train.py [--arch mamba2-130m] [--batch 8] [--seq 1024]
 
-It builds ``chip_smoke.py`` phase 10's configuration (full width and
+It builds ``chip_smoke.py`` phase 12's configuration (full width and
 depth, bfloat16, random weights from seed 0, the kernels on, a batch of
 ``pipeline.global_batch``), runs one warm-up step, then:
 
@@ -13,8 +13,10 @@ depth, bfloat16, random weights from seed 0, the kernels on, a batch of
    forward (``loss_fn``), the backward (``torch.autograd.grad``) and the
    AdamW update, with the host time spent inside the ``ssd_scan``
    backward (the recompute through ``ssd_ref``) summed apart;
-2. one step under torch.profiler with the same windows marked, reporting
-   for each window its wall time, the device's busy and idle share, the
+2. one step under torch.profiler with the same windows marked (read
+   from the first of up to three steps whose trace holds every
+   ``ssd_scan`` kernel the wrapper launched and as many device events as
+   another such step's; otherwise "not measured"), reporting for each window its wall time, the device's busy and idle share, the
    device events (launches) it issued, the device time by class and the
    top device-time consumers; for the backward also the share of its
    device time and of its launches spent in the ``ssd_ref`` recompute.
@@ -24,15 +26,14 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
-import json
 import pathlib
 import sys
-import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
-from profile_port import DEVICE_CATS, per_name  # noqa: E402
+from repro_torch import devtime  # noqa: E402
 from profile_serve import FLASH_KERNELS  # noqa: E402
 
 GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
@@ -55,20 +56,14 @@ def kind(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def trace_events(prof):
-    """(device events, annotation windows {name: [(ts, end), ...]})."""
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        path = pathlib.Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        trace = json.loads(path.read_text())
+def split_trace(events):
+    """(device events, annotation windows {name: [(ts, end), ...]}) of a
+    window's trace events."""
     device, marks = [], collections.defaultdict(list)
-    for e in trace.get("traceEvents", []):
-        if e.get("ph") != "X":
-            continue
-        if e.get("cat") in DEVICE_CATS:
+    for e in events:
+        if e.get("cat") in devtime.DEVICE_CATS:
             device.append(e)
-        elif e.get("cat") == "user_annotation" and e.get("name") in (
-                WINDOWS + (RECOMPUTE,)):
+        elif e["name"] in WINDOWS + (RECOMPUTE,):
             ts = float(e["ts"])
             marks[e["name"]].append((ts, ts + float(e["dur"])))
     return device, marks
@@ -88,7 +83,7 @@ def inside(events, spans):
 
 
 def report(what, events, wall_us):
-    busy = sum(float(e["dur"]) for e in events)
+    busy = devtime.device_us(events)
     print(f"{what}: wall {wall_us / 1e3:.2f} ms under the profiler; device "
           f"busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f} %), idle "
           f"{100 - 100 * busy / wall_us:.1f} %; {len(events)} device events")
@@ -98,8 +93,8 @@ def report(what, events, wall_us):
     for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {us / 1e3:10.3f} ms ({100 * us / max(busy, 1e-9):5.1f} % of "
               f"device time)  {k}")
-    top = sorted(per_name(events).items(), key=lambda kv: -kv[1][1])[:8]
-    for kname, (count, us) in top:
+    top = sorted(devtime.per_name(events).items(), key=lambda kv: -kv[1][1])
+    for kname, (count, us) in top[:8]:
         print(f"  {us / 1e3:10.3f} ms  {count:7d} x  {kname[:90]}")
     return busy
 
@@ -112,10 +107,9 @@ def main() -> None:
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     if not torch.cuda.is_available():
         sys.exit("profile_train: needs a CUDA device")
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.data import pipeline
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -180,9 +174,9 @@ def main() -> None:
         walls["optimizer"] = time.perf_counter() - t0
         return params, opt, walls, float(loss.detach())
 
-    launches = ssd_ops.ssd_scan.launches
+    launches = ssd_ops.LAUNCHES
     params, opt, walls, loss = step(params, opt)
-    launches = ssd_ops.ssd_scan.launches - launches
+    launches = ssd_ops.LAUNCHES - launches
     total = sum(walls.values())
     print(f"without the profiler: step {total * 1e3:.1f} ms (loss "
           f"{loss:.4f}): " + ", ".join(f"{k} {v * 1e3:.1f} ms"
@@ -192,10 +186,33 @@ def main() -> None:
           f"{100 * recompute_s[0] / walls['backward']:.1f} % of the backward;"
           f" ssd_scan launches {launches}")
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        params, opt, walls, loss = step(params, opt)
-    device, marks = trace_events(prof)
+    # a window counts only if it caught every ssd_scan kernel launched
+    kinds = devtime.EXPECT["ssd_scan_bf16" if cfg.dtype == torch.bfloat16
+                           else "ssd_scan_f32"]
+    state, want = [params, opt], {}
+
+    def run():
+        launches = ssd_ops.LAUNCHES
+        out = devtime.window(lambda: step(*state), torch,
+                             cats=devtime.DEVICE_CATS + ("user_annotation",))
+        state[:] = out[0][:2]
+        want.update({k: v * (ssd_ops.LAUNCHES - launches)
+                     for k, v in kinds.items()})
+        return out
+
+    def check(events):
+        device = split_trace(events)[0]
+        if devtime.complete(device, want):
+            return None
+        return (f"the profiler caught "
+                f"{devtime.kernel_counts(device, want)} of {want}")
+
+    _, events, _ = devtime.checked_window(run, devtime.repeat_check(check),
+                                          windows=3)
+    if events is None:
+        print("profiled step: device time not measured")
+        return
+    device, marks = split_trace(events)
     busy = {}
     for name in WINDOWS:
         (a, b), = marks[name]
