@@ -83,7 +83,23 @@ Phases, each fatal on failure:
    ``ssd_chunked_ref`` (1e-4 relative); tinyllama-1.1b at full width and
    2 layers, one train step with ``flash_attention`` on in bfloat16
    (finite loss and gradients, one launch per layer) and, in float32,
-   gradients within atol 2e-3, rtol 1e-3 of the plain path's.
+   gradients within atol 2e-3, rtol 1e-3 of the plain path's;
+14. recovery: phase 3's solve under a ``SolveSupervisor`` checkpointing
+   every level boundary into a fresh temporary directory (its free space
+   printed first, at least 4 GiB required; deleted at the end), kernels
+   on: (a) straight through, outputs and every counter equal to phase
+   3's, one checkpoint per interior boundary (6); (b) preempted after
+   descend@1 and resumed from that boundary by a fresh supervisor; (c) a
+   PE lost before base@2, restored from the boundary with descend@0 run
+   once; (d) a store plane corrupted after descend@0, caught before it is
+   checkpointed and recovered from the prep boundary; (e) a forced
+   ``gather`` overflow at base@2, where only base@2 re-runs; (f) (b)'s
+   checkpoint resumed with kernels off. Every case's outputs equal phase
+   3's; ``local_chase`` launches once per executed prep and
+   ``mailbox_pack`` at least once per other executed stage (none with
+   kernels off); the bytes, snapshot and write seconds of each
+   boundary's checkpoint, the supervised warm wall against phase 3's, and
+   the resume's wall (restore included) against a full solve.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -218,7 +234,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-13 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-14 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -520,6 +536,15 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     ssd_entry["launches"] = results["train"]["launches"]
     kernels.append(ssd_entry)
     results["train_on_off"] = train_on_off_phase(dev)
+
+    # --------------------------------------------------------- phase 14
+    results["recovery"] = recovery_phase(
+        dev, card, succ_np, rank_np, (s_on, r_on, ints_on), cfg_on, cfg_off,
+        results["main_path"]["warm_wall_s"])
+    for kern in kernels:
+        if kern["name"] in results["recovery"]["launches"]:
+            kern["launches_recovery"] = results["recovery"]["launches"][
+                kern["name"]]
 
     results["card"] = card
     results["kernels"] = kernels
@@ -1405,6 +1430,213 @@ def train_on_off_phase(dev) -> dict:
                if dt == torch.float32 else ""))
         del params, g_on
         torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------- phase 14
+#: the free space phase 14 needs for its checkpoints (three boundaries of
+#: up to ~0.6 GB kept, and one copy)
+RECOVERY_FREE_BYTES = 4 << 30
+
+
+def executed(stage_log, kind: str) -> int:
+    """Executions of stages of ``kind`` in a stage log: committed, or run
+    and then refused (an overflow or a corrupted state; a PE loss fires
+    before its stage runs)."""
+    return sum(1 for e in stage_log
+               if e.split("@")[0].split("!")[0] == kind
+               and not e.endswith("!InjectedFault"))
+
+
+def recovery_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
+                   plain_warm_s: float) -> dict:
+    """Phase 14: the solve under a SolveSupervisor, six fault cases."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.core.listrank import (FaultSpec, rank_list_with_stats,
+                                           resume, sim_mesh)
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    from repro_torch.runtime.fault_tolerance import (Preempted,
+                                                     SolveSupervisor,
+                                                     SolveSupervisorConfig)
+
+    s_plain, r_plain, ints_plain = plain
+    mesh = sim_mesh(P_MAIN)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_recovery_"))
+    res: dict = {"cases": {}}
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"phase 14: checkpoints under a fresh temporary directory, "
+            f"{free / 2 ** 30:.1f} GiB free")
+        if free < RECOVERY_FREE_BYTES:
+            fail(f"phase 14: {free} bytes free under {root}, "
+                 f"{RECOVERY_FREE_BYTES} needed")
+
+        def supervised(case, directory, cfg=cfg_on, inject=None,
+                       preempted=False):
+            """One supervised solve on ``directory``, the kernels' counts
+            reset just before and read just after; checks its outputs
+            (and, unless faults changed the capacities, its counters)
+            against phase 3's and the launches against the stages run."""
+            sup = SolveSupervisor(SolveSupervisorConfig(ckpt_dir=str(
+                root / directory)))
+            lc_ops.LAUNCHES = 0
+            mp_ops.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                s, r, st = rank_list_with_stats(
+                    succ_np, rank_np, mesh, cfg=cfg, seed=SEED, device=dev,
+                    supervisor=sup, inject=inject)
+            except Preempted:
+                if not preempted:
+                    raise
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches = {"local_chase": lc_ops.LAUNCHES,
+                            "mailbox_pack": mp_ops.LAUNCHES}
+                res["cases"][case] = {"wall_s": wall, "launches": launches,
+                                      "preempted_at": sup.ckpt.latest_step()}
+                if launches["local_chase"] != 1 or \
+                        launches["mailbox_pack"] < 2:
+                    fail(f"phase 14 ({case}): launches {launches} before "
+                         f"the preemption after prep and two levels")
+                return sup, None
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if preempted:
+                fail(f"phase 14 ({case}): the solve was not preempted")
+            launches = {"local_chase": lc_ops.LAUNCHES,
+                        "mailbox_pack": mp_ops.LAUNCHES}
+            log_ = st["stage_log"]
+            if not (torch.equal(s, s_plain) and torch.equal(r, r_plain)):
+                fail(f"phase 14 ({case}): outputs differ from phase 3's")
+            if st["attempts"] == 1 and int_counters(st) != ints_plain:
+                fail(f"phase 14 ({case}): counters {int_counters(st)} differ "
+                     f"from phase 3's {ints_plain}")
+            preps = executed(log_, "prep")
+            others = sum(executed(log_, k) for k in
+                         ("descend", "base", "ascend", "post"))
+            on = cfg.use_pallas
+            if on and (launches["local_chase"] != preps
+                       or launches["mailbox_pack"] < others):
+                fail(f"phase 14 ({case}): launches {launches} for {preps} "
+                     f"prep and {others} other stage executions ({log_})")
+            if not on and any(launches.values()):
+                fail(f"phase 14 ({case}): kernels off, yet {launches}")
+            rec = st["recovery"]
+            stage_s = sum(dt for _, dt in st["stage_wall_s"])
+            snap_s = sum(c["snapshot_s"] for c in sup.ckpt.records.values())
+            res["cases"][case] = {"wall_s": wall, "launches": launches,
+                                  "stage_log": list(log_),
+                                  "stages_s": stage_s, "snapshots_s": snap_s,
+                                  "restore": sup.ckpt.last_restore,
+                                  "recovery": {k: (list(v) if isinstance(
+                                      v, tuple) else v) for k, v in
+                                      rec.items()}}
+            restored = sup.ckpt.last_restore
+            log(f"phase 14 ({case}): equal to phase 3's outputs; wall "
+                f"{wall:.3f} s (committed stages {stage_s:.3f} s, snapshots "
+                f"{snap_s:.3f} s"
+                + (f", restore of {restored['bytes']} bytes "
+                   f"{restored['seconds']:.3f} s" if restored else "")
+                + f"); stages {', '.join(log_)}; recovery {rec}; launches "
+                f"{launches}")
+            return sup, st
+
+        # the fingerprint a supervised solve pays for, alone
+        succ_d = torch.from_numpy(succ_np).reshape(P_MAIN, -1).to(dev)
+        rank_d = torch.from_numpy(rank_np).reshape(P_MAIN, -1).to(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resume.solve_fingerprint(succ_d, rank_d, succ_np.shape[0], P_MAIN,
+                                 SEED, cfg_on)
+        res["fingerprint_s"] = time.perf_counter() - t
+        del succ_d, rank_d
+        log(f"phase 14: the instance fingerprint (both arrays to the host, "
+            f"sha256) {res['fingerprint_s']:.3f} s [{card}]")
+
+        # (a) straight through, cold then warm, each on a fresh directory
+        supervised("a_cold", "a_cold")
+        shutil.rmtree(root / "a_cold")
+        sup, st = supervised("a", "a")
+        if st["recovery"]["checkpoints"] != 6 or st["stage_log"] != (
+                "prep", "descend@0", "descend@1", "base@2", "ascend@1",
+                "ascend@0", "post"):
+            fail(f"phase 14 (a): {st['recovery']['checkpoints']} checkpoints,"
+                 f" stages {st['stage_log']}")
+        res["launches"] = res["cases"]["a"]["launches"]
+        labels = ("prep", "descend@0", "descend@1", "base@2", "ascend@1",
+                  "ascend@0")
+        res["checkpoints"] = {
+            f"{idx} ({labels[idx - 1]})": rec
+            for idx, rec in sorted(sup.ckpt.records.items())}
+        for name, rec in res["checkpoints"].items():
+            log(f"phase 14: boundary {name}: checkpoint of "
+                f"{rec['bytes']} bytes ({rec['bytes'] / 1e9:.3f} GB), "
+                f"snapshot (device to host) {rec['snapshot_s']:.3f} s, write "
+                f"{rec['write_s']:.3f} s [{card}]")
+        res["supervised_warm_s"] = res["cases"]["a"]["wall_s"]
+        res["plain_warm_s"] = plain_warm_s
+        log(f"phase 14: supervised solve warm {res['supervised_warm_s']:.3f} s "
+            f"against phase 3's unsupervised warm {plain_warm_s:.3f} s "
+            f"[{card}]")
+        shutil.rmtree(root / "a")
+
+        # (b) preempted after descend@1, resumed by a fresh supervisor;
+        # (f) resumes a copy of the same checkpoint with kernels off
+        sup, _ = supervised("b_preempted", "b", inject=FaultSpec(
+            "preempt", stage="descend", level=1), preempted=True)
+        if res["cases"]["b_preempted"]["preempted_at"] != 3:
+            fail(f"phase 14 (b): preempted at boundary "
+                 f"{res['cases']['b_preempted']['preempted_at']}, not 3")
+        shutil.copytree(root / "b", root / "f")
+        _, st = supervised("b", "b")
+        if st["recovery"]["resumed_from"] != 3 or st["stage_log"] != (
+                "base@2", "ascend@1", "ascend@0", "post"):
+            fail(f"phase 14 (b): resumed {st['recovery']}, {st['stage_log']}")
+        res["resume_s"] = res["cases"]["b"]["wall_s"]
+        log(f"phase 14: resume from the descend@1 boundary (restore "
+            f"included) {res['resume_s']:.3f} s against a full solve: "
+            f"unsupervised {plain_warm_s:.3f} s, supervised "
+            f"{res['supervised_warm_s']:.3f} s [{card}]")
+        shutil.rmtree(root / "b")
+
+        # (c) a PE lost before base@2
+        _, st = supervised("c", "c", inject=FaultSpec("pe_loss", stage="base"))
+        if st["recovery"]["resumed_from"] != 3 \
+                or st["stage_log"].count("descend@0") != 1 \
+                or st["stage_log"].count("base@2!InjectedFault") != 1:
+            fail(f"phase 14 (c): {st['recovery']}, {st['stage_log']}")
+        shutil.rmtree(root / "c")
+
+        # (d) a corrupted plane after descend@0
+        _, st = supervised("d", "d", inject=FaultSpec(
+            "corrupt", stage="descend", level=0, pe=3, plane="succ"))
+        if st["recovery"]["resumed_from"] != 1 \
+                or st["stage_log"].count("descend@0!CorruptedState") != 1 \
+                or st["stage_log"].count("prep") != 1:
+            fail(f"phase 14 (d): {st['recovery']}, {st['stage_log']}")
+        shutil.rmtree(root / "d")
+
+        # (e) a forced gather overflow at base@2
+        _, st = supervised("e", "e", inject=FaultSpec(
+            "overflow", stage="base", level=2, family="gather"))
+        log_ = st["stage_log"]
+        if any(log_.count(k) != 1 for k in labels[:3] + labels[4:] +
+               ("post", "base@2", "base@2!overflow")) or st["attempts"] != 2:
+            fail(f"phase 14 (e): attempts {st['attempts']}, stages {log_}")
+        shutil.rmtree(root / "e")
+
+        # (f) (b)'s checkpoint, kernels off
+        _, st = supervised("f", "f", cfg=cfg_off)
+        if st["recovery"]["resumed_from"] != 3:
+            fail(f"phase 14 (f): {st['recovery']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return res
 
 

@@ -8,6 +8,8 @@ indirection, over a virtual-PE transport on one device.
 """
 from repro_torch.core.listrank.config import ListRankConfig, IndirectionSpec
 from repro_torch.core.listrank.api import rank_list, rank_list_with_stats
+from repro_torch.core.listrank.faults import (FaultSpec, FaultInjector,
+                                              InjectedFault, CorruptedState)
 from repro_torch.core.listrank.resume import SolveExhausted
 from repro_torch.core.listrank.sequential import rank_list_seq
 from repro_torch.core.listrank.srs import default_perm_fn, perm_fn_from_numpy
@@ -21,6 +23,10 @@ __all__ = [
     "rank_list_with_stats",
     "rank_list_seq",
     "SolveExhausted",
+    "FaultSpec",
+    "FaultInjector",
+    "InjectedFault",
+    "CorruptedState",
     "SimMesh",
     "sim_mesh",
     "default_perm_fn",

@@ -308,11 +308,17 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
     stage loop (:mod:`.resume`). ``perm_fn(level, pe, cap)`` supplies
     the ruler permutations (default: :func:`srs.default_perm_fn` of
     ``seed``). ``stage_counters`` records per-stage collective counts.
-    ``supervisor``, ``inject``, ``tracer`` and ``cfg.telemetry`` belong
-    to later slices of the port and raise NotImplementedError.
+    ``supervisor``
+    (:class:`repro_torch.runtime.fault_tolerance.SolveSupervisor`) adds
+    level-boundary checkpoints, preemption handling, and restore-on-
+    restart, in the JAX package's checkpoint format; ``inject``
+    (:class:`repro_torch.core.listrank.faults.FaultSpec` or a sequence)
+    drives deterministic fault injection; ``stats["recovery"]`` carries
+    their accounting. ``tracer`` and ``cfg.telemetry`` belong to a later
+    slice of the port and raise NotImplementedError.
     """
     cfg = cfg or ListRankConfig()
-    reject_unported(cfg, supervisor=supervisor, inject=inject, tracer=tracer)
+    reject_unported(cfg, tracer=tracer)
     device = resolve_device(device)
     pe_axes = tuple(pe_axes) if pe_axes is not None else tuple(mesh.axis_names)
     _, mesh = transport_lib.resolve_backend(cfg.backend, mesh, pe_axes)
@@ -354,7 +360,8 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
     succ_f, rank_f, host_stats = resume_lib.run_staged(
         succ_d, rank_d, plan=plan, cfg=cfg, m=m, n=n,
         perm_fn=perm_fn or default_perm_fn(seed),
-        build_level_specs=build_level_specs, max_retries=max_retries,
+        build_level_specs=build_level_specs, seed=seed,
+        max_retries=max_retries, supervisor=supervisor, inject=inject,
         stage_counters=stage_counters, initial_scales=initial_scales)
     return succ_f.reshape(n), rank_f.reshape(n), host_stats
 

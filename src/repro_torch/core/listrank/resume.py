@@ -21,26 +21,51 @@ The boundary state is a dict; every tensor carries the leading PE axis:
     forced:   [srs only, until descend@0] forced-ruler mask
     rep/aux:  [local_contraction only] restoration inputs (§2.3)
 
-Checkpointing, fault injection, telemetry and span tracing belong to
-later slices of the port.
+What the explicit boundary state buys besides level resume:
+
+- **checkpoint/restart**: a :class:`~repro_torch.runtime.
+  fault_tolerance.SolveSupervisor` checkpoints the boundary state
+  (atomic keep-k, async); SIGTERM/SIGINT preemption writes a blocking
+  checkpoint and raises ``Preempted``; a restarted solve restores and
+  continues from the boundary. Checkpoints hold *global* (PE-major)
+  arrays plus a manifest meta in the JAX package's format, so a
+  checkpoint written by either package resumes in the other, on any
+  device, bit for bit.
+- **deterministic fault injection** (:mod:`.faults`): PE loss,
+  corrupted state planes, forced overflows and preemption fire at named
+  stage boundaries. Validation and corruption run only when an injector
+  is given: the plain path gains no host synchronisation.
+
+Telemetry and span tracing belong to a later slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpointer import flatten
+from repro_torch.core.listrank import faults as faults_lib
 from repro_torch.core.listrank import local as local_lib
 from repro_torch.core.listrank import srs as srs_lib
 from repro_torch.core.listrank import store as store_lib
 from repro_torch.core.listrank import tuner
 from repro_torch.core.listrank.config import ListRankConfig
 from repro_torch.core.listrank.doubling import doubling_solve
-from repro_torch.core.listrank.srs import _merge, zero_stats
+from repro_torch.core.listrank.srs import STAT_KEYS, _merge, zero_stats
+from repro_torch.runtime.fault_tolerance import Preempted
 
 #: stat keys whose nonzero value means the attempt is unusable.
 FATAL_KEYS = ("dropped", "sub_overflow", "store_miss", "undelivered")
+
+#: capacity family -> the fatal stat the stage loop synthesizes for an
+#: injected overflow of that family (the inverse of tuner.FAMILY_OF
+#: restricted to the capacity-exclusive solver families).
+FAMILY_STAT = {"chase": "dropped", "sub": "sub_overflow",
+               "gather": "undelivered"}
 
 
 class SolveExhausted(RuntimeError):
@@ -254,6 +279,134 @@ def _run_stage(stage: Stage, state, succ_d, rank_d, perm_fn, *, plan, cfg,
     raise ValueError(f"unknown stage kind {stage.kind!r}")
 
 
+# --------------------------------------------------------------------------
+# boundary-state templates and the checkpoint layout
+# --------------------------------------------------------------------------
+
+def boundary_template(sched, idx: int, cfg: ListRankConfig, specs, m: int,
+                      p: int, weight_dtype):
+    """The boundary state after the first ``idx`` stages of ``sched`` as
+    ``meta`` tensors (shapes and dtypes, no storage) in the port's
+    (p, cap) layout."""
+    if idx < 1:
+        raise ValueError("no boundary state before the prep stage")
+    caps = [m]                      # store-capacity stack
+    take_caps: list[int] = []
+    has_forced = cfg.algorithm != "doubling"
+    for stage in sched[1:idx]:
+        if stage.kind == "descend":
+            take_caps.append(specs[stage.level].cap_sub)
+            caps.append(specs[stage.level].cap_sub)
+            if stage.level == 0:
+                has_forced = False
+        elif stage.kind == "ascend":
+            caps.pop()
+            take_caps.pop()
+        # base / pd leave the structure unchanged
+
+    def arr(cap, dtype):
+        return torch.empty((p, cap), dtype=dtype, device="meta")
+
+    def store_t(j, cap):
+        return store_lib.Store(ids=arr(cap, torch.int32),
+                               succ=arr(cap, torch.int32),
+                               rank=arr(cap, weight_dtype),
+                               valid=arr(cap, torch.bool), dense=(j == 0))
+
+    state = {}
+    if has_forced:
+        state["forced"] = arr(m, torch.bool)
+    state["stores"] = tuple(store_t(j, c) for j, c in enumerate(caps))
+    state["takes"] = tuple(arr(c, torch.int32) for c in take_caps)
+    # the level-k masks cover the store that was live when level k
+    # descended: caps[k] for every descended-but-not-ascended level.
+    state["is_subs"] = tuple(arr(c, torch.bool) for c in caps[:-1]) \
+        if take_caps else ()
+    state["is_terms"] = state["is_subs"]
+    if cfg.local_contraction:
+        state["rep"] = arr(m, torch.bool)
+        state["aux"] = {"S": arr(m, torch.int32), "D": arr(m, weight_dtype),
+                        "stop_is_term": arr(m, torch.bool)}
+    state["stats"] = {k: torch.empty(p, dtype=torch.int32, device="meta")
+                      for k in STAT_KEYS}
+    return state
+
+
+def global_layout(state):
+    """The checkpoint layout of a boundary state (or template): every
+    (p, cap) plane as one PE-major (p * cap,) array, as the JAX package
+    stores its block-sharded leaves; the (p,) stats stay as they are."""
+    _, leaves, rebuild = flatten(state)
+    return rebuild([x.reshape(-1) if x.dim() == 2 else x for x in leaves])
+
+
+def per_pe_layout(flat, like):
+    """:func:`global_layout` undone: ``flat``'s leaves in the shapes and
+    structure of the (p, cap) template ``like``."""
+    _, leaves, rebuild = flatten(like)
+    _, flat_leaves, _ = flatten(flat)
+    return rebuild([x.reshape(t.shape) for x, t in zip(flat_leaves, leaves)])
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.ascontiguousarray(x)
+
+
+def solve_fingerprint(succ, rank, n: int, p: int, seed: int,
+                      cfg: ListRankConfig) -> str:
+    """Identity of a solve for restore validation: the instance bytes in
+    global order plus the backend-independent config — the JAX package's
+    fingerprint of the same solve. A checkpoint restores only into the
+    same logical solve, with the kernels on or off."""
+    h = hashlib.sha256()
+    h.update(_host(succ).astype(np.int32, copy=False).tobytes())
+    h.update(_host(rank).tobytes())
+    key = (n, p, int(seed),
+           cfg.with_(backend="auto", use_pallas=False, use_pallas_pack=False))
+    h.update(repr(key).encode())
+    return h.hexdigest()
+
+
+# --------------------------------------------------------------------------
+# host-side state validation + corruption
+# --------------------------------------------------------------------------
+
+def validate_state(state, n: int) -> None:
+    """Invariant check of a boundary state: every valid store slot must
+    hold ids/succ inside [0, n). Catches the ``corrupt`` injection's
+    sentinel (and real bit-rot) before it is checkpointed or consumed by
+    the next stage. One host synchronisation."""
+    checks = [(j, plane, st.valid & ((getattr(st, plane) < 0)
+                                     | (getattr(st, plane) >= n)))
+              for j, st in enumerate(state["stores"])
+              for plane in ("ids", "succ")]
+    if not checks:
+        return
+    flags = torch.stack([bad.any() for _, _, bad in checks]).tolist()
+    for (j, plane, bad), any_bad in zip(checks, flags):
+        if any_bad:
+            k = int(torch.nonzero(bad.reshape(-1))[0, 0])
+            v = int(getattr(state["stores"][j], plane).reshape(-1)[k])
+            raise faults_lib.CorruptedState(
+                f"store {j} plane {plane!r}: invalid global id {v} at slot "
+                f"{k} (n={n})")
+
+
+def _apply_corruption(state, spec: faults_lib.FaultSpec, plan):
+    """Scribble the corrupt sentinel over PE ``spec.pe``'s row of the
+    bottom store's ``spec.plane`` — a lost/garbled mailbox plane. Writes
+    into a copy: the stage's output shares tensors with the committed
+    boundary, which a recovery re-runs from."""
+    st = state["stores"][0]
+    leaf = getattr(st, spec.plane).clone()
+    leaf[spec.pe % max(plan.p, 1)] = faults_lib.CORRUPT_SENTINEL
+    out = dict(state)
+    out["stores"] = (st.replace(**{spec.plane: leaf}),) + state["stores"][1:]
+    return out
+
+
 def _fatal_totals(stats) -> dict:
     """Global fatal-stat totals from per-PE stats (or post's totals)."""
     tot = torch.stack([stats[k].reshape(-1).sum() for k in FATAL_KEYS])
@@ -270,52 +423,153 @@ def _sync(device: torch.device) -> None:
 # --------------------------------------------------------------------------
 
 def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
-               perm_fn, build_level_specs, max_retries: int = 3,
+               perm_fn, build_level_specs, seed: int = 0,
+               max_retries: int = 3, supervisor=None, inject=None,
                stage_counters: bool = False, initial_scales=None):
     """Run the staged solve to completion. Returns (succ, rank, stats).
 
     ``succ_d``/``rank_d`` are (p, m) on the plan's device;
     ``build_level_specs(level_scales) -> tuple[LevelSpec]`` is the
     host-side capacity derivation; ``perm_fn(level, pe, cap)`` supplies
-    the ruler permutations. ``stage_counters`` records each executed
-    stage's collective counts in ``host_stats["stage_collectives"]``
-    (the plan's transport must be a ``transport.CountingTransport``).
+    the ruler permutations; ``seed`` enters the checkpoints' instance
+    fingerprint. ``supervisor`` (a
+    :class:`~repro_torch.runtime.fault_tolerance.SolveSupervisor`)
+    enables checkpoint/restart + preemption; ``inject`` (a
+    :class:`~repro_torch.core.listrank.faults.FaultInjector`, FaultSpec,
+    or sequence of FaultSpecs) drives the recovery paths
+    deterministically. ``stage_counters`` records each executed stage's
+    collective counts in ``host_stats["stage_collectives"]`` (the plan's
+    transport must be a ``transport.CountingTransport``).
     ``host_stats["stage_wall_s"]`` holds each committed stage's wall
-    seconds, measured to a device synchronisation.
+    seconds, measured to a device synchronisation, and
+    ``host_stats["recovery"]`` the supervisor's accounting and the
+    faults injected.
     """
+    p = plan.p
+    wdt = rank_d.dtype
     sched = schedule_for(cfg)
     n_levels = cfg.srs_rounds + 1
+    injector = inject
+    if injector is not None and not isinstance(injector,
+                                               faults_lib.FaultInjector):
+        injector = faults_lib.FaultInjector(injector)
+
     level_scales = tuner.normalize_level_scales(
         initial_scales if initial_scales is not None
         else tuner.CapacityScales(), n_levels)
     attempts = 1
     scales_log = [tuner.format_scales(level_scales[0])]
     stage_log: list[str] = []
+    injected_log: list[str] = []
     stage_wall: list[tuple[str, float]] = []
     stage_collectives: list[tuple] = []
+    crashes = 0
+    # the fingerprint reads the instance back to the host: only a
+    # supervised solve, which checkpoints, pays for it
+    fp = (solve_fingerprint(succ_d, rank_d, n, p, seed, cfg)
+          if supervisor is not None else None)
+
+    def make_meta(idx):
+        return {"format": 1, "idx": idx, "fingerprint": fp, "n": n, "p": p,
+                "m": m, "algorithm": cfg.algorithm, "attempts": attempts,
+                "scales_log": list(scales_log),
+                "scales": [dataclasses.asdict(s) for s in level_scales],
+                "weight_dtype": str(wdt).removeprefix("torch.")}
+
+    def try_restore():
+        """(state, idx, prev_fatal) from the supervisor's latest valid
+        checkpoint, or None."""
+        if supervisor is None:
+            return None
+        # drain any in-flight async boundary write: the latest committed
+        # boundary must be durable (and its failure surfaced) before we
+        # decide where to resume from.
+        supervisor.ckpt.wait()
+        meta = supervisor.latest_meta()
+        if not meta or meta.get("fingerprint") != fp:
+            return None
+        nonlocal level_scales, attempts, scales_log
+        level_scales = tuple(tuner.CapacityScales(**d)
+                             for d in meta["scales"])
+        attempts = int(meta["attempts"])
+        scales_log = list(meta["scales_log"])
+        specs = build_level_specs(level_scales)
+        like = boundary_template(sched, meta["idx"], cfg, specs, m, p,
+                                 getattr(torch, meta["weight_dtype"]))
+        flat, _ = supervisor.restore(global_layout(like), plan.device)
+        state = per_pe_layout(flat, like)
+        supervisor.stats["resumed_from"] = int(meta["idx"])
+        return state, int(meta["idx"]), _fatal_totals(state["stats"])
 
     state, idx = None, 0
     prev_fatal = {k: 0 for k in FATAL_KEYS}
+    restored = try_restore()
+    if restored is not None:
+        state, idx, prev_fatal = restored
+
     while idx < len(sched):
         stage = sched[idx]
+        if supervisor is not None and supervisor.preempted:
+            if state is not None:
+                supervisor.boundary(idx, global_layout(state),
+                                    make_meta(idx), blocking=True)
+            supervisor.stats["preempted"] += 1
+            raise Preempted(
+                f"preempted at stage boundary {idx}/{len(sched)}")
         specs = build_level_specs(level_scales)
         if stage_counters:
             plan.transport.counts.clear()
-        _sync(plan.device)
-        t0 = time.perf_counter()
-        out = _run_stage(stage, state, succ_d, rank_d, perm_fn, plan=plan,
-                         cfg=cfg, specs=specs, m=m)
-        _sync(plan.device)
-        dt = time.perf_counter() - t0
-        fatal_src = out[2] if stage.kind == "post" else out["stats"]
+        try:
+            if injector is not None:
+                injector.crash_before(stage.kind, stage.level)
+            _sync(plan.device)
+            t0 = time.perf_counter()
+            out = _run_stage(stage, state, succ_d, rank_d, perm_fn,
+                             plan=plan, cfg=cfg, specs=specs, m=m)
+            _sync(plan.device)
+            dt = time.perf_counter() - t0
+            if stage.kind == "post":
+                out_state, fatal_src = state, out[2]
+            else:
+                out_state, fatal_src = out, out["stats"]
+            if injector is not None:
+                cspec = injector.corrupt_after(stage.kind, stage.level)
+                if cspec is not None:
+                    injected_log.append(f"corrupt:{stage.label}")
+                    if stage.kind != "post":
+                        out_state = out = _apply_corruption(out, cspec, plan)
+                validate_state(out_state, n)
+        except (faults_lib.InjectedFault, faults_lib.CorruptedState) as e:
+            crashes += 1
+            if isinstance(e, faults_lib.InjectedFault):
+                injected_log.append(f"pe_loss:{stage.label}")
+            stage_log.append(f"{stage.label}!{type(e).__name__}")
+            budget_ok = (supervisor.should_retry() if supervisor is not None
+                         else crashes <= max_retries)
+            if not budget_ok:
+                raise
+            restored = try_restore()
+            if restored is not None:
+                state, idx, prev_fatal = restored
+            else:
+                state, idx = None, 0
+                prev_fatal = {k: 0 for k in FATAL_KEYS}
+            continue
+
         fatal = _fatal_totals(fatal_src)
         delta = {k: fatal[k] - prev_fatal[k] for k in FATAL_KEYS}
-        if any(v > 0 for v in delta.values()):
+        fam = (injector.overflow_after(stage.kind, stage.level)
+               if injector is not None else None)
+        if fam is not None:
+            injected_log.append(f"overflow:{fam}:{stage.label}")
+        if any(v > 0 for v in delta.values()) or fam is not None:
             # the failed attempt's output is discarded: the committed
             # boundary state (end of the previous stage) is the resume
             # point, with only the implicated families escalated at
             # levels >= the faulting level.
-            esc_stats = {k: v for k, v in delta.items() if v > 0}
+            esc_stats = ({k: v for k, v in delta.items() if v > 0}
+                         if any(v > 0 for v in delta.values())
+                         else {FAMILY_STAT[fam]: 1})
             stage_log.append(f"{stage.label}!overflow")
             attempts += 1
             if attempts > max_retries + 1:
@@ -337,9 +591,20 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
         if stage.kind == "post":
             succ_f, rank_f, dev_stats = out
             break
-        state = out
+        state = out_state
         prev_fatal = fatal
         idx += 1
+        if supervisor is not None:
+            supervisor.note_stage_time(dt)
+            supervisor.boundary(idx, global_layout(state), make_meta(idx))
+        if injector is not None and injector.preempt_after(stage.kind,
+                                                           stage.level):
+            injected_log.append(f"preempt:{stage.label}")
+            if supervisor is not None:
+                supervisor.preempt()
+            else:
+                raise Preempted(
+                    f"injected preemption after stage {stage.label}")
     else:  # pragma: no cover - schedule always ends with post
         raise AssertionError("schedule ended without a post stage")
 
@@ -350,6 +615,13 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
     host_stats["scales_log"] = ";".join(scales_log)
     host_stats["stage_log"] = tuple(stage_log)
     host_stats["stage_wall_s"] = tuple(stage_wall)
+    rec = (dict(supervisor.stats) if supervisor is not None else
+           {"restarts": crashes, "stragglers": 0, "checkpoints": 0,
+            "preempted": 0, "resumed_from": -1})
+    rec["injected"] = tuple(injected_log)
+    host_stats["recovery"] = rec
     if stage_counters:
         host_stats["stage_collectives"] = tuple(stage_collectives)
+    if supervisor is not None:
+        supervisor.ckpt.wait()
     return succ_f, rank_f, host_stats

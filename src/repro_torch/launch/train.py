@@ -1,20 +1,29 @@
 """Training entry point.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
-      --smoke --steps 20 --batch 8 --seq 128 --device cpu
+      --smoke --steps 20 --batch 8 --seq 128 --device cpu \
+      --ckpt-dir ckpt --ckpt-every 5
 
-A plain loop of ``train_step`` over ``pipeline.global_batch`` (packed by
-list ranking), AdamW with cosine warmup, random weights from seed 0. Runs
-on the CUDA device unless ``--device`` says otherwise; ``--use-kernels``
-sends attention through ``flash_attention`` and the Mamba-2 scan through
-``ssd_scan`` (their plain versions on the CPU). Prints a line per logged
-step and a final JSON summary. Checkpointing and crash restart (the JAX
-entry point's ``Supervisor``) are not ported.
+``train_step`` over ``pipeline.global_batch`` (packed by list ranking),
+AdamW with cosine warmup, random weights from seed 0, the loop run by the
+fault-tolerant ``Supervisor``: periodic async checkpoints of (params,
+optimizer state) into ``--ckpt-dir`` every ``--ckpt-every`` steps and at
+the end, in the JAX package's format; a run started on a directory that
+holds a checkpoint resumes from its latest one; a failed step restores
+the latest checkpoint and replays (the batches regenerate from the
+step); SIGTERM/SIGINT write a checkpoint and stop. Without
+``--ckpt-dir`` nothing is written and a failed step replays from step 0.
+
+Runs on the CUDA device unless ``--device`` says otherwise;
+``--use-kernels`` sends attention through ``flash_attention`` and the
+Mamba-2 scan through ``ssd_scan`` (their plain versions on the CPU).
+Prints a line per logged step and a final JSON summary.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import time
 
 import torch
@@ -23,13 +32,48 @@ from repro_torch import configs
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.params import map_tree
 from repro_torch.optim import adamw
+from repro_torch.runtime.fault_tolerance import Supervisor, SupervisorConfig
 from repro_torch.train import steps as train_steps
+
+
+def initial_state(cfg, tcfg: train_steps.TrainConfig, device):
+    """((params, optimizer state), 0): random weights from seed 0."""
+    params = M.init(cfg, torch.Generator(device).manual_seed(0), device)
+    return (params, adamw.init(params, tcfg.optimizer)), 0
+
+
+def state_like(cfg, tcfg: train_steps.TrainConfig):
+    """The (params, optimizer state) checkpoint layout as ``meta``
+    tensors: shapes and dtypes, no storage."""
+    params = map_tree(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                            device="meta"),
+                      M.param_specs(cfg))
+    return params, adamw.init(params, tcfg.optimizer)
+
+
+def step_fn(cfg, dcfg: pipeline.DataConfig, tcfg: train_steps.TrainConfig,
+            device):
+    """``one_step(state, step) -> (state, metrics)``: batch ``step`` and
+    one optimizer step; ``metrics["t0"]`` is the host clock
+    (``time.perf_counter``) at the step's start, ``metrics["batch_s"]``
+    the seconds its batch took."""
+    def one_step(state, step):
+        params, opt = state
+        t0 = time.perf_counter()
+        batch = pipeline.device_batch(dcfg, step, device)
+        batch_s = time.perf_counter() - t0
+        params, opt, metrics = train_steps.train_step(params, opt, batch, cfg,
+                                                      tcfg)
+        return (params, opt), {**metrics, "t0": t0, "batch_s": batch_s}
+    return one_step
 
 
 def main(argv=None):
     """Run the loop; returns one record per logged step: step, loss,
-    grad_norm, lr, and the host-clock ms of the step and of its batch."""
+    grad_norm, lr, and the host-clock ms of the step and of its batch (a
+    replayed step's record replaces the first)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     choices=configs.list_archs())
@@ -39,6 +83,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (none: no checkpoints)")
+    ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--use-kernels", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
@@ -52,31 +99,37 @@ def main(argv=None):
         use_kernels=args.use_kernels)
     dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch)
-    params = M.init(cfg, torch.Generator(device).manual_seed(0), device)
-    opt = adamw.init(params, tcfg.optimizer)
+    sup = Supervisor(SupervisorConfig(ckpt_dir=args.ckpt_dir,
+                                      ckpt_every=args.ckpt_every),
+                     lambda: initial_state(cfg, tcfg, device),
+                     lambda: state_like(cfg, tcfg), device=device)
+    one_step = step_fn(cfg, dcfg, tcfg, device)
 
-    history = []
-    t0 = time.time()
-    for step in range(args.steps):
-        t_step = time.perf_counter()
-        batch = pipeline.device_batch(dcfg, step, device)
-        t_batch = time.perf_counter()
-        params, opt, metrics = train_steps.train_step(params, opt, batch, cfg,
-                                                      tcfg)
-        done = step + 1
+    records: dict[int, dict] = {}
+
+    def on_metrics(done, metrics):
         if done % args.log_every == 0 or done == args.steps:
             loss = float(metrics["loss"])  # waits for the step
             gnorm = float(metrics["grad_norm"])
             lr = float(metrics["lr"])
             t_end = time.perf_counter()
-            history.append({"step": done, "loss": loss, "grad_norm": gnorm,
-                            "lr": lr, "ms": (t_end - t_step) * 1e3,
-                            "batch_ms": (t_batch - t_step) * 1e3})
+            records[done] = {"step": done, "loss": loss, "grad_norm": gnorm,
+                             "lr": lr, "ms": (t_end - metrics["t0"]) * 1e3,
+                             "batch_ms": metrics["batch_s"] * 1e3}
             print(f"step {done:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
                   f"lr {lr:.2e}", flush=True)
+
+    old_handlers = sup.install_signal_handlers()
+    t0 = time.time()
+    try:
+        _, step = sup.run(one_step, args.steps, on_metrics)
+    finally:
+        for sig, handler in old_handlers.items():
+            signal.signal(sig, handler)
     dt = time.time() - t0
-    print(json.dumps({"arch": cfg.name, "steps": args.steps,
-                      "wall_s": round(dt, 1),
+    history = [records[k] for k in sorted(records)]
+    print(json.dumps({"arch": cfg.name, "steps": step,
+                      "wall_s": round(dt, 1), "supervisor": sup.stats,
                       "first_loss": history[0]["loss"] if history else None,
                       "last_loss": history[-1]["loss"] if history else None}))
     return history

@@ -1,6 +1,7 @@
-"""The JAX package's tree and graph front doors, run in a child process
-for the port's parity tests (``tests/test_torch_treealg.py``,
-``tests/test_torch_graphalg.py``).
+"""The JAX package's tree and graph front doors and its supervised
+solves, run in a child process for the port's parity tests
+(``tests/test_torch_treealg.py``, ``tests/test_torch_graphalg.py``,
+``tests/test_torch_faultinject.py``).
 
 Each of these calls compiles large simshard programs, and many such
 compiles in one pytest worker have crashed XLA's CPU compiler in a later
@@ -123,9 +124,67 @@ def spanning_forest(edges, n):
     return np.asarray(parent), np.asarray(labels), _ints(stats)
 
 
+def _golden_case(name):
+    from _simshard_cases import golden_cases
+    return next(c for c in golden_cases() if c[0] == name)
+
+
+def fingerprints():
+    """{case name: the reference's solve fingerprint} of every golden
+    case at p = 8, seed 0 (no solve runs)."""
+    import jax.numpy as jnp
+    from _simshard_cases import golden_cases
+    from repro.core.listrank import resume
+    from repro.core.listrank.api import canonical_weight_dtype
+    return {name: resume.solve_fingerprint(
+        jnp.asarray(s, jnp.int32), jnp.asarray(r, canonical_weight_dtype(
+            r.dtype)), s.shape[0], P, 0, cfg)
+        for name, s, r, cfg in golden_cases()}
+
+
+def preempted_solve(name, ckpt_dir, stage, level):
+    """Solve golden case ``name`` under a SolveSupervisor on ``ckpt_dir``
+    and preempt it after ``stage``@``level`` (legacy PRNG, as the goldens
+    were made): leaves that boundary's checkpoint."""
+    import jax
+    from repro.core.listrank import FaultSpec, rank_list_with_stats, sim_mesh
+    from repro.runtime.fault_tolerance import (Preempted, SolveSupervisor,
+                                               SolveSupervisorConfig)
+    _, s, r, cfg = _golden_case(name)
+    sup = SolveSupervisor(SolveSupervisorConfig(ckpt_dir=ckpt_dir))
+    with jax.threefry_partitionable(False):
+        try:
+            rank_list_with_stats(s, r, sim_mesh(P), cfg=cfg, supervisor=sup,
+                                 inject=FaultSpec("preempt", stage=stage,
+                                                  level=level))
+        except Preempted:
+            return sup.ckpt.latest_step()
+    raise AssertionError("the solve was not preempted")
+
+
+def resumed_solve(name, ckpt_dir):
+    """Golden case ``name`` resumed under a SolveSupervisor on
+    ``ckpt_dir`` (legacy PRNG): its golden record, recovery stats and
+    stage log."""
+    import jax
+    from _simshard_cases import case_record
+    from repro.core.listrank import rank_list_with_stats, sim_mesh
+    from repro.runtime.fault_tolerance import (SolveSupervisor,
+                                               SolveSupervisorConfig)
+    _, s, r, cfg = _golden_case(name)
+    sup = SolveSupervisor(SolveSupervisorConfig(ckpt_dir=ckpt_dir))
+    with jax.threefry_partitionable(False):
+        sf, rf, stats = rank_list_with_stats(s, r, sim_mesh(P), cfg=cfg,
+                                             supervisor=sup)
+    return {"record": case_record(sf, rf, stats),
+            "recovery": dict(stats["recovery"]),
+            "stage_log": tuple(stats["stage_log"])}
+
+
 JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 graph_stats, connected_components,
-                                spanning_forest)}
+                                spanning_forest, fingerprints,
+                                preempted_solve, resumed_solve)}
 
 
 if __name__ == "__main__":

@@ -534,3 +534,134 @@ def test_graph_stats_cuda_kernels_on_equal_off(cuda, monkeypatch, n, e,
                                device="cpu")
     np.testing.assert_array_equal(on.parent, cpu.parent)
     assert _int_stats(cpu.stats) == _int_stats(on.stats)
+
+
+# ------------------------------------------------------------ fault tolerance
+@pytest.mark.torch_cuda
+def test_checkpoint_cuda_tree_round_trips_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import flatten
+    g = torch.Generator(cuda).manual_seed(5)
+    tree = {"w": torch.randn(64, 33, generator=g, device=cuda),
+            "h": torch.randn(17, generator=g, device=cuda).to(torch.bfloat16),
+            "i": (torch.randint(-9, 9, (40,), generator=g, device=cuda,
+                                dtype=torch.int32),
+                  torch.rand(40, generator=g, device=cuda) < 0.5),
+            "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+    ck = Checkpointer(tmp_path, async_save=True)
+    ck.save(1, tree)
+    ck.wait()
+    _, leaves, rebuild = flatten(tree)
+    got, step = ck.restore(None, rebuild([torch.empty_like(x, device="meta")
+                                          for x in leaves]), cuda)
+    assert step == 1
+    for a, b in zip(leaves, flatten(got)[1]):
+        assert b.device.type == "cuda" and b.dtype == a.dtype
+        assert b.shape == a.shape
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.torch_cuda
+def test_supervised_solve_cuda_preempts_and_resumes_on_the_card(cuda,
+                                                                 monkeypatch,
+                                                                 tmp_path):
+    """A kernels-on solve preempted after descend@1 resumes onto the card
+    (every restored leaf on CUDA), equal to the oracle, without running
+    prep again."""
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.core.listrank import (FaultSpec, ListRankConfig,
+                                           instances, rank_list_seq,
+                                           rank_list_with_stats, resume,
+                                           sim_mesh)
+    from repro_torch.runtime.fault_tolerance import (Preempted,
+                                                     SolveSupervisor,
+                                                     SolveSupervisorConfig)
+    succ, rank = instances.gen_list(1 << 14, gamma=1.0, seed=4)
+    s_ref, r_ref = rank_list_seq(succ, rank)
+    cfg = ListRankConfig(use_pallas=True, use_pallas_pack=True)
+
+    def run(**kw):
+        return rank_list_with_stats(
+            succ, rank, sim_mesh(16), cfg=cfg, device=cuda,
+            supervisor=SolveSupervisor(SolveSupervisorConfig(
+                ckpt_dir=str(tmp_path))), **kw)
+
+    with pytest.raises(Preempted):
+        run(inject=FaultSpec("preempt", stage="descend", level=1))
+    devices, layout = [], resume.per_pe_layout
+
+    def recording(flat, like):
+        out = layout(flat, like)
+        devices.extend(x.device.type for x in flatten(out)[1])
+        return out
+
+    monkeypatch.setattr(resume, "per_pe_layout", recording)
+    chase = lc_ops.LAUNCHES
+    s, r, stats = run()
+    assert lc_ops.LAUNCHES == chase
+    assert devices and set(devices) == {"cuda"}
+    assert stats["recovery"]["resumed_from"] == 3
+    np.testing.assert_array_equal(s.cpu().numpy(), s_ref)
+    np.testing.assert_array_equal(r.cpu().numpy(), r_ref)
+
+
+@pytest.mark.torch_cuda
+def test_supervised_training_cuda_restores_bit_for_bit(cuda, tmp_path):
+    """mamba2-130m at full width, 2 layers, float32, kernels on, 6 steps
+    checkpointed every 2 with a failure at step index 3: the restored
+    state equals the state saved at step 2 bit for bit, and the final
+    loss is within phase 13's 1e-4 (relative) of an uninterrupted run."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as train_launch
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import (Supervisor,
+                                                     SupervisorConfig)
+    from repro_torch.train import steps as train_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_config("mamba2-130m").with_(
+        num_layers=2, dtype=torch.float32, use_kernels=True)
+    assert cfg.d_model == 768
+    tcfg = train_steps.TrainConfig(optimizer=adamw.AdamWConfig(lr=3e-3),
+                                   warmup_steps=1, total_steps=6)
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                               global_batch=2)
+
+    def supervised(directory, fail_at=None):
+        sup = Supervisor(
+            SupervisorConfig(ckpt_dir=str(tmp_path / directory),
+                             ckpt_every=2),
+            lambda: train_launch.initial_state(cfg, tcfg, cuda),
+            lambda: train_launch.state_like(cfg, tcfg), device=cuda)
+        sup.inject_failure_at = fail_at
+        saved, restored = {}, []
+        save, restore = sup.ckpt.save, sup.ckpt.restore
+
+        def keeping_save(step, state, **kw):
+            saved[step] = [x.detach().cpu().clone()
+                           for x in flatten(state)[1]]
+            return save(step, state, **kw)
+
+        def keeping_restore(*a, **kw):
+            out = restore(*a, **kw)
+            restored.append((out[1], flatten(out[0])[1]))
+            return out
+
+        sup.ckpt.save, sup.ckpt.restore = keeping_save, keeping_restore
+        losses = {}
+        sup.run(train_launch.step_fn(cfg, dcfg, tcfg, cuda), 6,
+                lambda done, m: losses.__setitem__(done, float(m["loss"])))
+        return sup, saved, restored, losses
+
+    _, _, _, straight = supervised("a")
+    sup, saved, restored, losses = supervised("b", fail_at=3)
+    assert sup.stats["restarts"] == 1
+    assert [step for step, _ in restored] == [2]
+    for a, b in zip(saved[2], restored[0][1]):
+        assert b.device.type == "cuda"
+        assert torch.equal(a, b.cpu())
+    rel = abs(losses[6] - straight[6]) / abs(straight[6])
+    assert np.isfinite(losses[6]) and rel <= 1e-4, (losses, straight)

@@ -7,7 +7,8 @@
   path and every counter — once the reference's ruler permutations are
   injected;
 - an int and a float instance match the oracle at p in {8, 64};
-- the front door's contract: CUDA by default, later-slice options raise.
+- the front door's contract: CUDA by default, supervision and fault
+  injection run, later-slice options raise.
 """
 import numpy as np
 import pytest
@@ -15,10 +16,12 @@ import torch
 
 import _simshard_cases as cases_lib
 from _torch_reference_perms import ReferencePerms
-from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
-                                       instances, perm_fn_from_numpy,
-                                       rank_list_seq, rank_list_with_stats,
-                                       sim_mesh)
+from repro_torch.core.listrank import (FaultSpec, IndirectionSpec,
+                                       ListRankConfig, instances,
+                                       perm_fn_from_numpy, rank_list_seq,
+                                       rank_list_with_stats, sim_mesh)
+from repro_torch.runtime.fault_tolerance import (SolveSupervisor,
+                                                 SolveSupervisorConfig)
 
 
 BASE = ListRankConfig(srs_rounds=1, local_contraction=False)
@@ -129,15 +132,24 @@ def test_stage_counters_count_collectives_per_stage():
         assert counts[False][label].get("psum") == c.get("psum")
 
 
-def test_front_door_contract(monkeypatch):
+def test_front_door_contract(monkeypatch, tmp_path):
     succ, rank = instances.gen_list(64, gamma=1.0, seed=1)
     mesh = sim_mesh(4)
-    for kw in ({"supervisor": object()}, {"inject": object()},
-               {"tracer": object()},
+    for kw in ({"tracer": object()},
                {"cfg": ListRankConfig(telemetry=True)},
                {"cfg": ListRankConfig(backend="mesh")}):
         with pytest.raises(NotImplementedError):
             rank_list_with_stats(succ, rank, mesh, device="cpu", **kw)
+    # supervision and fault injection run
+    supervisor = SolveSupervisor(SolveSupervisorConfig(ckpt_dir=str(
+        tmp_path)))
+    _, _, stats = rank_list_with_stats(
+        succ, rank, mesh, device="cpu", supervisor=supervisor,
+        inject=FaultSpec("pe_loss", stage="base"))
+    assert stats["recovery"]["injected"] == (
+        f"pe_loss:base@{ListRankConfig().srs_rounds}",)
+    assert stats["recovery"]["restarts"] == 1
+    assert supervisor.ckpt.latest_step() is not None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         rank_list_with_stats(succ, rank, mesh)
