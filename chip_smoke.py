@@ -99,7 +99,24 @@ Phases, each fatal on failure:
    ``mailbox_pack`` at least once per other executed stage (none with
    kernels off); the bytes, snapshot and write seconds of each
    boundary's checkpoint, the supervised warm wall against phase 3's, and
-   the resume's wall (restore included) against a full solve.
+   the resume's wall (restore included) against a full solve;
+15. the flight recorder: (a) phase 3's solve with ``telemetry=True``,
+   ``stage_counters=True`` and a ``Tracer`` (kernels on): outputs bit
+   equal to phase 3's, every counter equal, the per-stage collectives
+   those of a traced telemetry-off solve, ``local_chase`` launched once
+   and ``mailbox_pack`` as often as in phase 3 (counts reset just
+   before); (b) the same with kernels off: its stage records equal (a)'s;
+   (c) the span tree — every scheduled stage once, every attempt with a
+   finite ``predicted_s`` and a ``collective_count`` equal to its stage's
+   ``stage_collectives`` total — written as a Chrome trace under
+   ``chiprun_out/`` and read back, then printed with the residual and
+   headroom tables; (d) ``tree_stats`` at phase 6's and ``graph_stats``
+   at phase 7's configuration, traced with telemetry on: outputs equal
+   phases 6 and 7, graph-family records present, the graph call's
+   escalations as ``escalate:`` instants and in the headroom rows; (e)
+   the cost: (a)'s warm wall against phase 3's (3 each, alternating;
+   median and spread), the device time of one solve with telemetry on
+   and off (``devtime.kernel_times_over``) and the device events added.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -110,6 +127,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -234,7 +252,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-14 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-15 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -517,8 +535,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         f"rounds {st_g['rounds']}, attempts {st_g['attempts']}")
 
     # ------------------------------------------------------ phases 6-7
-    results["tree"] = tree_phase(dev, n_tree, cfg_on, cfg_off)
-    results["graph"] = graph_phase(dev, n_graph, cfg_on, cfg_off)
+    results["tree"], tree_out = tree_phase(dev, n_tree, cfg_on, cfg_off)
+    results["graph"], graph_out = graph_phase(dev, n_graph, cfg_on, cfg_off)
     for kern in kernels:
         for path in ("tree", "graph"):
             kern[f"launches_{path}"] = results[path]["launches"][kern["name"]]
@@ -545,6 +563,13 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         if kern["name"] in results["recovery"]["launches"]:
             kern["launches_recovery"] = results["recovery"]["launches"][
                 kern["name"]]
+
+    # --------------------------------------------------------- phase 15
+    results["obs"] = obs_phase(
+        dev, card, succ_np, rank_np, (s_on, r_on, ints_on), cfg_on, cfg_off,
+        launches, tree_out, graph_out, n_tree, n_graph)
+    for kern in kernels:
+        kern["launches_obs"] = results["obs"]["launches"][kern["name"]]
 
     results["card"] = card
     results["kernels"] = kernels
@@ -650,8 +675,9 @@ def int_counters(stats) -> dict:
     return {k: v for k, v in stats.items() if isinstance(v, int)}
 
 
-def tree_phase(dev, n_tree: int, cfg_on, cfg_off) -> dict:
-    """Phase 6: tree statistics at ``n_tree`` nodes, kernels on and off."""
+def tree_phase(dev, n_tree: int, cfg_on, cfg_off) -> tuple:
+    """Phase 6: tree statistics at ``n_tree`` nodes, kernels on and off.
+    Returns (results, the kernels-on TreeStats)."""
     import torch
     from repro_torch import devtime
     from repro_torch.core import treealg
@@ -717,7 +743,7 @@ def tree_phase(dev, n_tree: int, cfg_on, cfg_off) -> dict:
         check_tree_stats(f"solve_forest tree {b}", st_b, parents[b])
     log(f"phase 6: root_tree (n={FOREST_NODES}, new root {new_root}) and "
         f"solve_forest ({FOREST_TREES} trees of {FOREST_NODES} nodes): exact")
-    return res
+    return res, cold
 
 
 def check_forest(edges, n, gs, comp) -> None:
@@ -743,9 +769,10 @@ def check_forest(edges, n, gs, comp) -> None:
              "(or has a cycle)")
 
 
-def graph_phase(dev, n_graph: int, cfg_on, cfg_off) -> dict:
+def graph_phase(dev, n_graph: int, cfg_on, cfg_off) -> tuple:
     """Phase 7: graph statistics at ``n_graph`` nodes, 4 x as many edges
-    in 4 components, kernels on and off."""
+    in 4 components, kernels on and off. Returns (results, the kernels-on
+    GraphStats)."""
     import scipy.sparse
     import scipy.sparse.csgraph
     import torch
@@ -816,7 +843,7 @@ def graph_phase(dev, n_graph: int, cfg_on, cfg_off) -> dict:
         fail(f"graph path, kernels off: counters differ: "
              f"{int_counters(off.stats)} vs {int_counters(cold.stats)}")
     log("phase 7: kernels off: identical outputs and counters")
-    return res
+    return res, cold
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1637,6 +1664,214 @@ def recovery_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
             fail(f"phase 14 (f): {st['recovery']}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+# --------------------------------------------------------------- phase 15
+#: where phase 15 writes its Chrome trace (listed in .gitignore)
+OBS_TRACE = ROOT / "chiprun_out" / "chip_smoke_obs_trace.json"
+TREE_KEYS = ("depth", "subtree_size", "preorder", "postorder", "root_of")
+GRAPH_KEYS = ("components", "parent", "depth", "subtree_size", "preorder",
+              "postorder")
+
+
+def obs_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
+              plain_launches: dict, tree_out, graph_out, n_tree: int,
+              n_graph: int) -> dict:
+    """Phase 15: the flight recorder on the main, tree and graph paths."""
+    import torch
+    from repro_torch import devtime, obs
+    from repro_torch.core import graphalg, treealg
+    from repro_torch.core.listrank import (instances, rank_list_with_stats,
+                                           resume, sim_mesh)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    counters = {"local_chase": lc_ops, "mailbox_pack": mp_ops,
+                "flash_attention": fa_ops, "ssd_scan": ssd_ops}
+    s_plain, r_plain, ints_plain = plain
+    mesh = sim_mesh(P_MAIN)
+    cfg_tele = cfg_on.with_(telemetry=True)
+    res: dict = {}
+    t_phase = time.perf_counter()
+
+    def solve(cfg, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s, r, st = rank_list_with_stats(succ_np, rank_np, mesh, cfg=cfg,
+                                        seed=SEED, device=dev, **kw)
+        torch.cuda.synchronize()
+        return s, r, st, time.perf_counter() - t
+
+    # (a) telemetry, stage counters and a tracer, kernels on
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    tracer = obs.Tracer(meta={"name": "chip_smoke phase 15", "card": card})
+    s_a, r_a, st_a, wall_a = solve(cfg_tele, tracer=tracer,
+                                   stage_counters=True)
+    res["launches"] = {k: mod.LAUNCHES for k, mod in counters.items()}
+    if not (torch.equal(s_a, s_plain) and torch.equal(r_a, r_plain)):
+        fail("phase 15 (a): outputs differ from phase 3's")
+    if int_counters(st_a) != ints_plain:
+        fail(f"phase 15 (a): counters {int_counters(st_a)} differ from "
+             f"phase 3's {ints_plain}")
+    want = {"local_chase": 1, "mailbox_pack": plain_launches["mailbox_pack"],
+            "flash_attention": 0, "ssd_scan": 0}
+    if res["launches"] != want:
+        fail(f"phase 15 (a): launches {res['launches']}, phase 3's path "
+             f"{want}")
+    _, _, st_t, _ = solve(cfg_on, tracer=obs.Tracer(), stage_counters=True)
+    if st_a["stage_collectives"] != st_t["stage_collectives"]:
+        fail("phase 15 (a): the stages' collectives differ from a traced "
+             "telemetry-off solve's")
+    log(f"phase 15 (a): telemetry + tracer + stage counters, kernels on: "
+        f"outputs and counters equal to phase 3's, stage collectives equal "
+        f"to a traced telemetry-off solve's; launches {res['launches']}; "
+        f"wall {wall_a:.3f} s [{card}]")
+
+    # (b) kernels off: the same records
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    s_b, r_b, st_b, _ = solve(cfg_off.with_(telemetry=True))
+    if any(mod.LAUNCHES for mod in counters.values()):
+        fail("phase 15 (b): kernels off, yet a kernel was launched")
+    if not (torch.equal(s_b, s_plain) and torch.equal(r_b, r_plain)
+            and int_counters(st_b) == ints_plain):
+        fail("phase 15 (b): outputs or counters differ from phase 3's")
+    if st_b["telemetry"]["stages"] != st_a["telemetry"]["stages"]:
+        fail("phase 15 (b): stage records differ with the kernels off")
+    log(f"phase 15 (b): kernels off: {len(st_b['telemetry']['stages'])} "
+        f"stage records equal to (a)'s")
+
+    # (c) the span tree, its Chrome trace, the tables
+    sched = [stg.label for stg in resume.schedule_for(cfg_on)]
+    if [sp.name for sp in tracer.find(cat="stage")] != sched:
+        fail(f"phase 15 (c): stage spans "
+             f"{[sp.name for sp in tracer.find(cat='stage')]}, schedule "
+             f"{sched}")
+    coll = dict(st_a["stage_collectives"])
+    for att in tracer.find(cat="stage-attempt"):
+        a = att.args
+        if not np.isfinite(a.get("predicted_s", float("nan"))):
+            fail(f"phase 15 (c): {att.name} has no finite predicted_s")
+        if a["collective_count"] != sum(c for _, c in coll[a["stage"]]):
+            fail(f"phase 15 (c): {att.name} counted "
+                 f"{a['collective_count']} collectives, stage_collectives "
+                 f"{coll[a['stage']]}")
+    OBS_TRACE.parent.mkdir(parents=True, exist_ok=True)
+    obs.write_chrome_trace(tracer, str(OBS_TRACE))
+    doc = json.loads(OBS_TRACE.read_text())
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    if len(xs) != len(tracer.spans):
+        fail(f"phase 15 (c): the Chrome trace holds {len(xs)} spans of "
+             f"{len(tracer.spans)}")
+    rows = obs.residual_rows(tracer)
+    res["residuals"] = rows
+    res["residual_summary"] = obs.residual_summary(rows)
+    res["headroom"] = st_a["telemetry"]["headroom"]
+    log(f"phase 15 (c): span tree ({len(tracer.spans)} spans; Chrome trace "
+        f"{os.path.relpath(OBS_TRACE, ROOT)}, read back):")
+    for line in obs.span_tree_lines(tracer):
+        log("  " + line)
+    log(obs.format_residual_table(
+        rows, title="phase 15 (c): measured wall against the alpha-beta "
+        f"price of the executed collectives (SUPERMUC constants) [{card}]"))
+    log("phase 15 (c): capacity headroom:")
+    log(obs.format_headroom_table(res["headroom"]))
+
+    # (d) the tree and graph paths, traced with telemetry on
+    parent = instances.gen_tree_parents(n_tree, seed=SEED, locality=False)
+    tr_tree = obs.Tracer()
+    t = time.perf_counter()
+    tree = treealg.tree_stats(parent, mesh, cfg=cfg_tele, seed=SEED,
+                              device=dev, tracer=tr_tree)
+    wall_tree = time.perf_counter() - t
+    for k in TREE_KEYS:
+        if not np.array_equal(getattr(tree, k), getattr(tree_out, k)):
+            fail(f"phase 15 (d): tree {k} differs from phase 6's")
+    (tour,) = tr_tree.find(name="build_tour")
+    if not tour.args["telemetry"]["tele"]["graph"]["rounds"]:
+        fail("phase 15 (d): the tour span carries no graph-family record")
+    edges = instances.gen_graph_edges(n_graph, 4 * n_graph, seed=SEED,
+                                      locality=False, num_components=4)
+    tr_graph = obs.Tracer()
+    t = time.perf_counter()
+    gs = graphalg.graph_stats(edges, n_graph, mesh, cfg=cfg_tele, seed=SEED,
+                              device=dev, tracer=tr_graph)
+    wall_graph = time.perf_counter() - t
+    for k in GRAPH_KEYS:
+        if not np.array_equal(getattr(gs, k), getattr(graph_out, k)):
+            fail(f"phase 15 (d): graph {k} differs from phase 7's")
+    (rec,) = gs.stats["telemetry"]["stages"]
+    if not rec["tele"]["graph"]["rounds"]:
+        fail("phase 15 (d): the graph record has no graph-family rounds")
+    esc = [i for i in tr_graph.instants
+           if i.name == "escalate:graphalg:stats"]
+    if len(esc) != gs.stats["attempts"] - 1:
+        fail(f"phase 15 (d): {len(esc)} escalate instants for "
+             f"{gs.stats['attempts']} attempts")
+    rows_g = gs.stats["telemetry"]["headroom"]
+    final = obs.telemetry.parse_scales(esc[-1].args["scales"]) if esc \
+        else {}
+    escalated = {f for f, v in final.items() if v > 1.0}
+    if escalated and not any(r["family"] in escalated for r in rows_g):
+        fail(f"phase 15 (d): no headroom row of the escalated families "
+             f"{sorted(escalated)}")
+    if any(r["scale"] <= 1.0 for r in rows_g if r["family"] in escalated):
+        fail("phase 15 (d): a headroom row of an escalated family is not "
+             "scaled")
+    res["tree"] = {"wall_s": wall_tree,
+                   "util_max": tour.args["telemetry"]["util_max"]}
+    res["graph"] = {"wall_s": wall_graph, "attempts": gs.stats["attempts"],
+                    "escalations": [i.args["scales"] for i in esc],
+                    "util_max": rec["util_max"]}
+    log(f"phase 15 (d): tree_stats n={n_tree} traced with telemetry: equal "
+        f"to phase 6, tour record present, {wall_tree:.3f} s; graph_stats "
+        f"n={n_graph}: equal to phase 7, {gs.stats['attempts']} attempts, "
+        f"escalations {res['graph']['escalations']}, graph util_max "
+        f"{rec['util_max']:.3f}, {wall_graph:.3f} s [{card}]")
+    log(obs.format_headroom_table(rows_g))
+
+    # (e) the cost: warm walls alternating, device time on and off
+    walls = {"plain": [], "obs": []}
+    for _ in range(3):
+        walls["plain"].append(solve(cfg_on)[3])
+        walls["obs"].append(solve(cfg_tele, tracer=obs.Tracer(),
+                                  stage_counters=True)[3])
+    res["walls_s"] = walls
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"phase 15 (e): warm wall, 3 each alternating: plain median "
+        f"{med['plain']:.4f} s (spread {min(walls['plain']):.4f}-"
+        f"{max(walls['plain']):.4f}), telemetry + tracer + counters median "
+        f"{med['obs']:.4f} s (spread {min(walls['obs']):.4f}-"
+        f"{max(walls['obs']):.4f}); overhead "
+        f"{med['obs'] - med['plain']:+.4f} s "
+        f"({100 * (med['obs'] / med['plain'] - 1):+.2f} %) [{card}]")
+    dev_res = {}
+    for name, cfg in (("plain", cfg_on), ("telemetry", cfg_tele)):
+        kt, events, _ = devtime.kernel_times_over(
+            lambda: solve(cfg), torch, log=log)
+        dev_res[name] = {"busy_ms": kt["busy_ms"],
+                         "device_events": None if events is None
+                         else len(events),
+                         "idle_share": kt["idle_share"],
+                         "profiled_wall_s": kt["profiled_wall_s"]}
+    res["device"] = dev_res
+    p_, t_ = dev_res["plain"], dev_res["telemetry"]
+    if p_["busy_ms"] is None or t_["busy_ms"] is None:
+        log(f"phase 15 (e): device time of one solve not measured (plain "
+            f"{p_['busy_ms']}, telemetry {t_['busy_ms']})")
+    else:
+        log(f"phase 15 (e): device time of one solve (torch.profiler): "
+            f"plain {p_['busy_ms']:.1f} ms in {p_['device_events']} device "
+            f"events, telemetry on {t_['busy_ms']:.1f} ms in "
+            f"{t_['device_events']}: {t_['busy_ms'] - p_['busy_ms']:+.1f} ms, "
+            f"{t_['device_events'] - p_['device_events']:+d} device events "
+            f"[{card}]")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15: {res['phase_s']:.1f} s")
     return res
 
 

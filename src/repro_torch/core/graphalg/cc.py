@@ -41,6 +41,7 @@ from repro_torch.core.listrank import exchange as exchange_lib
 from repro_torch.core.listrank.batched import INT_MAX, set_drop, take
 from repro_torch.core.listrank.config import ListRankConfig
 from repro_torch.core.listrank.srs import gather_until_done
+from repro_torch.obs import telemetry as tele_lib
 
 #: graphalg's own stat keys; the ``cc_*``/``tour_*``/``stats_*`` fatal
 #: keys map to the tuner's ``graph`` capacity family (tuner.FAMILY_OF).
@@ -155,11 +156,15 @@ def _min_scatter(m: int, slot, vals):
 def _shortcut(plan, caps: GraphCaps, f, base, m, owner_of, footprint=None):
     """Pointer jumping ``f = f[f]`` to a fixed point (bounded).
 
-    Returns ``(f, undelivered, msgs)``: the psum'd (p,) undelivered
-    count and the per-PE message count, summed over the iterations."""
+    Returns ``(f, undelivered, msgs, tele)``: the psum'd (p,)
+    undelivered count and the per-PE message count, summed over the
+    iterations, and their merged per-PE routing telemetry (None unless
+    ``plan.telemetry``)."""
     p, dev = plan.p, plan.device
     und = torch.zeros(p, dtype=torch.int32, device=dev)
     msgs = torch.zeros(p, dtype=torch.int32, device=dev)
+    tele = (tele_lib.route_zero(p, plan.indirection.depth, dev)
+            if plan.telemetry else None)
     ones = torch.ones_like(f, dtype=torch.bool)
     changed, it = 1, 0
     while changed > 0 and it < caps.jumps:
@@ -171,10 +176,12 @@ def _shortcut(plan, caps: GraphCaps, f, base, m, owner_of, footprint=None):
         f, it = nf, it + 1
         und = und + gst["undelivered"]
         msgs = msgs + gst["msgs"]
+        if plan.telemetry:
+            tele = tele_lib.merge(tele, gst["telemetry"])
         if footprint is not None:
             footprint.cut("cc:jump")
         changed = int(changed_t[0])
-    return f, und, msgs
+    return f, und, msgs, tele
 
 
 def cc_rounds(plan, caps: GraphCaps, ea, eb, m: int, m_e: int, stats,
@@ -184,7 +191,9 @@ def cc_rounds(plan, caps: GraphCaps, ea, eb, m: int, m_e: int, stats,
     Args:
       ea/eb: (p, m_e) int32 per-PE edge endpoints (global node ids);
         padding edges are self-loops and never propose.
-      stats: the pipeline's 0-dim counters (updated copy returned).
+      stats: the pipeline's 0-dim counters (updated copy returned); with
+        ``plan.telemetry`` also its per-PE ``"telemetry"`` record, into
+        which every round's hooking legs merge (graph family).
       footprint: a ``cut(label)`` recorder of transport calls, cut after
         each round's hooking legs (``cc:hook``), each shortcut iteration
         (``cc:jump``), each round's counter reduction (``cc:stats``) and
@@ -258,12 +267,19 @@ def cc_rounds(plan, caps: GraphCaps, ea, eb, m: int, m_e: int, stats,
             footprint.cut("cc:hook")
 
         # 5. shortcut to stars for the next round
-        f, jund, jmsgs = _shortcut(plan, caps, f, base, m, owner_node,
-                                   footprint)
+        f, jund, jmsgs, jtele = _shortcut(plan, caps, f, base, m,
+                                          owner_node, footprint)
         stats["cc_rounds"] = stats["cc_rounds"] + 1
         stats["cc_msgs"] = stats["cc_msgs"] + plan.psum(msgs + jmsgs)[0]
         stats["cc_undelivered"] = stats["cc_undelivered"] + (
             gund + jund + plan.psum(und))[0]
+        if plan.telemetry:
+            # all four hooking legs ride graph-family caps; per-PE only
+            round_tele = tele_lib.merge(
+                tele_lib.merge(gst["telemetry"], jtele),
+                tele_lib.merge(pst["telemetry"], cst["telemetry"]))
+            stats["telemetry"] = tele_lib.merge(stats["telemetry"],
+                                                {"graph": round_tele})
         if footprint is not None:
             footprint.cut("cc:stats")
         changed, it = int(n_hooked[0]), it + 1

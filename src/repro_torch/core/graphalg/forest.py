@@ -49,7 +49,8 @@ def build_forest_tour(plan, caps: GraphCaps, ea, eb, fmask, f, m: int,
 
     Returns (succ, w_unit, first_mask, stats_local): the (p, 2*m_e) tour
     successor and unit weights, the tree-start arc marks, and *local*
-    (un-psummed) {"sent", "leftover"} transport counters.
+    (un-psummed) {"sent", "leftover"} transport counters (plus the
+    round's per-PE ``"telemetry"`` record with ``plan.telemetry``).
     """
     p, dev = plan.p, plan.device
     pe = plan.my_id()
@@ -129,6 +130,8 @@ def build_forest_tour(plan, caps: GraphCaps, ea, eb, fmask, f, m: int,
     w_unit = (succ != arc_gid).to(torch.int32)
     stats_local = {"sent": rr_st["sent"],
                    "leftover": rr_st["leftover"] + missing}
+    if plan.telemetry:
+        stats_local["telemetry"] = rr_st["telemetry"]
     return succ, w_unit, first_mask, stats_local
 
 

@@ -29,11 +29,16 @@ pipeline with the tuner's targeted escalation — the ``graph`` family for
 hooking/tour capacities, the chase/sub/gather families for the solves'.
 
 The front doors run on the CUDA device unless ``device`` says
-otherwise; ``tracer`` and ``cfg.telemetry`` belong to a later slice of
-the port and raise NotImplementedError. ``perm_fn_for(seed)`` supplies
-the ruler permutations of the solve seeded ``seed`` (the unit solve
-takes ``seed``, the ±1 solve ``seed + 1``; default
-:func:`srs.default_perm_fn`).
+otherwise. ``perm_fn_for(seed)`` supplies the ruler permutations of the
+solve seeded ``seed`` (the unit solve takes ``seed``, the ±1 solve
+``seed + 1``; default :func:`srs.default_perm_fn`). A ``tracer`` gets a
+``graphalg:{mode}`` span with one ``graphalg:{mode}#k`` attempt span
+per pipeline attempt (annotated with the attempt's collectives and
+their §2.6 price) and an ``escalate:graphalg:{mode}`` instant per
+escalation; with ``cfg.telemetry`` the committed attempt's per-PE
+record — one record through hooking, tour, both solves and the
+finalization, as the reference accumulates it — becomes
+``stats["telemetry"]`` (its StageRecord and headroom rows).
 """
 from __future__ import annotations
 
@@ -61,6 +66,8 @@ from repro_torch.core.graphalg import forest as forest_lib
 # 2*E_pad and must stay addressable)
 from repro_torch.core.treealg.batch import PACKED_ID_LIMIT as _ID_LIMIT
 from repro_torch.device import resolve_device
+from repro_torch.obs import telemetry as tele_lib
+from repro_torch.obs import trace as trace_lib
 
 FATAL_KEYS = resume_lib.FATAL_KEYS + cc_lib.GRAPH_FATAL_KEYS
 
@@ -150,7 +157,9 @@ def _pipeline(edges_d, seed: int, perm_fn_for, *, plan, cfg: ListRankConfig,
               caps: cc_lib.GraphCaps, specs, m: int, m_e: int, mode: str,
               phases: _Phases):
     """One attempt of the pipeline on the (p, m_e, 2) int32 edges.
-    Returns (out, stats): (p, m) int32 outputs and 0-dim counters."""
+    Returns (out, stats, tele): (p, m) int32 outputs, 0-dim counters,
+    and the attempt's per-PE telemetry record (None unless
+    ``plan.telemetry``; it is never reduced over PEs)."""
     p, dev = plan.p, plan.device
     pe = plan.my_id()
     base = (pe * m)[:, None]
@@ -169,13 +178,19 @@ def _pipeline(edges_d, seed: int, perm_fn_for, *, plan, cfg: ListRankConfig,
     # into the same dict)
     z = torch.zeros((), dtype=torch.int32, device=dev)
     stats = {**dict.fromkeys(STAT_KEYS, z), **cc_lib.zero_graph_stats(dev)}
+    if plan.telemetry:
+        stats["telemetry"] = tele_lib.stage_zero(p, depth_hops, dev)
+
+    def finish(out, stats):
+        stats = dict(stats)
+        return out, stats, stats.pop("telemetry", None)
 
     # ---- 1. components + spanning-forest edge marks
     f, fmask, stats = cc_lib.cc_rounds(plan, caps, ea, eb, m, m_e, stats,
                                        phases)
     phases.wall("cc")
     if mode == "cc":
-        return {"components": f}, stats
+        return finish({"components": f}, stats)
 
     # ---- 2. unrooted Euler tour of the forest
     succ_t, w1, first_mask, tst = forest_lib.build_forest_tour(
@@ -183,16 +198,21 @@ def _pipeline(edges_d, seed: int, perm_fn_for, *, plan, cfg: ListRankConfig,
     stats["tour_msgs"] = stats["tour_msgs"] + plan.psum(tst["sent"])[0]
     stats["tour_undelivered"] = stats["tour_undelivered"] + plan.psum(
         tst["leftover"])[0]
+    if plan.telemetry:
+        stats = _merge(stats, {"telemetry": {"graph": tst["telemetry"]}})
     phases.cut("tour")
     phases.wall("tour")
 
     # ---- 3. unit-weight ranking -> positions -> orientation
     phases.prefix = "solve1:"
-    _, rank1, sst1 = api_lib._solve_sharded(
+    sout1 = api_lib._solve_sharded(
         succ_t, w1, perm_fn_for(seed), plan=plan, cfg=cfg, specs=specs,
         m=2 * m_e, footprint=phases)
     phases.prefix = ""
-    stats = _merge(stats, sst1)
+    rank1 = sout1[1]
+    stats = _merge(stats, sout1[2])
+    if plan.telemetry:
+        stats = _merge(stats, {"telemetry": sout1[3]})
     phases.wall("solve1")
     child, parent_of, r1_down, r1_up, down0 = forest_lib.orient_forest(
         rank1, ea, eb, m_e)
@@ -210,18 +230,24 @@ def _pipeline(edges_d, seed: int, perm_fn_for, *, plan, cfg: ListRankConfig,
         miss = (~have & (f != gid)).sum(1, dtype=torch.int32)
         stats["stats_undelivered"] = stats["stats_undelivered"] + plan.psum(
             pst["leftover"] + miss)[0]
+        if plan.telemetry:
+            stats = _merge(stats,
+                           {"telemetry": {"graph": pst["telemetry"]}})
         phases.cut("finalize")
         phases.wall("finalize")
-        return {"components": f, "parent": parent}, stats
+        return finish({"components": f, "parent": parent}, stats)
 
     # ---- 4. ±1 depth weights over the same tour
     w2 = forest_lib.pm_weights(succ_t, arc_gid, fmask, down0)
     phases.prefix = "solve2:"
-    _, rankpm, sst2 = api_lib._solve_sharded(
+    sout2 = api_lib._solve_sharded(
         succ_t, w2, perm_fn_for(seed + 1), plan=plan, cfg=cfg, specs=specs,
         m=2 * m_e, footprint=phases)
     phases.prefix = ""
-    stats = _merge(stats, sst2)
+    rankpm = sout2[1]
+    stats = _merge(stats, sout2[2])
+    if plan.telemetry:
+        stats = _merge(stats, {"telemetry": sout2[3]})
     phases.wall("solve2")
     rpm = rankpm.reshape(p, m_e, 2)
     rpm_down = torch.where(down0, rpm[..., 0], rpm[..., 1])
@@ -265,6 +291,11 @@ def _pipeline(edges_d, seed: int, perm_fn_for, *, plan, cfg: ListRankConfig,
     stats["stats_undelivered"] = stats["stats_undelivered"] + (
         lgst["undelivered"] + plan.psum(lst["leftover"] + sst["leftover"]
                                         + miss))[0]
+    if plan.telemetry:
+        finale = tele_lib.merge(tele_lib.merge(lst["telemetry"],
+                                               sst["telemetry"]),
+                                lgst["telemetry"])
+        stats = _merge(stats, {"telemetry": {"graph": finale}})
     phases.cut("finalize")
 
     # ---- closed-form per-node statistics
@@ -279,7 +310,7 @@ def _pipeline(edges_d, seed: int, perm_fn_for, *, plan, cfg: ListRankConfig,
     phases.wall("finalize")
     out = {"components": f, "parent": parent, "depth": depth,
            "subtree_size": size, "preorder": pre, "postorder": post}
-    return out, stats
+    return finish(out, stats)
 
 
 # --------------------------------------------------------------------------
@@ -347,35 +378,80 @@ def _attempt_specs(cfg, plan, m_e: int, e_pad: int,
 
 def _run_pipeline(edges, n_nodes, mesh, pe_axes, cfg, mode, seed,
                   max_retries, tracer=None, device=None, perm_fn_for=None):
-    api_lib.reject_unported(cfg or ListRankConfig(), tracer=tracer)
     device = resolve_device(device)
     cfg, plan, edges_pad, base_caps, n_pad, m, e_pad, m_e = _prepare(
         edges, n_nodes, mesh, pe_axes, cfg, device)
     edges_d = torch.from_numpy(edges_pad.astype(np.int32)).reshape(
         plan.p, m_e, 2).to(device)
     perm_fn_for = perm_fn_for or default_perm_fn
+    tr = trace_lib.ensure(tracer)
 
     scales = tuner.CapacityScales()
     last_stats = None
-    for attempt in range(max_retries + 1):
-        caps = base_caps.scaled(scales.graph)
-        specs = _attempt_specs(cfg, plan, m_e, e_pad, scales)
-        phases = _Phases(plan)
-        out, stats = _pipeline(edges_d, seed, perm_fn_for, plan=plan,
-                               cfg=cfg, caps=caps, specs=specs, m=m, m_e=m_e,
-                               mode=mode, phases=phases)
-        keys = list(stats)
-        host_stats = dict(zip(keys, torch.stack(
-            [stats[k] for k in keys]).tolist()))
-        host_stats["attempts"] = attempt + 1
-        if sum(host_stats[k] for k in FATAL_KEYS) == 0:
-            host_stats["stage_wall_s"] = tuple(phases.walls)
-            host_stats["stage_collectives"] = tuple(phases.units)
-            host = {k: v.reshape(-1)[:n_nodes].cpu().numpy()
-                    for k, v in out.items()}
-            return host, host_stats
-        last_stats = host_stats
-        scales = tuner.escalate(scales, host_stats)
+    with tr.span(f"graphalg:{mode}", cat="solve", n_nodes=n_nodes,
+                 p=plan.p, mode=mode, backend="simshard") as pipe_span:
+        for attempt in range(max_retries + 1):
+            caps = base_caps.scaled(scales.graph)
+            specs = _attempt_specs(cfg, plan, m_e, e_pad, scales)
+            att = tr.begin(f"graphalg:{mode}#{attempt + 1}",
+                           cat="stage-attempt", stage=f"graphalg:{mode}",
+                           level=-1, attempt=attempt + 1,
+                           scales=tuner.format_scales(scales))
+            plan.transport.clear()
+            phases = _Phases(plan)
+            t0 = time.perf_counter()
+            out, stats, tele = _pipeline(
+                edges_d, seed, perm_fn_for, plan=plan, cfg=cfg, caps=caps,
+                specs=specs, m=m, m_e=m_e, mode=mode, phases=phases)
+            keys = list(stats)
+            host_stats = dict(zip(keys, torch.stack(
+                [stats[k] for k in keys]).tolist()))
+            dt = time.perf_counter() - t0
+            if tr.enabled:
+                att.annotate(**resume_lib.attempt_prediction(plan,
+                                                             cfg.machine))
+            host_stats["attempts"] = attempt + 1
+            if sum(host_stats[k] for k in FATAL_KEYS) == 0:
+                host_stats["stage_wall_s"] = tuple(phases.walls)
+                host_stats["stage_collectives"] = tuple(phases.units)
+                util = {}
+                if tele is not None:
+                    agg = tele_lib.aggregate(tele_lib.to_host(tele))
+                    util = tele_lib.utilization(agg)
+                    spec0 = specs[0]
+                    rec = tele_lib.StageRecord(
+                        label=f"graphalg:{mode}", kind="pipeline", level=-1,
+                        caps={"chase": tuple(spec0.mail_caps),
+                              "sub": (spec0.cap_sub,),
+                              "gather": tuple(
+                                  max(a, b) for a, b in zip(
+                                      spec0.gather_req_cap,
+                                      spec0.gather_resp_cap)),
+                              "graph": (caps.tour,)},
+                        queue_cap=spec0.queue_cap, tele=agg)
+                    host_stats["telemetry"] = {
+                        "stages": [rec.to_json()],
+                        "headroom": tele_lib.headroom_rows(
+                            [rec], tuner.format_scales(scales))}
+                    tr.counter("telemetry/util_max", util["util_max"])
+                    tr.counter("telemetry/util_mean", util["util_mean"])
+                tr.end(att, wall_s=dt, outcome="committed", **util)
+                host = {k: v.reshape(-1)[:n_nodes].cpu().numpy()
+                        for k, v in out.items()}
+                pipe_span.annotate(attempts=attempt + 1, outcome="ok")
+                if tr.enabled:
+                    from repro_torch.obs import metrics as metrics_lib
+                    metrics_lib.ingest_host_stats(tr.metrics, host_stats,
+                                                  prefix=f"graphalg/{mode}/")
+                return host, host_stats
+            tr.end(att, wall_s=dt, outcome="overflow",
+                   fatal={k: host_stats[k] for k in FATAL_KEYS
+                          if host_stats.get(k, 0) > 0})
+            last_stats = host_stats
+            scales = tuner.escalate(scales, host_stats)
+            tr.instant(f"escalate:graphalg:{mode}", cat="retry",
+                       scales=tuner.format_scales(scales))
+        pipe_span.annotate(outcome="exhausted")
     raise RuntimeError(
         f"graphalg {mode} did not complete after {max_retries + 1} "
         f"attempts; stats={last_stats}")

@@ -17,7 +17,10 @@ the capacity family whose fatal stat fired (tuner.escalate). Capacity
 therefore affects only performance, never correctness.
 
 The solve runs on the CUDA device unless the caller passes ``device``;
-without CUDA it raises rather than carry on on the CPU.
+without CUDA it raises rather than carry on on the CPU. A ``tracer``
+(:class:`repro_torch.obs.Tracer`) records the solve's span tree, and
+``ListRankConfig(telemetry=True)`` its per-stage device telemetry
+(:mod:`repro_torch.obs`).
 """
 from __future__ import annotations
 
@@ -41,6 +44,8 @@ from repro_torch.core.listrank.srs import (LevelSpec, _merge,
                                            gather_until_done,
                                            route_until_done)
 from repro_torch.device import resolve_device
+from repro_torch.obs import telemetry as tele_lib
+from repro_torch.obs import trace as trace_lib
 
 
 def chase_leaves(weight_dtype=torch.float32) -> dict:
@@ -174,10 +179,14 @@ def _reverse_instance(plan, spec, owner_of, st, stats):
                 set_drop(succ_rev, idx, delivered["src"]),
                 set_drop(rank_rev, idx, delivered["w"]))
 
-    (got, succ_rev, rank_rev), pending, msgs = route_until_done(
+    (got, succ_rev, rank_rev), pending, msgs, rtele = route_until_done(
         plan, spec.mail_caps, payload, dest, nonterm, deliver,
         (got, succ_rev, rank_rev))
-    stats = _merge(stats, {"reversal_msgs": msgs, "undelivered": pending})
+    upd = {"reversal_msgs": msgs, "undelivered": pending}
+    if plan.telemetry:
+        # the reversal exchange rides the chase-family mail caps
+        upd["telemetry"] = {"chase": rtele}
+    stats = _merge(stats, upd)
     return st.replace(succ=succ_rev, rank=rank_rev), stats
 
 
@@ -232,9 +241,13 @@ def _restore_local(plan, spec, owner_of, st, aux, rep, succ_orig, rank_orig,
                              final_rank)
     miss2 = plan.psum((need & ~upd2).sum(1, dtype=torch.int32))
 
-    stats = _merge(stats, {
+    upd = {
         "fixup_msgs": g1["msgs"] + g2["msgs"],
-        "undelivered": g1["undelivered"] + g2["undelivered"] + miss1 + miss2})
+        "undelivered": g1["undelivered"] + g2["undelivered"] + miss1 + miss2}
+    if plan.telemetry:
+        upd["telemetry"] = {"gather": tele_lib.merge(g1["telemetry"],
+                                                     g2["telemetry"])}
+    stats = _merge(stats, upd)
     return final_succ, final_rank, stats
 
 
@@ -244,13 +257,19 @@ def _solve_sharded(succ, rank, perm_fn, *, plan: MeshPlan,
     staged solve's stage bodies run back to back (the reference's
     monolithic in-mesh solve, which the graph pipeline composes twice).
     ``cfg.algorithm`` must be resolved. Returns (succ, rank, stats) with
-    0-dim stat totals; a caller that finds a fatal stat escalates and
-    reruns the whole attempt. ``footprint`` (a ``cut(label)`` recorder of
-    transport calls) is cut after every stage."""
-    state = None
+    0-dim stat totals — and with ``plan.telemetry`` the attempt's per-PE
+    telemetry record as a 4th element, one record threaded through every
+    stage as the reference's solve accumulates it (never psum'd); a
+    caller that finds a fatal stat escalates and reruns the whole
+    attempt. ``footprint`` (a ``cut(label)`` recorder of transport calls)
+    is cut after every stage."""
+    state, tele = None, None
     for stage in resume_lib.schedule_for(cfg):
         state = resume_lib._run_stage(stage, state, succ, rank, perm_fn,
-                                      plan=plan, cfg=cfg, specs=specs, m=m)
+                                      plan=plan, cfg=cfg, specs=specs, m=m,
+                                      tele=tele)
+        if plan.telemetry and stage.kind != "post":
+            tele = state.pop("_telemetry")
         if footprint is not None:
             footprint.cut(stage.label)
     return state
@@ -260,21 +279,12 @@ def _solve_sharded(succ, rank, perm_fn, *, plan: MeshPlan,
 # front door
 # --------------------------------------------------------------------------
 
-def reject_unported(cfg: ListRankConfig, **options) -> None:
-    """Raise NotImplementedError for the options that belong to later
-    slices of the port: any of ``options`` given, or ``cfg.telemetry``."""
-    for name, val in options.items():
-        if val is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
-    if cfg.telemetry:
-        raise NotImplementedError("telemetry=True is not ported yet")
-
-
 def make_plan(mesh, pe_axes: Sequence[str], cfg: ListRankConfig, device,
               indirection: IndirectionSpec | None = None) -> MeshPlan:
     """The routing plan of a solve or a tree/graph front door: the
     virtual-PE transport on ``device`` behind a call-counting wrapper,
-    with the config's wire format and ``mailbox_pack`` flag."""
+    with the config's wire format, ``mailbox_pack`` and telemetry
+    flags."""
     pe_axes = tuple(pe_axes)
     transport = transport_lib.CountingTransport(
         transport_lib.VirtualTransport(
@@ -282,7 +292,8 @@ def make_plan(mesh, pe_axes: Sequence[str], cfg: ListRankConfig, device,
     return MeshPlan.from_mesh(mesh, pe_axes, indirection,
                               wire_packing=cfg.wire_packing,
                               pallas_pack=cfg.use_pallas_pack,
-                              transport=transport)
+                              transport=transport,
+                              telemetry=cfg.telemetry)
 
 
 def _host_array(x, dtype) -> np.ndarray:
@@ -314,14 +325,23 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
     restart, in the JAX package's checkpoint format; ``inject``
     (:class:`repro_torch.core.listrank.faults.FaultSpec` or a sequence)
     drives deterministic fault injection; ``stats["recovery"]`` carries
-    their accounting. ``tracer`` and ``cfg.telemetry`` belong to a later
-    slice of the port and raise NotImplementedError.
+    their accounting.
+
+    ``tracer`` (a :class:`repro_torch.obs.Tracer`) records the flight-
+    recorder span tree for the whole solve — the root ``solve`` span,
+    the capacity-estimation pre-pass, every stage execution/retry with
+    measured wall time, run-time collective footprint and §2.6
+    predicted time, and checkpoint save/restore — and ingests the final
+    ``host_stats`` into the tracer's metrics registry.
+    ``cfg.telemetry`` adds ``stats["telemetry"]``: every committed
+    stage's record, the headroom report and, with
+    ``cfg.capacity_estimation``, the DKW back-test. Neither changes an
+    output, a counter or a stage's collectives.
     """
     cfg = cfg or ListRankConfig()
-    reject_unported(cfg, tracer=tracer)
     device = resolve_device(device)
     pe_axes = tuple(pe_axes) if pe_axes is not None else tuple(mesh.axis_names)
-    _, mesh = transport_lib.resolve_backend(cfg.backend, mesh, pe_axes)
+    backend, mesh = transport_lib.resolve_backend(cfg.backend, mesh, pe_axes)
     s_host = _host_array(succ, np.int32)
     n = s_host.shape[0]
     if indirection is None and cfg.auto_indirection:
@@ -340,29 +360,65 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
         owners = np.arange(n) // m
         counts = np.bincount(owners[s_host == np.arange(n)], minlength=p)
         term_bound = int(counts.max()) if counts.size else 0
-    estimate = None
-    if cfg.capacity_estimation:
-        estimate = tuner.estimate_capacities(s_host, plan, m, cfg, seed=seed)
 
-    wdt = canonical_weight_dtype(
-        rank.dtype if hasattr(rank, "dtype") else np.asarray(rank).dtype)
-    r_host = _host_array(rank, np.float32 if wdt == torch.float32
-                         else np.int32)
-    succ_d = torch.from_numpy(np.ascontiguousarray(s_host)).reshape(p, m).to(
-        device)
-    rank_d = torch.from_numpy(np.ascontiguousarray(r_host)).reshape(p, m).to(
-        device)
+    tr = trace_lib.ensure(tracer)
+    solve_span = tr.begin(
+        "solve", cat="solve", n=n, p=p, backend=backend,
+        algorithm=cfg.algorithm, machine=cfg.machine.name,
+        indirection=[list(h) for h in plan.indirection.hops])
+    try:
+        estimate = None
+        if cfg.capacity_estimation:
+            # sampled-splitter pre-pass: size mailboxes for the measured
+            # destination skew instead of the static slack guess.
+            with tr.span("estimate_capacities", cat="tuner") as est_span:
+                estimate = tuner.estimate_capacities(s_host, plan, m, cfg,
+                                                     seed=seed)
+                est_span.annotate(sample_size=estimate.sample_size,
+                                  hop_slack=list(estimate.hop_slack),
+                                  max_frac=list(estimate.max_frac))
 
-    def build_level_specs(level_scales):
-        return build_specs(cfg, plan, m, n, term_bound,
-                           scales=level_scales, estimate=estimate)
+        wdt = canonical_weight_dtype(rank.dtype if hasattr(rank, "dtype")
+                                     else np.asarray(rank).dtype)
+        r_host = _host_array(rank, np.float32 if wdt == torch.float32
+                             else np.int32)
+        succ_d = torch.from_numpy(np.ascontiguousarray(s_host)).reshape(
+            p, m).to(device)
+        rank_d = torch.from_numpy(np.ascontiguousarray(r_host)).reshape(
+            p, m).to(device)
 
-    succ_f, rank_f, host_stats = resume_lib.run_staged(
-        succ_d, rank_d, plan=plan, cfg=cfg, m=m, n=n,
-        perm_fn=perm_fn or default_perm_fn(seed),
-        build_level_specs=build_level_specs, seed=seed,
-        max_retries=max_retries, supervisor=supervisor, inject=inject,
-        stage_counters=stage_counters, initial_scales=initial_scales)
+        def build_level_specs(level_scales):
+            return build_specs(cfg, plan, m, n, term_bound,
+                               scales=level_scales, estimate=estimate)
+
+        if tr.enabled and cfg.algorithm == "srs":
+            from repro_torch.obs import cost as cost_lib
+            lp = tuner.level_plan(cfg, p, plan.indirection.depth, n)
+            solve_span.annotate(predicted_solve_s=cost_lib.predict_solve(
+                n, plan, cfg.machine, r_total=lp[0].r_total))
+
+        succ_f, rank_f, host_stats = resume_lib.run_staged(
+            succ_d, rank_d, plan=plan, cfg=cfg, m=m, n=n,
+            perm_fn=perm_fn or default_perm_fn(seed),
+            build_level_specs=build_level_specs, seed=seed,
+            max_retries=max_retries, supervisor=supervisor, inject=inject,
+            stage_counters=stage_counters, initial_scales=initial_scales,
+            tracer=tracer)
+    except BaseException as e:
+        tr.end(solve_span, outcome=type(e).__name__)
+        raise
+    tr.end(solve_span, outcome="ok", attempts=host_stats["attempts"])
+    if "telemetry" in host_stats and estimate is not None:
+        # back-test the sampled-splitter DKW margins against the skew
+        # the solve actually observed.
+        recs = [tele_lib.StageRecord.from_json(d)
+                for d in host_stats["telemetry"]["stages"]]
+        host_stats["telemetry"]["dkw"] = tele_lib.dkw_backtest(
+            list(estimate.max_frac), int(estimate.sample_size),
+            [plan.hop_size(h) for h in plan.indirection.hops], recs)
+    if tr.enabled:
+        from repro_torch.obs import metrics as metrics_lib
+        metrics_lib.ingest_host_stats(tr.metrics, host_stats)
     return succ_f.reshape(n), rank_f.reshape(n), host_stats
 
 

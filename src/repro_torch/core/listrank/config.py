@@ -131,8 +131,11 @@ class ListRankConfig:
     #: ``mailbox_pack`` CUDA kernel (the plain torch scatter otherwise).
     use_pallas_pack: bool = False
 
-    #: device-side telemetry plane — not ported yet: True raises
-    #: NotImplementedError at the front door.
+    #: device-side telemetry plane (repro_torch.obs.telemetry): every
+    #: routing site also records per-PE mailbox fill, destination skew
+    #: and queue high-water marks, merged on the device per stage and
+    #: copied to the host once per stage into ``stats["telemetry"]``.
+    #: Outputs, counters and collectives are identical with it off.
     telemetry: bool = False
 
     def with_(self, **kw) -> "ListRankConfig":

@@ -19,14 +19,20 @@ import torch
 from repro_torch.core.listrank import store as store_lib
 from repro_torch.core.listrank.batched import INT_MAX, take, unpermute
 from repro_torch.core.listrank.exchange import MeshPlan, remote_gather
+from repro_torch.obs import telemetry as tele_lib
 
 
 def doubling_solve(plan: MeshPlan, st: store_lib.Store,
                    owner_of, req_cap, resp_cap,
                    max_steps: int, dedup: bool = True):
-    """Run pointer doubling over a store. Returns (store, stats)."""
+    """Run pointer doubling over a store. Returns (store, stats); with
+    ``plan.telemetry`` ``stats["telemetry"]`` is the rounds' merged
+    gather-family routing record."""
     z = torch.zeros(plan.p, dtype=torch.int32, device=plan.device)
     stats = {"pd_rounds": z, "pd_msgs": z, "pd_undelivered": z}
+    if plan.telemetry:
+        stats["telemetry"] = tele_lib.route_zero(
+            plan.p, plan.indirection.depth, plan.device)
     pending, steps = 1, 0
     while pending > 0 and steps < max_steps:
         done = (st.succ == st.ids) | ~st.valid
@@ -42,11 +48,15 @@ def doubling_solve(plan: MeshPlan, st: store_lib.Store,
         now_done = done | (upd & (resp["succ"] == st.succ))
         pend = plan.psum(((~now_done) & st.valid).sum(1, dtype=torch.int32))
         st = st.replace(succ=new_succ, rank=new_rank)
-        stats = {
+        upd = {
             "pd_rounds": stats["pd_rounds"] + 1,
             "pd_msgs": stats["pd_msgs"] + gst["req_sent"] + gst["resp_sent"],
             "pd_undelivered": stats["pd_undelivered"] + gst["undelivered"],
         }
+        if plan.telemetry:
+            upd["telemetry"] = tele_lib.merge(stats["telemetry"],
+                                              gst["telemetry"])
+        stats = upd
         pending = int(pend[0])
         steps += 1
     stats["pd_converged"] = pending == 0

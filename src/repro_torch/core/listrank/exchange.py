@@ -36,6 +36,7 @@ from repro_torch.core.listrank.batched import (INT_MAX, arange, set_drop,
 from repro_torch.core.listrank.config import IndirectionSpec
 from repro_torch.kernels.mailbox_pack import ops as mp_ops
 from repro_torch.kernels.mailbox_pack import ref as mp_ref
+from repro_torch.obs import telemetry as tele_lib
 
 #: payload keys reserved for the router itself.
 RESERVED_KEYS = ("_dest", "_src")
@@ -50,7 +51,10 @@ class MeshPlan:
     ``pallas_pack`` routes the pack + bucket scatter through the
     ``mailbox_pack`` CUDA kernel. Every collective goes through the
     :meth:`my_id` / :meth:`all_to_all` / :meth:`psum` /
-    :meth:`all_gather` delegates to ``transport``.
+    :meth:`all_gather` delegates to ``transport``. ``telemetry``
+    mirrors ``ListRankConfig.telemetry``: routing then emits a per-PE
+    :mod:`repro_torch.obs.telemetry` record in ``stats["telemetry"]``
+    — local arithmetic on the bucket sort, no added collective.
     """
 
     pe_axes: tuple[str, ...]
@@ -59,6 +63,7 @@ class MeshPlan:
     wire_packing: bool = True
     pallas_pack: bool = False
     transport: Any = None
+    telemetry: bool = False
     #: per-hop device constants (sender-id contributions), built once
     _consts: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -144,7 +149,8 @@ class MeshPlan:
                   wire_packing: bool = True,
                   pallas_pack: bool = False,
                   transport=None,
-                  device: torch.device | str = "cpu") -> "MeshPlan":
+                  device: torch.device | str = "cpu",
+                  telemetry: bool = False) -> "MeshPlan":
         """Plan for a :class:`transport.SimMesh`; the transport defaults
         to the virtual-PE transport on ``device``."""
         pe_axes = tuple(pe_axes)
@@ -160,7 +166,8 @@ class MeshPlan:
                 pe_axes, sizes, torch.device(device))
         return MeshPlan(pe_axes=pe_axes, axis_sizes=sizes,
                         indirection=indirection, wire_packing=wire_packing,
-                        pallas_pack=pallas_pack, transport=transport)
+                        pallas_pack=pallas_pack, transport=transport,
+                        telemetry=telemetry)
 
 
 # --------------------------------------------------------------------------
@@ -298,7 +305,7 @@ def _bucket_indices(coord: torch.Tensor, valid: torch.Tensor,
     Every shipping row gets its own cell: (row, col) = (bucket, rank in
     bucket) is unique. ``skey`` is the sorted bucket key (``n_buckets``
     for invalid rows), from which the ``mailbox_pack`` kernel finds each
-    bucket's run of ``order``.
+    bucket's run of ``order``, and telemetry each bucket's demand.
     """
     order, skey, pos, _ = sort_and_group(coord, valid, n_buckets)
     infit = skey < n_buckets
@@ -340,7 +347,9 @@ def _route_impl(plan: MeshPlan, caps: Sequence[int],
     With ``queue_cap`` set, per-hop leftovers are compacted into a single
     queue *by the bucket sort itself* (prefix-sum slots over the sorted
     order — no extra sort); otherwise they are returned as the per-hop
-    fragment list.
+    fragment list. With ``plan.telemetry`` each hop's bucket sort also
+    yields its occupancy sample, and ``stats["telemetry"]`` the wave's
+    record (``telemetry.route_wave``).
     """
     hops = plan.indirection.hops
     if len(caps) != len(hops):
@@ -361,12 +370,20 @@ def _route_impl(plan: MeshPlan, caps: Sequence[int],
         nleft = torch.zeros(p, dtype=torch.int32, device=dev)
     stats = {"sent": [],
              "leftover": torch.zeros(p, dtype=torch.int32, device=dev)}
+    tele_hops, tele_hist = [], None
 
     for h, (hop, cap) in enumerate(zip(hops, caps)):
         s = plan.hop_size(hop)
         coord = plan.hop_coord(cur["_dest"], hop)
         order, row, col, fits, leftover_sorted, skey = _bucket_indices(
             coord, cur_valid, s, cap)
+        if plan.telemetry:
+            # per-PE occupancy/skew sample of this hop, read off the
+            # bucket sort — no collective
+            sample, hist = _hop_sample(plan, skey, s, cap, h == 0)
+            tele_hops.append(sample)
+            if h == 0:
+                tele_hist = hist
 
         nl = _sum32(leftover_sorted)
         if queue_cap is None:
@@ -421,6 +438,8 @@ def _route_impl(plan: MeshPlan, caps: Sequence[int],
             if h < len(hops) - 1:
                 cur["_src"] = src_acc
 
+    if plan.telemetry:
+        stats["telemetry"] = tele_lib.route_wave(tele_hops, tele_hist)
     delivered = {k: cur[k] for k in user_keys}
     if track_src:
         delivered["src"] = src_acc
@@ -430,6 +449,41 @@ def _route_impl(plan: MeshPlan, caps: Sequence[int],
         dropped = torch.clamp(nleft - queue_cap, min=0)
         return delivered, cur_valid, (lq, lq_dest, qv, dropped), stats
     return delivered, cur_valid, leftovers, stats
+
+
+def _hop_sample(plan: MeshPlan, skey: torch.Tensor, s: int, cap: int,
+                with_hist: bool):
+    """One hop's telemetry sample from its sorted bucket keys ``skey``
+    (``s`` for invalid rows), per PE: ``demand_max`` (the longest bucket
+    run: the reference's largest within-bucket rank + 1), ``delivered``
+    (the rows that fit, ``sum(min(run, cap))``), ``total`` (the valid
+    rows) and, ``with_hist``, the ``HIST_BINS``-bin histogram of the
+    valid keys (bin ``key * HIST_BINS // s``). One ``searchsorted`` of
+    the s + 1 bucket boundaries into the sorted keys gives them all,
+    with no pass over the messages and no atomics: integer counts,
+    equal to the reference's."""
+    key = ("tele", s)
+    if key not in plan._consts:
+        nb, p, dev = tele_lib.HIST_BINS, plan.p, plan.device
+        # bin b holds keys from ceil(b * s / nb): thresholds in key space
+        edges = (torch.arange(nb + 1, dtype=torch.int64, device=dev) * s
+                 + nb - 1) // nb
+        bounds = torch.arange(s + 1, dtype=skey.dtype, device=dev)
+        plan._consts[key] = (bounds.expand(p, -1).contiguous(),
+                             edges.expand(p, -1))
+    bounds, edges = plan._consts[key]
+    # below[:, k]: the sorted keys < k
+    below = torch.searchsorted(skey, bounds, out_int32=True)
+    runs = below[:, 1:] - below[:, :-1]
+    sample = {"demand_max": runs.max(1).values,
+              "delivered": torch.clamp(runs, max=cap).sum(
+                  1, dtype=torch.int32),
+              "total": below[:, s], "cap": cap, "s": s}
+    hist = None
+    if with_hist:
+        at = torch.gather(below, 1, edges)
+        hist = at[:, 1:] - at[:, :-1]
+    return sample, hist
 
 
 def _io_slots(order, row, col, cap: int) -> torch.Tensor:
@@ -551,7 +605,8 @@ def request_reply(plan: MeshPlan, req_caps, resp_caps,
     (reply_payload, reply_dest, reply_valid[, aux]).
 
     Returns (reply_delivered, reply_valid, aux, stats) with
-    ``stats = {"sent", "leftover"}`` summed over both legs.
+    ``stats = {"sent", "leftover"}`` summed over both legs (and, with
+    ``plan.telemetry``, both legs' merged ``"telemetry"`` record).
     """
     delivered, dval, _, st1 = route(plan, _as_caps(plan, req_caps), payload,
                                     dest, valid)
@@ -562,6 +617,9 @@ def request_reply(plan: MeshPlan, req_caps, resp_caps,
                                rdest.to(torch.int32), rvalid)
     stats = {"sent": sum(st1["sent"] + st2["sent"]),
              "leftover": st1["leftover"] + st2["leftover"]}
+    if plan.telemetry:
+        stats["telemetry"] = tele_lib.merge(st1["telemetry"],
+                                            st2["telemetry"])
     return rdel, rval, aux, stats
 
 
@@ -639,4 +697,7 @@ def remote_gather(plan: MeshPlan, targets: torch.Tensor, valid: torch.Tensor,
         "resp_sent": sum(st_resp["sent"]),
         "undelivered": req_left + resp_left,
     }
+    if plan.telemetry:
+        stats["telemetry"] = tele_lib.merge(st_req["telemetry"],
+                                            st_resp["telemetry"])
     return out, answered, stats

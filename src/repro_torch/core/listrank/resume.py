@@ -35,8 +35,15 @@ What the explicit boundary state buys besides level resume:
   corrupted state planes, forced overflows and preemption fire at named
   stage boundaries. Validation and corruption run only when an injector
   is given: the plain path gains no host synchronisation.
-
-Telemetry and span tracing belong to a later slice of the port.
+- **the flight recorder** (:mod:`repro_torch.obs`): a ``tracer`` gets one
+  ``stage`` span per schedule slot with one ``stage-attempt`` span per
+  execution, closed after the stage's device synchronisation and
+  annotated at its end with the collectives the stage made (the plan's
+  counting transport) and their §2.6 price; fault, escalation and
+  preemption instants; and, with ``cfg.telemetry``, each committed
+  stage's per-PE telemetry record (seeded per stage, carried beside the
+  boundary state as ``_telemetry`` and harvested with one copy before
+  the commit — it never reaches a checkpoint).
 """
 from __future__ import annotations
 
@@ -56,6 +63,8 @@ from repro_torch.core.listrank import tuner
 from repro_torch.core.listrank.config import ListRankConfig
 from repro_torch.core.listrank.doubling import doubling_solve
 from repro_torch.core.listrank.srs import STAT_KEYS, _merge, zero_stats
+from repro_torch.obs import telemetry as tele_lib
+from repro_torch.obs import trace as trace_lib
 from repro_torch.runtime.fault_tolerance import Preempted
 
 #: stat keys whose nonzero value means the attempt is unusable.
@@ -146,14 +155,58 @@ def _owner_fn(m: int):
     return owner_of
 
 
-def _prep_body(succ, rank, *, plan, cfg, spec0, m):
+def _stage_spec(stage: Stage, specs):
+    """The LevelSpec whose capacities a stage routes under (its
+    telemetry record's caps)."""
+    if stage.kind in ("prep", "post", "pd"):
+        return specs[0]
+    if stage.kind == "base":
+        return specs[-1]
+    return specs[stage.level]
+
+
+def _tele_seed(stats, plan, tele=None):
+    """``stats`` (copied) with the stage's telemetry record seeded
+    (cfg.telemetry): ``tele`` when given — the composed one-attempt solve
+    threads one record through its stages — else a fresh
+    ``stage_zero``, so the staged solve attributes telemetry per stage.
+    :func:`_tele_pop` takes it out again before the stats re-enter the
+    boundary state."""
+    stats = dict(stats)
+    if plan.telemetry:
+        stats["telemetry"] = tele if tele is not None else \
+            tele_lib.stage_zero(plan.p, plan.indirection.depth, plan.device)
+    return stats
+
+
+def _tele_pop(stats, plan):
+    """Split a stage's stats into (plain stats, telemetry record or
+    None)."""
+    if not plan.telemetry:
+        return stats, None
+    stats = dict(stats)
+    return stats, stats.pop("telemetry")
+
+
+def _with_tele(out, stats, plan):
+    """``out`` with the stage's plain stats and, with cfg.telemetry, its
+    record under ``_telemetry`` (beside, never inside, the boundary
+    state)."""
+    stats, tele = _tele_pop(stats, plan)
+    out["stats"] = stats
+    if tele is not None:
+        out["_telemetry"] = tele
+    return out
+
+
+def _prep_body(succ, rank, *, plan, cfg, spec0, m, tele=None):
     """Everything before the recursion: contraction, store build, and
     (faithful Algorithm 1 only) the reversal preprocessing."""
     from repro_torch.core.listrank import api as api_lib
     base = plan.my_id() * m
     gid = base[:, None] + torch.arange(m, dtype=torch.int32,
                                        device=succ.device)
-    stats = zero_stats(plan.p, plan.device)
+    stats = _tele_seed(zero_stats(plan.p, plan.device), plan, tele)
 
     if cfg.local_contraction:
         succ_w, rank_w, rep, aux = local_lib.contract(
@@ -182,68 +235,70 @@ def _prep_body(succ, rank, *, plan, cfg, spec0, m):
     if cfg.local_contraction:
         state["rep"] = rep
         state["aux"] = aux
-    state["stats"] = stats
-    return state
+    return _with_tele(state, stats, plan)
 
 
-def _descend_body(state, perm_fn, *, plan, cfg, spec, level, m):
+def _descend_body(state, perm_fn, *, plan, cfg, spec, level, m, tele=None):
     st = state["stores"][-1]
     forced = state.get("forced") if level == 0 else None
     st, sub, take, is_sub, is_term, stats = srs_lib.descend_level(
-        plan, cfg, spec, _owner_fn(m), st, perm_fn, level, state["stats"],
-        forced)
+        plan, cfg, spec, _owner_fn(m), st, perm_fn, level,
+        _tele_seed(state["stats"], plan, tele), forced)
     out = {k: v for k, v in state.items() if k != "forced"}
     out["stores"] = state["stores"][:-1] + (st, sub)
     out["takes"] = state["takes"] + (take,)
     out["is_subs"] = state["is_subs"] + (is_sub,)
     out["is_terms"] = state["is_terms"] + (is_term,)
-    out["stats"] = stats
-    return out
+    return _with_tele(out, stats, plan)
 
 
-def _base_body(state, *, plan, cfg, spec, m):
+def _base_body(state, *, plan, cfg, spec, m, tele=None):
     st, stats = srs_lib.base_level(plan, cfg, spec, _owner_fn(m),
-                                   state["stores"][-1], state["stats"])
+                                   state["stores"][-1],
+                                   _tele_seed(state["stats"], plan, tele))
     out = dict(state)
     out["stores"] = state["stores"][:-1] + (st,)
-    out["stats"] = stats
-    return out
+    return _with_tele(out, stats, plan)
 
 
-def _ascend_body(state, *, plan, cfg, spec, level, m, want_sink):
+def _ascend_body(state, *, plan, cfg, spec, level, m, want_sink, tele=None):
     st, sub = state["stores"][-2], state["stores"][-1]
     st, stats = srs_lib.ascend_level(
         plan, cfg, spec, _owner_fn(m), st, sub,
         state["takes"][-1], state["is_subs"][-1], state["is_terms"][-1],
-        state["stats"], want_sink)
+        _tele_seed(state["stats"], plan, tele), want_sink)
     out = dict(state)
     out["stores"] = state["stores"][:-2] + (st,)
     out["takes"] = state["takes"][:-1]
     out["is_subs"] = state["is_subs"][:-1]
     out["is_terms"] = state["is_terms"][:-1]
-    out["stats"] = stats
-    return out
+    return _with_tele(out, stats, plan)
 
 
-def _pd_body(state, *, plan, cfg, spec0, spec_base, m):
+def _pd_body(state, *, plan, cfg, spec0, spec_base, m, tele=None):
     st, pst = doubling_solve(plan, state["stores"][-1], _owner_fn(m),
                              spec0.gather_req_cap, spec0.gather_resp_cap,
                              spec_base.max_rounds, cfg.dedup_requests)
     out = dict(state)
     out["stores"] = state["stores"][:-1] + (st,)
-    out["stats"] = _merge(state["stats"], {
-        "pd_rounds": pst["pd_rounds"], "pd_msgs": pst["pd_msgs"],
-        "undelivered": pst["pd_undelivered"]})
-    return out
+    upd = {"pd_rounds": pst["pd_rounds"], "pd_msgs": pst["pd_msgs"],
+           "undelivered": pst["pd_undelivered"]}
+    if plan.telemetry:
+        # PD requests ride the gather-family mailboxes (req/resp caps).
+        upd["telemetry"] = {"gather": pst["telemetry"]}
+    stats = _merge(_tele_seed(state["stats"], plan, tele), upd)
+    return _with_tele(out, stats, plan)
 
 
-def _post_body(state, succ, rank, *, plan, cfg, spec0, m):
+def _post_body(state, succ, rank, *, plan, cfg, spec0, m, tele=None):
     """Everything after the recursion: §2.3 restoration and the final
     stat reduction (the one psum over the carried per-PE partials).
-    Returns (succ, rank, stats) with stats reduced to 0-dim totals."""
+    Returns (succ, rank, stats) with stats reduced to 0-dim totals, and
+    with cfg.telemetry the stage's per-PE record as a 4th element — popped
+    before the reduction, so telemetry adds no collective."""
     from repro_torch.core.listrank import api as api_lib
     base = plan.my_id() * m
-    stats = state["stats"]
+    stats = _tele_seed(state["stats"], plan, tele)
     st = state["stores"][0]
     if cfg.local_contraction:
         succ_f, rank_f, stats = api_lib._restore_local(
@@ -251,31 +306,38 @@ def _post_body(state, succ, rank, *, plan, cfg, spec0, m):
             succ, rank, base, stats)
     else:
         succ_f, rank_f = st.succ, st.rank
+    stats, tele = _tele_pop(stats, plan)
     stats = {k: plan.psum(v)[0] for k, v in stats.items()}
+    if tele is not None:
+        return succ_f, rank_f, stats, tele
     return succ_f, rank_f, stats
 
 
 def _run_stage(stage: Stage, state, succ_d, rank_d, perm_fn, *, plan, cfg,
-               specs, m):
+               specs, m, tele=None):
+    """Run one stage; ``tele`` seeds its telemetry record (see
+    :func:`_tele_seed`)."""
     if stage.kind == "prep":
         return _prep_body(succ_d, rank_d, plan=plan, cfg=cfg,
-                          spec0=specs[0], m=m)
+                          spec0=specs[0], m=m, tele=tele)
     if stage.kind == "descend":
         return _descend_body(state, perm_fn, plan=plan, cfg=cfg,
-                             spec=specs[stage.level], level=stage.level, m=m)
+                             spec=specs[stage.level], level=stage.level, m=m,
+                             tele=tele)
     if stage.kind == "base":
-        return _base_body(state, plan=plan, cfg=cfg, spec=specs[-1], m=m)
+        return _base_body(state, plan=plan, cfg=cfg, spec=specs[-1], m=m,
+                          tele=tele)
     if stage.kind == "ascend":
         want_sink = stage.level > 0 or cfg.avoid_reversal
         return _ascend_body(state, plan=plan, cfg=cfg,
                             spec=specs[stage.level], level=stage.level, m=m,
-                            want_sink=want_sink)
+                            want_sink=want_sink, tele=tele)
     if stage.kind == "pd":
         return _pd_body(state, plan=plan, cfg=cfg, spec0=specs[0],
-                        spec_base=specs[-1], m=m)
+                        spec_base=specs[-1], m=m, tele=tele)
     if stage.kind == "post":
         return _post_body(state, succ_d, rank_d, plan=plan, cfg=cfg,
-                          spec0=specs[0], m=m)
+                          spec0=specs[0], m=m, tele=tele)
     raise ValueError(f"unknown stage kind {stage.kind!r}")
 
 
@@ -418,6 +480,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def attempt_prediction(plan, machine) -> dict:
+    """Span annotations of the attempt that just ran: the collectives it
+    made (the plan's counting transport, cleared at the attempt's
+    start) and their §2.6 price — host arithmetic over counts the
+    transport keeps anyway."""
+    from repro_torch.obs import cost as cost_lib
+    fprint = plan.transport.footprint()
+    pred = cost_lib.predict_stage(fprint, plan, machine)
+    count, nbytes = cost_lib.total_collectives(fprint)
+    return {"predicted_s": pred["total_s"],
+            "predicted_startup_s": pred["startup_s"],
+            "predicted_volume_s": pred["volume_s"],
+            "collective_count": count, "payload_bytes": nbytes,
+            "footprint": cost_lib.footprint_summary(fprint)}
+
+
 # --------------------------------------------------------------------------
 # the stage loop
 # --------------------------------------------------------------------------
@@ -425,7 +503,8 @@ def _sync(device: torch.device) -> None:
 def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
                perm_fn, build_level_specs, seed: int = 0,
                max_retries: int = 3, supervisor=None, inject=None,
-               stage_counters: bool = False, initial_scales=None):
+               stage_counters: bool = False, initial_scales=None,
+               tracer=None):
     """Run the staged solve to completion. Returns (succ, rank, stats).
 
     ``succ_d``/``rank_d`` are (p, m) on the plan's device;
@@ -439,16 +518,23 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
     or sequence of FaultSpecs) drives the recovery paths
     deterministically. ``stage_counters`` records each executed stage's
     collective counts in ``host_stats["stage_collectives"]`` (the plan's
-    transport must be a ``transport.CountingTransport``).
-    ``host_stats["stage_wall_s"]`` holds each committed stage's wall
-    seconds, measured to a device synchronisation, and
+    transport must be a ``transport.CountingTransport``, as it must for
+    a ``tracer``). ``host_stats["stage_wall_s"]`` holds each committed
+    stage's wall seconds, measured to a device synchronisation, and
     ``host_stats["recovery"]`` the supervisor's accounting and the
-    faults injected.
+    faults injected. ``tracer`` (a :class:`repro_torch.obs.Tracer`)
+    records the flight-recorder span tree: one ``stage`` span per
+    schedule slot, one nested ``stage-attempt`` span per execution
+    annotated with the collectives it made and their §2.6 price. With
+    ``cfg.telemetry`` ``host_stats["telemetry"]`` holds every committed
+    stage's :class:`~repro_torch.obs.telemetry.StageRecord` and the
+    headroom report.
     """
     p = plan.p
     wdt = rank_d.dtype
     sched = schedule_for(cfg)
     n_levels = cfg.srs_rounds + 1
+    tr = trace_lib.ensure(tracer)
     injector = inject
     if injector is not None and not isinstance(injector,
                                                faults_lib.FaultInjector):
@@ -463,11 +549,24 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
     injected_log: list[str] = []
     stage_wall: list[tuple[str, float]] = []
     stage_collectives: list[tuple] = []
+    tele_records: list[tele_lib.StageRecord] = []
     crashes = 0
+    if supervisor is not None:
+        supervisor.tracer = tr
     # the fingerprint reads the instance back to the host: only a
     # supervised solve, which checkpoints, pays for it
     fp = (solve_fingerprint(succ_d, rank_d, n, p, seed, cfg)
           if supervisor is not None else None)
+
+    # one stage span per schedule slot stays open across its overflow
+    # retries (attempts nest under it)
+    stage_span, stage_span_idx, stage_attempt = None, -1, 0
+
+    def close_stage_span(**kw):
+        nonlocal stage_span
+        if stage_span is not None:
+            tr.end(stage_span, **kw)
+            stage_span = None
 
     def make_meta(idx):
         return {"format": 1, "idx": idx, "fingerprint": fp, "n": n, "p": p,
@@ -516,9 +615,21 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
             supervisor.stats["preempted"] += 1
             raise Preempted(
                 f"preempted at stage boundary {idx}/{len(sched)}")
+        if stage_span_idx != idx:
+            close_stage_span(outcome="abandoned")  # crash rewound idx
+            stage_span = tr.begin(stage.label, cat="stage",
+                                  stage=stage.kind, level=stage.level,
+                                  schedule_idx=idx)
+            stage_span_idx, stage_attempt = idx, 0
+        stage_attempt += 1
         specs = build_level_specs(level_scales)
-        if stage_counters:
-            plan.transport.counts.clear()
+        att = tr.begin(f"{stage.label}#{stage_attempt}", cat="stage-attempt",
+                       stage=stage.label, level=stage.level,
+                       attempt=stage_attempt,
+                       scales=tuner.format_scales(
+                           level_scales[max(stage.level, 0)]))
+        if stage_counters or tr.enabled:
+            plan.transport.clear()
         try:
             if injector is not None:
                 injector.crash_before(stage.kind, stage.level)
@@ -536,6 +647,8 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
                 cspec = injector.corrupt_after(stage.kind, stage.level)
                 if cspec is not None:
                     injected_log.append(f"corrupt:{stage.label}")
+                    tr.instant(f"corrupt:{stage.label}", cat="fault",
+                               stage=stage.label, plane=cspec.plane)
                     if stage.kind != "post":
                         out_state = out = _apply_corruption(out, cspec, plan)
                 validate_state(out_state, n)
@@ -543,7 +656,11 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
             crashes += 1
             if isinstance(e, faults_lib.InjectedFault):
                 injected_log.append(f"pe_loss:{stage.label}")
+                tr.instant(f"pe_loss:{stage.label}", cat="fault",
+                           stage=stage.label)
             stage_log.append(f"{stage.label}!{type(e).__name__}")
+            tr.end(att, outcome=type(e).__name__)
+            close_stage_span(outcome="crashed")
             budget_ok = (supervisor.should_retry() if supervisor is not None
                          else crashes <= max_retries)
             if not budget_ok:
@@ -554,14 +671,19 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
             else:
                 state, idx = None, 0
                 prev_fatal = {k: 0 for k in FATAL_KEYS}
+            stage_span_idx = -1  # reopen a fresh stage span after rewind
             continue
 
+        if tr.enabled:
+            att.annotate(**attempt_prediction(plan, cfg.machine))
         fatal = _fatal_totals(fatal_src)
         delta = {k: fatal[k] - prev_fatal[k] for k in FATAL_KEYS}
         fam = (injector.overflow_after(stage.kind, stage.level)
                if injector is not None else None)
         if fam is not None:
             injected_log.append(f"overflow:{fam}:{stage.label}")
+            tr.instant(f"overflow:{fam}:{stage.label}", cat="fault",
+                       stage=stage.label, family=fam)
         if any(v > 0 for v in delta.values()) or fam is not None:
             # the failed attempt's output is discarded: the committed
             # boundary state (end of the previous stage) is the resume
@@ -571,8 +693,11 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
                          if any(v > 0 for v in delta.values())
                          else {FAMILY_STAT[fam]: 1})
             stage_log.append(f"{stage.label}!overflow")
+            tr.end(att, wall_s=dt, outcome="overflow",
+                   fatal={k: int(v) for k, v in esc_stats.items()})
             attempts += 1
             if attempts > max_retries + 1:
+                close_stage_span(outcome="exhausted")
                 raise SolveExhausted(attempts - 1, scales_log, esc_stats,
                                      fatal)
             lvl = max(stage.level, 0)
@@ -580,6 +705,8 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
                                                  esc_stats)
             entry = tuner.format_scales(level_scales[lvl])
             scales_log.append(entry + (f"@L{lvl}" if lvl > 0 else ""))
+            tr.instant(f"escalate:{stage.label}", cat="retry",
+                       stage=stage.label, scales=entry, level=lvl)
             continue
 
         # commit the boundary
@@ -588,8 +715,43 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
                 plan.transport.counts.items()))))
         stage_log.append(stage.label)
         stage_wall.append((stage.label, dt))
+        util = {}
+        if plan.telemetry:
+            # harvest the stage's per-PE record (one device-to-host copy)
+            # before the state is committed/checkpointed: the boundary
+            # state does not — and must not — carry it.
+            tele_pe = (out[3] if stage.kind == "post"
+                       else out_state.pop("_telemetry"))
+            agg = tele_lib.aggregate(tele_lib.to_host(tele_pe))
+            util = tele_lib.utilization(agg)
+            spec_u = _stage_spec(stage, specs)
+            tele_records.append(tele_lib.StageRecord(
+                label=stage.label, kind=stage.kind, level=stage.level,
+                caps={"chase": tuple(spec_u.mail_caps),
+                      "sub": (spec_u.cap_sub,),
+                      "gather": tuple(
+                          max(a, b) for a, b in zip(
+                              spec_u.gather_req_cap,
+                              spec_u.gather_resp_cap))},
+                queue_cap=spec_u.queue_cap, tele=agg))
+            tr.counter("telemetry/util_max", util["util_max"])
+            tr.counter("telemetry/util_mean", util["util_mean"])
+            tr.counter("telemetry/queue_hwm",
+                       float(agg.get("queue_hwm", 0)))
+        tr.end(att, wall_s=dt, outcome="committed", **util)
+        close_stage_span()
+        if tr.enabled:
+            tr.metrics.histogram(
+                "obs/stage_wall_s",
+                "device-sync-bounded wall seconds per committed stage"
+                ).observe(dt)
+            if plan.telemetry:
+                tr.metrics.histogram(
+                    "telemetry/stage_util_max",
+                    tele_lib.TELEMETRY_HELP["util_max"]
+                    ).observe(util["util_max"])
         if stage.kind == "post":
-            succ_f, rank_f, dev_stats = out
+            succ_f, rank_f, dev_stats = out[0], out[1], out[2]
             break
         state = out_state
         prev_fatal = fatal
@@ -600,6 +762,8 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
         if injector is not None and injector.preempt_after(stage.kind,
                                                            stage.level):
             injected_log.append(f"preempt:{stage.label}")
+            tr.instant(f"preempt:{stage.label}", cat="fault",
+                       stage=stage.label)
             if supervisor is not None:
                 supervisor.preempt()
             else:
@@ -622,6 +786,12 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
     host_stats["recovery"] = rec
     if stage_counters:
         host_stats["stage_collectives"] = tuple(stage_collectives)
+    if plan.telemetry:
+        host_stats["telemetry"] = {
+            "stages": [r.to_json() for r in tele_records],
+            "headroom": tele_lib.headroom_rows(tele_records,
+                                               scales_log[-1]),
+        }
     if supervisor is not None:
         supervisor.ckpt.wait()
     return succ_f, rank_f, host_stats

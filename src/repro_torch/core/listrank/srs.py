@@ -38,6 +38,7 @@ from repro_torch.core.listrank.config import ListRankConfig
 from repro_torch.core.listrank.doubling import allgather_solve, doubling_solve
 from repro_torch.core.listrank.exchange import (MeshPlan, compact_queue,
                                                 remote_gather, route_compact)
+from repro_torch.obs import telemetry as tele_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +67,27 @@ STAT_KEYS = ("rounds", "restarts", "chase_msgs", "spawn_lost", "rulers",
              "undelivered", "pd_rounds", "pd_msgs", "reversal_msgs",
              "fixup_msgs", "max_queue")
 
+#: schema of the solver's stat counters (repro_torch.obs.metrics ingests
+#: host_stats under these help strings; keep in sync with STAT_KEYS).
+STAT_HELP = {
+    "rounds": "chase rounds executed across all levels",
+    "restarts": "outer chase restarts (coverage stragglers)",
+    "chase_msgs": "chase wave messages routed",
+    "spawn_lost": "spawn proposals dropped by the spawn window",
+    "rulers": "rulers selected (final attempt, all levels)",
+    "sub_size": "recursion subproblem elements extracted",
+    "dropped": "FATAL: chase mailbox/queue overflow drops",
+    "sub_overflow": "FATAL: recursion sub-store overflow",
+    "store_miss": "FATAL: store lookups routed to a non-owner",
+    "undelivered": "FATAL: gather/reversal/fixup messages undelivered",
+    "pd_rounds": "pointer-doubling rounds (base case or pd algorithm)",
+    "pd_msgs": "pointer-doubling gather messages",
+    "reversal_msgs": "Algorithm-1 reversal preprocessing messages",
+    "fixup_msgs": "\u00a72.3 restoration fixup messages",
+    "max_queue": "peak chase queue occupancy (gauge)",
+    "attempts": "driver attempts (1 + capacity escalations)",
+}
+
 
 def zero_stats(p: int, device) -> dict[str, torch.Tensor]:
     """Per-PE (p,) int32 counters, all zero."""
@@ -76,7 +98,11 @@ def zero_stats(p: int, device) -> dict[str, torch.Tensor]:
 def _merge(a, b):
     out = dict(a)
     for k, v in b.items():
-        if k == "max_queue":
+        if k == "telemetry":
+            # the per-PE telemetry record (cfg.telemetry): HWM leaves
+            # max-merge, counters add — see repro_torch.obs.telemetry.
+            out[k] = tele_lib.merge(a.get(k), v)
+        elif k == "max_queue":
             out[k] = torch.maximum(a[k], v)
         else:
             out[k] = a[k] + v
@@ -132,9 +158,12 @@ def gather_until_done(plan: MeshPlan, targets, valid, owner_of, lookup_fn,
     """remote_gather retried until every valid query is answered.
 
     Abandoned in-flight fragments from a failed pass are simply dropped
-    and re-requested — gathers are read-only, hence idempotent."""
+    and re-requested — gathers are read-only, hence idempotent. With
+    ``plan.telemetry`` the passes' merged routing record rides in the
+    returned stats' ``"telemetry"``."""
     results, remaining = None, valid
     msgs = torch.zeros(plan.p, dtype=torch.int32, device=plan.device)
+    tele = _route_zero(plan)
     rn, rn_t, it = 1, None, 0
     while rn > 0 and it < max_iters:
         resp, answered, st = remote_gather(plan, targets, remaining, owner_of,
@@ -146,9 +175,22 @@ def gather_until_done(plan: MeshPlan, targets, valid, owner_of, lookup_fn,
         remaining = remaining & ~answered
         rn_t = plan.psum(_sum32(remaining))
         msgs = msgs + st["req_sent"] + st["resp_sent"]
+        if plan.telemetry:
+            tele = tele_lib.merge(tele, st["telemetry"])
         rn = int(rn_t[0])
         it += 1
-    return results, ~remaining & valid, {"undelivered": rn_t, "msgs": msgs}
+    out_stats = {"undelivered": rn_t, "msgs": msgs}
+    if plan.telemetry:
+        out_stats["telemetry"] = tele
+    return results, ~remaining & valid, out_stats
+
+
+def _route_zero(plan: MeshPlan):
+    """A zero routing-telemetry record for ``plan`` (None unless
+    ``plan.telemetry``)."""
+    if not plan.telemetry:
+        return None
+    return tele_lib.route_zero(plan.p, plan.indirection.depth, plan.device)
 
 
 def route_until_done(plan: MeshPlan, caps, payload, dest, valid,
@@ -157,20 +199,24 @@ def route_until_done(plan: MeshPlan, caps, payload, dest, valid,
     round, re-queuing leftovers until everything is delivered. Leftover
     compaction is fused into the routing sort (route_compact).
 
-    Returns ``(carry, pending, msgs)``."""
+    Returns ``(carry, pending, msgs, tele)`` — ``tele`` is the merged
+    per-PE routing telemetry (None unless ``plan.telemetry``)."""
     q = dest.shape[1]
     pending_t = plan.psum(_sum32(valid))
     pending, it = int(pending_t[0]), 0
     msgs = torch.zeros(plan.p, dtype=torch.int32, device=plan.device)
+    tele = _route_zero(plan)
     while pending > 0 and it < max_iters:
         delivered, dval, (payload, dest, valid), dropped, st = route_compact(
             plan, caps, [(payload, dest, valid)], q)
         carry = deliver_fn(carry, delivered, dval)
         pending_t = plan.psum(_sum32(valid) + dropped)
         msgs = msgs + sum(st["sent"])
+        if plan.telemetry:
+            tele = tele_lib.merge(tele, st["telemetry"])
         pending = int(pending_t[0])
         it += 1
-    return carry, pending_t, msgs
+    return carry, pending_t, msgs, tele
 
 
 # --------------------------------------------------------------------------
@@ -299,14 +345,18 @@ def _chase(plan: MeshPlan, spec: LevelSpec, owner_of, st, visited, is_ruler,
             spawn2 = emit_frag(spawn_emit)
             qcount = _sum32(queue2[2]) + _sum32(fwd2[2]) + _sum32(spawn2[2])
             pending_t = plan.psum(qcount + dropped)
-            stats = _merge(stats, {
+            upd = {
                 "rounds": 1,
                 "chase_msgs": sum(rst["sent"]),
                 "spawn_lost": lost,
                 "dropped": dropped,
                 "store_miss": _sum32(dval & ~found),
                 "max_queue": qcount,
-            })
+            }
+            if plan.telemetry:
+                upd["telemetry"] = {"chase": rst["telemetry"],
+                                    "queue_hwm": qcount}
+            stats = _merge(stats, upd)
             frags = (queue2, fwd2, spawn2)
             rounds_done += 1
             pending = int(pending_t[0])
@@ -385,7 +435,7 @@ def flip_direction(plan: MeshPlan, spec: LevelSpec, owner_of, st, is_term0,
                 set_drop(have, idx, True))
 
     mail = tuple(max(c, 8) for c in spec.mail_caps)
-    (term_of, total_of, have), pending, msgs = route_until_done(
+    (term_of, total_of, have), pending, msgs, rtele = route_until_done(
         plan, mail, payload, dest, is_term0, deliver,
         (term_of, total_of, have))
 
@@ -403,10 +453,15 @@ def flip_direction(plan: MeshPlan, spec: LevelSpec, owner_of, st, is_term0,
     upd = answered & resp["found"]
     out = st.replace(succ=torch.where(upd, resp["term"], st.succ),
                      rank=torch.where(upd, resp["total"] - st.rank, st.rank))
-    stats = _merge(stats, {
+    fix = {
         "fixup_msgs": msgs + gst["msgs"],
         "undelivered": pending + gst["undelivered"] +
-        plan.psum(_sum32(st.valid & ~upd))})
+        plan.psum(_sum32(st.valid & ~upd))}
+    if plan.telemetry:
+        # the terminal-report leg rides the chase-family mail caps; the
+        # initial lookup rides the gather caps.
+        fix["telemetry"] = {"chase": rtele, "gather": gst["telemetry"]}
+    stats = _merge(stats, fix)
     return out, stats
 
 
@@ -444,9 +499,11 @@ def base_level(plan: MeshPlan, cfg: ListRankConfig, spec: LevelSpec,
         st, pst = doubling_solve(plan, st, owner_of, spec.gather_req_cap,
                                  spec.gather_resp_cap, spec.max_rounds,
                                  dedup=cfg.dedup_requests)
-    stats = _merge(stats, {"pd_rounds": pst["pd_rounds"],
-                           "pd_msgs": pst["pd_msgs"],
-                           "undelivered": pst["pd_undelivered"]})
+    upd = {"pd_rounds": pst["pd_rounds"], "pd_msgs": pst["pd_msgs"],
+           "undelivered": pst["pd_undelivered"]}
+    if plan.telemetry and "telemetry" in pst:
+        upd["telemetry"] = {"gather": pst["telemetry"]}
+    stats = _merge(stats, upd)
     return st, stats
 
 
@@ -483,8 +540,14 @@ def descend_level(plan: MeshPlan, cfg: ListRankConfig, spec: LevelSpec,
                                is_sub, forced, perm, r_target, stats)
 
     sub, take_, overflow = _extract_sub(st, is_sub, spec.cap_sub)
-    stats = _merge(stats, {"sub_overflow": overflow,
-                           "sub_size": _sum32(sub.valid)})
+    n_sub = _sum32(sub.valid)
+    upd = {"sub_overflow": overflow, "sub_size": n_sub}
+    if plan.telemetry:
+        # sub-store occupancy as a fill record: demand (incl. overflow)
+        # over cap_sub — >1 explains a sub escalation.
+        upd["telemetry"] = {"sub": tele_lib.store_fill(
+            p, plan.indirection.depth, n_sub + overflow, spec.cap_sub)}
+    stats = _merge(stats, upd)
     return st, sub, take_, is_sub, is_term, stats
 
 
@@ -510,10 +573,13 @@ def ascend_level(plan: MeshPlan, cfg: ListRankConfig, spec: LevelSpec,
     upd = answered & resp["found"]
     st = st.replace(succ=torch.where(upd, resp["succ"], st.succ),
                     rank=torch.where(upd, st.rank + resp["rank"], st.rank))
-    stats = _merge(stats, {
+    prop = {
         "undelivered": gst["undelivered"] +
         plan.psum(_sum32(non_sub & ~upd)),
-        "fixup_msgs": gst["msgs"]})
+        "fixup_msgs": gst["msgs"]}
+    if plan.telemetry:
+        prop["telemetry"] = {"gather": gst["telemetry"]}
+    stats = _merge(stats, prop)
 
     if want_sink:
         st, stats = flip_direction(plan, spec, owner_of, st, is_term, stats)

@@ -18,10 +18,10 @@ PE axis:
 Because the PE axis is an ordinary batch dimension, the CUDA kernels take
 it as their batch axis and run under this transport unchanged.
 
-:class:`CountingTransport` wraps a transport and counts its calls per
-collective, so ``resume.run_staged`` can report how many collectives
-each stage issued (the run-time counterpart of counting collectives in
-a traced program).
+:class:`CountingTransport` wraps a transport and counts its calls and
+per-PE payload bytes per collective, so ``resume.run_staged`` can report
+how many collectives each stage issued and price them (the run-time
+counterpart of counting collectives in a traced program).
 
 :class:`SimMesh` is the device-free mesh description (axis names and
 sizes) every front door accepts.
@@ -192,26 +192,44 @@ class CountingTransport:
 
     ``counts`` is a ``collections.Counter`` over ``all_to_all``,
     ``psum`` and ``all_gather`` (``axis_index`` is not a collective);
-    ``resume.run_staged`` clears it per stage."""
+    ``nbytes`` the same over each call's payload bytes per PE, the
+    input's ``numel() * element_size() // p`` (the reference's simshard
+    normalization). Both read tensor metadata only: no device work, no
+    synchronisation. ``resume.run_staged`` clears them per stage."""
 
     def __init__(self, inner):
         self.inner = inner
         self.counts: collections.Counter = collections.Counter()
+        self.nbytes: collections.Counter = collections.Counter()
 
     p = property(lambda self: self.inner.p)
     device = property(lambda self: self.inner.device)
+
+    def _count(self, prim: str, x) -> None:
+        self.counts[prim] += 1
+        self.nbytes[prim] += x.numel() * x.element_size() // self.inner.p
+
+    def clear(self) -> None:
+        self.counts.clear()
+        self.nbytes.clear()
+
+    def footprint(self) -> dict[str, tuple[int, int]]:
+        """``{collective: (count, payload bytes per PE)}`` since the last
+        :meth:`clear`, in the shape of the reference's
+        ``introspect.collective_footprint``."""
+        return {k: (c, self.nbytes[k]) for k, c in sorted(self.counts.items())}
 
     def axis_index(self):
         return self.inner.axis_index()
 
     def all_to_all(self, x, hop, axis):
-        self.counts["all_to_all"] += 1
+        self._count("all_to_all", x)
         return self.inner.all_to_all(x, hop, axis)
 
     def psum(self, x):
-        self.counts["psum"] += 1
+        self._count("psum", x)
         return self.inner.psum(x)
 
     def all_gather(self, x):
-        self.counts["all_gather"] += 1
+        self._count("all_gather", x)
         return self.inner.all_gather(x)

@@ -28,6 +28,8 @@ Every per-PE tensor carries the leading PE axis; ids are int32.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -38,6 +40,8 @@ from repro_torch.core.listrank import transport as transport_lib
 from repro_torch.core.listrank.batched import INT_MAX, set_drop, take
 from repro_torch.core.listrank.config import ListRankConfig
 from repro_torch.device import resolve_device
+from repro_torch.obs import telemetry as tele_lib
+from repro_torch.obs import trace as trace_lib
 
 
 def down(c):
@@ -68,7 +72,9 @@ def _build_sharded(parent, cut: int, *, plan, m: int, child_cap: int,
                    reply_cap: int, weighted: bool, closed: bool):
     """One construction attempt on the (p, m) int32 parent tensor.
     Returns (succ, w, stats): (p, 2m) int32 tensors and the psum'd
-    (p,) ``tour_undelivered`` / ``tour_msgs`` counters."""
+    (p,) ``tour_undelivered`` / ``tour_msgs`` counters — with
+    ``plan.telemetry`` a 4th element, the rounds' per-PE telemetry record
+    (graph family; never psum'd)."""
     p, dev = plan.p, plan.device
     base = (plan.my_id() * m)[:, None]
     gid = base + torch.arange(m, dtype=torch.int32, device=dev)
@@ -148,6 +154,11 @@ def _build_sharded(parent, cut: int, *, plan, m: int, child_cap: int,
     missing = (nonroot & ~have).sum(1, dtype=torch.int32)
     stats = {"tour_undelivered": plan.psum(missing + rr_st["leftover"]),
              "tour_msgs": plan.psum(rr_st["sent"])}
+    if plan.telemetry:
+        tele = tele_lib.merge(
+            tele_lib.stage_zero(p, plan.indirection.depth, dev),
+            {"graph": rr_st["telemetry"]})
+        return succ, w, stats, tele
     return succ, w, stats
 
 
@@ -172,8 +183,10 @@ def build_tour(parent, mesh, pe_axes=None, cfg: ListRankConfig | None = None,
         behind :func:`repro_torch.core.treealg.ops.root_tree`. Requires
         a single-tree input.
       device: where the tour is built (the CUDA device when None; without
-        CUDA that raises). ``tracer`` and ``cfg.telemetry`` belong to a
-        later slice of the port and raise NotImplementedError.
+        CUDA that raises).
+      tracer: records a ``build_tour`` span with one ``build_tour#k``
+        attempt span per construction attempt; with ``cfg.telemetry``
+        the tour span carries the rounds' graph-family StageRecord.
 
     Returns:
       (succ, weight, n_pad): (2*n_pad,) int32 tensors on ``device`` — a
@@ -182,10 +195,10 @@ def build_tour(parent, mesh, pe_axes=None, cfg: ListRankConfig | None = None,
       weight-0 self-loops.
     """
     cfg = cfg or ListRankConfig()
-    api_lib.reject_unported(cfg, tracer=tracer)
     device = resolve_device(device)
     pe_axes = tuple(pe_axes) if pe_axes is not None else tuple(mesh.axis_names)
-    _, mesh = transport_lib.resolve_backend(cfg.backend, mesh, pe_axes)
+    backend, mesh = transport_lib.resolve_backend(cfg.backend, mesh,
+                                                  pe_axes)
     parent_np = _host_parent(parent)
     n = parent_np.shape[0]
     if n == 0:
@@ -213,13 +226,37 @@ def build_tour(parent, mesh, pe_axes=None, cfg: ListRankConfig | None = None,
     cut = int(cut_at) if closed else -1
 
     cap1, cap2 = tour_caps(parent_pad, p)
-    for _ in range(max_retries + 1):
-        succ, w, stats = _build_sharded(
-            parent_d, cut, plan=plan, m=m, child_cap=cap1, reply_cap=cap2,
-            weighted=weighted, closed=closed)
-        if int(stats["tour_undelivered"][0]) == 0:  # one sync an attempt
-            return succ.reshape(2 * n_pad), w.reshape(2 * n_pad), n_pad
-        cap1, cap2 = 2 * cap1, 2 * cap2  # defensive: caps are exact
+    tr = trace_lib.ensure(tracer)
+    with tr.span("build_tour", cat="solve", n_nodes=n, p=p,
+                 backend=backend) as tour_span:
+        for attempt in range(max_retries + 1):
+            att = tr.begin(f"build_tour#{attempt + 1}", cat="stage-attempt",
+                           stage="build_tour", level=-1,
+                           attempt=attempt + 1)
+            t0 = time.perf_counter()
+            out = _build_sharded(
+                parent_d, cut, plan=plan, m=m, child_cap=cap1,
+                reply_cap=cap2, weighted=weighted, closed=closed)
+            succ, w, stats = out[:3]
+            # one sync an attempt: the counter's read bounds the wall
+            ok = int(stats["tour_undelivered"][0]) == 0
+            dt = time.perf_counter() - t0
+            if ok:
+                util = {}
+                if plan.telemetry:
+                    agg = tele_lib.aggregate(tele_lib.to_host(out[3]))
+                    util = tele_lib.utilization(agg)
+                    tour_span.annotate(
+                        telemetry=tele_lib.StageRecord(
+                            label="build_tour", kind="tour", level=-1,
+                            caps={"graph": (cap1, cap2)}, queue_cap=0,
+                            tele=agg).to_json())
+                tr.end(att, wall_s=dt, outcome="committed", **util)
+                tour_span.annotate(attempts=attempt + 1, outcome="ok")
+                return succ.reshape(2 * n_pad), w.reshape(2 * n_pad), n_pad
+            tr.end(att, wall_s=dt, outcome="overflow")
+            cap1, cap2 = 2 * cap1, 2 * cap2  # defensive: caps are exact
+        tour_span.annotate(outcome="exhausted")
     raise RuntimeError(
         f"Euler tour construction incomplete after {max_retries + 1} "
         f"attempts; stats={ {k: int(v[0]) for k, v in stats.items()} }")

@@ -20,7 +20,6 @@ loop (``repro_torch.core.listrank.resume``).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import signal
 import tempfile
@@ -29,23 +28,7 @@ from collections import deque
 from typing import Callable
 
 from repro_torch.checkpoint import Checkpointer
-
-
-class _NullSpan:
-    def annotate(self, **kw):
-        pass
-
-
-class NullTracer:
-    """The supervisor's tracer hook until the port has a flight recorder:
-    every span is a no-op."""
-
-    @contextlib.contextmanager
-    def span(self, name, **kw):
-        yield _NullSpan()
-
-
-NULL_TRACER = NullTracer()
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclasses.dataclass
@@ -218,8 +201,8 @@ class SolveSupervisor:
         self._times: deque[float] = deque(maxlen=self.cfg.straggler_window)
         self.stats = {"restarts": 0, "stragglers": 0, "checkpoints": 0,
                       "preempted": 0, "resumed_from": -1}
-        #: flight-recorder hook (a no-op until the port has one):
-        #: checkpoint save and restore open spans on it.
+        #: flight-recorder hook: the solve driver installs its tracer
+        #: here so checkpoint save/restore appear in the span tree.
         self.tracer = NULL_TRACER
 
     # ---------------------------------------------------------- signals

@@ -1,7 +1,8 @@
 """The JAX package's tree and graph front doors and its supervised
 solves, run in a child process for the port's parity tests
 (``tests/test_torch_treealg.py``, ``tests/test_torch_graphalg.py``,
-``tests/test_torch_faultinject.py``).
+``tests/test_torch_faultinject.py``, ``tests/test_torch_obs.py``,
+``tests/test_torch_telemetry.py``).
 
 Each of these calls compiles large simshard programs, and many such
 compiles in one pytest worker have crashed XLA's CPU compiler in a later
@@ -181,10 +182,76 @@ def resumed_solve(name, ckpt_dir):
             "stage_log": tuple(stats["stage_log"])}
 
 
+def span_tree(tracer) -> dict:
+    """A tracer's spans as (name, cat, depth, parent index) and its
+    instants as (name, cat, depth), in recording order."""
+    return {"spans": [(s.name, s.cat, s.depth, s.parent)
+                      for s in tracer.spans],
+            "instants": [(s.name, s.cat, s.depth) for s in tracer.instants]}
+
+
+def telemetry_solve(name, ckpt_dir=None, faults=()):
+    """Golden case ``name`` traced with ``cfg.telemetry`` on (legacy
+    PRNG), optionally supervised on ``ckpt_dir`` with ``faults``
+    injected: its golden record, ``stats["telemetry"]`` and span tree."""
+    import jax
+    from _simshard_cases import case_record
+    from repro.core.listrank import rank_list_with_stats, sim_mesh
+    from repro.obs import Tracer
+    from repro.runtime.fault_tolerance import (SolveSupervisor,
+                                               SolveSupervisorConfig)
+    _, s, r, cfg = _golden_case(name)
+    sup = (SolveSupervisor(SolveSupervisorConfig(ckpt_dir=ckpt_dir))
+           if ckpt_dir is not None else None)
+    tr = Tracer()
+    with jax.threefry_partitionable(False):
+        sf, rf, stats = rank_list_with_stats(
+            s, r, sim_mesh(P), cfg=cfg.with_(telemetry=True), tracer=tr,
+            supervisor=sup, inject=list(faults) or None)
+    return {"record": case_record(sf, rf, stats),
+            "telemetry": stats["telemetry"], "trace": span_tree(tr),
+            "stage_log": tuple(stats["stage_log"])}
+
+
+def tree_telemetry(parent):
+    """``tree_stats`` traced with ``cfg.telemetry`` on: the tour span's
+    StageRecord and the batched solve's ``stats["telemetry"]``."""
+    from repro.core import treealg
+    from repro.core.listrank import ListRankConfig, sim_mesh
+    from repro.obs import Tracer
+    tr = Tracer()
+    st = treealg.tree_stats(parent, sim_mesh(P), tracer=tr,
+                            cfg=ListRankConfig(telemetry=True))
+    tour = next(s for s in tr.spans if s.name == "build_tour")
+    return {**_arrays(st, TREE_ARRAYS), "tour": tour.args["telemetry"],
+            "telemetry": st.stats["telemetry"], "trace": span_tree(tr)}
+
+
+def graph_telemetry(mode, edges, n):
+    """``connected_components`` (``mode`` "cc") or ``graph_stats``
+    ("stats") traced with ``cfg.telemetry`` on: the components, integer
+    stats, ``stats["telemetry"]`` and the span tree."""
+    from repro.core import graphalg
+    from repro.core.listrank import ListRankConfig, sim_mesh
+    from repro.obs import Tracer
+    tr = Tracer()
+    cfg = ListRankConfig(telemetry=True)
+    if mode == "cc":
+        labels, stats = graphalg.connected_components(
+            edges, n, sim_mesh(P), cfg=cfg, tracer=tr)
+    else:
+        gs = graphalg.graph_stats(edges, n, sim_mesh(P), cfg=cfg, tracer=tr)
+        labels, stats = gs.components, gs.stats
+    return {"labels": np.asarray(labels), "stats": _ints(stats),
+            "telemetry": stats["telemetry"], "trace": span_tree(tr)}
+
+
 JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 graph_stats, connected_components,
                                 spanning_forest, fingerprints,
-                                preempted_solve, resumed_solve)}
+                                preempted_solve, resumed_solve,
+                                telemetry_solve, tree_telemetry,
+                                graph_telemetry)}
 
 
 if __name__ == "__main__":

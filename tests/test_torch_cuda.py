@@ -536,6 +536,50 @@ def test_graph_stats_cuda_kernels_on_equal_off(cuda, monkeypatch, n, e,
     assert _int_stats(cpu.stats) == _int_stats(on.stats)
 
 
+# ------------------------------------------------------------ flight recorder
+@pytest.mark.torch_cuda
+def test_telemetry_and_tracing_cuda_change_nothing(cuda, monkeypatch):
+    """At 2^20, p = 16: tracing and telemetry on against off with the
+    kernels on (outputs, counters, per-stage collectives equal, both
+    kernels launched), and the telemetry records equal with the kernels
+    on and off."""
+    from repro_torch import obs
+    from repro_torch.core.listrank import (ListRankConfig, instances,
+                                           rank_list_seq,
+                                           rank_list_with_stats, sim_mesh)
+    succ, rank = instances.gen_list(1 << 20, gamma=1.0, seed=2)
+    s_ref, r_ref = rank_list_seq(succ, rank)
+    on = ListRankConfig(use_pallas=True, use_pallas_pack=True)
+    off = ListRankConfig()
+
+    def run(cfg, **kw):
+        s, r, st = rank_list_with_stats(succ, rank, sim_mesh(16), cfg=cfg,
+                                        device=cuda, stage_counters=True,
+                                        **kw)
+        return s, r, st
+
+    s0, r0, st0 = run(on)
+    np.testing.assert_array_equal(s0.cpu().numpy(), s_ref)
+    np.testing.assert_array_equal(r0.cpu().numpy(), r_ref)
+    calls = _counting_pack(monkeypatch)
+    chase = lc_ops.LAUNCHES
+    tracer = obs.Tracer()
+    s1, r1, st1 = run(on.with_(telemetry=True), tracer=tracer)
+    assert len(calls) > 0 and lc_ops.LAUNCHES == chase + 1
+    assert torch.equal(s0, s1) and torch.equal(r0, r1)
+    assert _int_stats(st0) == _int_stats(st1)
+    assert st0["stage_collectives"] == st1["stage_collectives"]
+    attempts = list(tracer.find(cat="stage-attempt"))
+    assert [a.name.split("#")[0] for a in attempts] == list(st1["stage_log"])
+    for att, (_, coll) in zip(attempts, st1["stage_collectives"]):
+        assert np.isfinite(att.args["predicted_s"])
+        assert att.args["collective_count"] == sum(c for _, c in coll)
+    s2, r2, st2 = run(off.with_(telemetry=True))
+    assert torch.equal(s1, s2) and torch.equal(r1, r2)
+    assert _int_stats(st1) == _int_stats(st2)
+    assert st1["telemetry"] == st2["telemetry"]
+
+
 # ------------------------------------------------------------ fault tolerance
 @pytest.mark.torch_cuda
 def test_checkpoint_cuda_tree_round_trips_onto_the_card(cuda, tmp_path):

@@ -17,7 +17,8 @@ output is integer and compared exactly:
   finalize rounds do not depend on the instance (the counting transport
   stands in for the reference's static jaxpr count);
 - the composed one-attempt solve equals the staged front door's;
-- the front doors run on CUDA unless ``device`` is given.
+- the front doors run on CUDA unless ``device`` is given, and take a
+  tracer and the telemetry plane.
 """
 import jax
 import numpy as np
@@ -28,6 +29,7 @@ from _graph_oracles import check_spanning_forest
 from _torch_reference_child import run_reference
 from _torch_reference_perms import ReferencePerms
 from _tree_oracles import dfs_stats
+from repro_torch import obs
 from repro_torch.core import graphalg
 from repro_torch.core.listrank import (ListRankConfig, api, instances,
                                        perm_fn_from_numpy, rank_list_seq,
@@ -279,8 +281,15 @@ def test_front_doors_run_on_cuda_unless_told(monkeypatch):
                graphalg.graph_stats):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(edges, n, mesh)
-    with pytest.raises(NotImplementedError):
-        graphalg.graph_stats(edges, n, mesh, tracer=object(), device=CPU)
-    with pytest.raises(NotImplementedError):
-        graphalg.graph_stats(edges, n, mesh,
-                             cfg=ListRankConfig(telemetry=True), device=CPU)
+    # the tracer and the telemetry plane run, and change nothing
+    plain = graphalg.connected_components(edges, n, mesh, device=CPU)
+    tracer = obs.Tracer()
+    labels, stats = graphalg.connected_components(
+        edges, n, mesh, tracer=tracer, cfg=ListRankConfig(telemetry=True),
+        device=CPU)
+    np.testing.assert_array_equal(labels, plain[0])
+    assert int_stats(stats) == int_stats(plain[1])
+    (rec,) = stats["telemetry"]["stages"]
+    assert rec["label"] == "graphalg:cc" and rec["tele"]["graph"]["rounds"]
+    assert [sp.name for sp in tracer.spans] == ["graphalg:cc",
+                                                "graphalg:cc#1"]

@@ -7,8 +7,9 @@
   path and every counter — once the reference's ruler permutations are
   injected;
 - an int and a float instance match the oracle at p in {8, 64};
-- the front door's contract: CUDA by default, supervision and fault
-  injection run, later-slice options raise.
+- the front door's contract: CUDA by default, supervision, fault
+  injection, the tracer and the telemetry plane run, the
+  ``torch.distributed`` backend raises.
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 
 import _simshard_cases as cases_lib
 from _torch_reference_perms import ReferencePerms
+from repro_torch import obs
 from repro_torch.core.listrank import (FaultSpec, IndirectionSpec,
                                        ListRankConfig, instances,
                                        perm_fn_from_numpy, rank_list_seq,
@@ -135,11 +137,23 @@ def test_stage_counters_count_collectives_per_stage():
 def test_front_door_contract(monkeypatch, tmp_path):
     succ, rank = instances.gen_list(64, gamma=1.0, seed=1)
     mesh = sim_mesh(4)
-    for kw in ({"tracer": object()},
-               {"cfg": ListRankConfig(telemetry=True)},
-               {"cfg": ListRankConfig(backend="mesh")}):
-        with pytest.raises(NotImplementedError):
-            rank_list_with_stats(succ, rank, mesh, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        rank_list_with_stats(succ, rank, mesh, device="cpu",
+                             cfg=ListRankConfig(backend="mesh"))
+    # the tracer and the telemetry plane run, and change nothing
+    s0, r0, st0 = rank_list_with_stats(succ, rank, mesh, device="cpu")
+    tracer = obs.Tracer()
+    s1, r1, st1 = rank_list_with_stats(
+        succ, rank, mesh, device="cpu", tracer=tracer,
+        cfg=ListRankConfig(telemetry=True))
+    assert torch.equal(s0, s1) and torch.equal(r0, r1)
+    assert {k: v for k, v in st0.items() if isinstance(v, int)} == \
+        {k: v for k, v in st1.items() if isinstance(v, int)}
+    assert [s["label"] for s in st1["telemetry"]["stages"]] == list(
+        st1["stage_log"])
+    assert [sp.name for sp in tracer.find(cat="stage")] == list(
+        st1["stage_log"])
+    assert "telemetry" not in st0
     # supervision and fault injection run
     supervisor = SolveSupervisor(SolveSupervisorConfig(ckpt_dir=str(
         tmp_path)))

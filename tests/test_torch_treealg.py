@@ -19,7 +19,8 @@ arrays, kernel flags off. Every output is integer and compared exactly:
   instance, one ``all_to_all`` per chase round as a single instance
   does (the counting transport stands in for the reference's jaxpr
   count);
-- the front doors run on CUDA unless ``device`` is given.
+- the front doors run on CUDA unless ``device`` is given, and take a
+  tracer and the telemetry plane.
 """
 import jax
 import numpy as np
@@ -30,6 +31,7 @@ from _torch_reference_child import run_reference
 from _torch_reference_perms import ReferencePerms
 from _tree_oracles import dfs_stats
 from repro.core.treealg import batch as batch_j
+from repro_torch import obs
 from repro_torch.core import treealg
 from repro_torch.core.listrank import api
 from repro_torch.core.listrank import (ListRankConfig, instances,
@@ -351,8 +353,15 @@ def test_front_doors_run_on_cuda_unless_told(monkeypatch):
                                             mesh)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    with pytest.raises(NotImplementedError):
-        treealg.build_tour(parent, mesh, tracer=object(), device=CPU)
-    with pytest.raises(NotImplementedError):
-        treealg.tree_stats(parent, mesh, cfg=ListRankConfig(telemetry=True),
-                           device=CPU)
+    # the tracer and the telemetry plane run, and change nothing
+    plain = treealg.tree_stats(parent, mesh, device=CPU)
+    tracer = obs.Tracer()
+    got = treealg.tree_stats(parent, mesh, tracer=tracer, device=CPU,
+                             cfg=ListRankConfig(telemetry=True))
+    for k in ("depth", "subtree_size", "preorder", "postorder"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(plain, k))
+    assert int_stats(got.stats) == int_stats(plain.stats)
+    (tour,) = tracer.find(name="build_tour")
+    assert tour.args["telemetry"]["tele"]["graph"]["rounds"] > 0
+    assert [s["label"] for s in got.stats["telemetry"]["stages"]] == list(
+        got.stats["stage_log"])
