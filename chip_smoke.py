@@ -115,8 +115,24 @@ Phases, each fatal on failure:
    phases 6 and 7, graph-family records present, the graph call's
    escalations as ``escalate:`` instants and in the headroom rows; (e)
    the cost: (a)'s warm wall against phase 3's (3 each, alternating;
-   median and spread), the device time of one solve with telemetry on
-   and off (``devtime.kernel_times_over``) and the device events added.
+   median and spread), the device time of one solve of List(2^20) with
+   telemetry on and off (``devtime.kernel_times_over``) and the device
+   events added;
+16. the ``torch.distributed`` transport (``dist_mesh``): (a) NCCL at
+   world size 1 in this process, all 16 PEs on one rank: phase 3's
+   solve, kernels on — outputs, every counter and the stage collectives
+   equal to phase 3's, ``local_chase`` launched once and ``mailbox_pack``
+   as often as in phase 3; the warm wall against phase 3's and the
+   seconds in collectives (each timed between two syncs); the NCCL calls
+   and device events of one hop's collectives in a profiler window; (b)
+   gloo with CUDA tensors: 4 spawned processes on the one card, 4 PEs
+   each, the same solve — on every rank outputs, counters and stage
+   collectives equal to phase 3's, the launches per rank; cold and warm
+   walls and the seconds spent in collectives; (c) ``tree_stats`` and ``graph_stats`` under (b)'s
+   layout at 2^18 tree nodes and 2^14 graph nodes, each equal to the
+   virtual transport's on the same input. The parent joins its ranks
+   with a timeout; any rank's failure fails the phase. No number here
+   is communication between cards: there is one card.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -252,7 +268,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-15 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-16 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -501,7 +517,7 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     check_oracle(s_f, r_f, s_ref_f, r_ref_f, "main path (float32 0/1)")
     log("phase 3: float32 0/1 weights: exact")
 
-    s_w, r_w, st_w, wall_warm = solve(rank_np, cfg_on)
+    s_w, r_w, st_w, wall_warm = solve(rank_np, cfg_on, stage_counters=True)
     check_oracle(s_w, r_w, s_ref, r_ref, "main path (warm rerun)")
     results["main_path"] = {
         "n": n_main, "p": P_MAIN, "cold_wall_s": wall_cold,
@@ -570,6 +586,15 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         launches, tree_out, graph_out, n_tree, n_graph)
     for kern in kernels:
         kern["launches_obs"] = results["obs"]["launches"][kern["name"]]
+
+    # --------------------------------------------------------- phase 16
+    results["dist"] = dist_phase(
+        dev, card, succ_np, rank_np, (s_on, r_on, ints_on), cfg_on,
+        launches, st_w["stage_collectives"], wall_warm)
+    for kern in kernels:
+        for part in ("nccl", "gloo"):  # the LM kernels are not on it: 0
+            kern[f"launches_dist_{part}"] = results["dist"][part][
+                "launches"].get(kern["name"], 0)
 
     results["card"] = card
     results["kernels"] = kernels
@@ -1849,10 +1874,19 @@ def obs_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
         f"{max(walls['obs']):.4f}); overhead "
         f"{med['obs'] - med['plain']:+.4f} s "
         f"({100 * (med['obs'] / med['plain'] - 1):+.2f} %) [{card}]")
+    # the device-time windows hold one solve of List(N_GRID): a hop's
+    # telemetry launches do not depend on n, and a window of the 2^24
+    # solve cost about 20 s (two to three windows each for repeat_check)
+    succ_w, rank_w = instances.gen_list(N_GRID, gamma=1.0, seed=2)
+
+    def small_solve(cfg):
+        return rank_list_with_stats(succ_w, rank_w, mesh, cfg=cfg,
+                                    seed=SEED, device=dev)
+
     dev_res = {}
     for name, cfg in (("plain", cfg_on), ("telemetry", cfg_tele)):
         kt, events, _ = devtime.kernel_times_over(
-            lambda: solve(cfg), torch, log=log)
+            lambda: small_solve(cfg), torch, log=log)
         dev_res[name] = {"busy_ms": kt["busy_ms"],
                          "device_events": None if events is None
                          else len(events),
@@ -1861,10 +1895,11 @@ def obs_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
     res["device"] = dev_res
     p_, t_ = dev_res["plain"], dev_res["telemetry"]
     if p_["busy_ms"] is None or t_["busy_ms"] is None:
-        log(f"phase 15 (e): device time of one solve not measured (plain "
-            f"{p_['busy_ms']}, telemetry {t_['busy_ms']})")
+        log(f"phase 15 (e): device time of one List({N_GRID}) solve not "
+            f"measured (plain {p_['busy_ms']}, telemetry {t_['busy_ms']})")
     else:
-        log(f"phase 15 (e): device time of one solve (torch.profiler): "
+        log(f"phase 15 (e): device time of one List({N_GRID}) solve "
+            f"(torch.profiler): "
             f"plain {p_['busy_ms']:.1f} ms in {p_['device_events']} device "
             f"events, telemetry on {t_['busy_ms']:.1f} ms in "
             f"{t_['device_events']}: {t_['busy_ms'] - p_['busy_ms']:+.1f} ms, "
@@ -1872,6 +1907,357 @@ def obs_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
             f"[{card}]")
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 15: {res['phase_s']:.1f} s")
+    return res
+
+
+
+# --------------------------------------------------------------- phase 16
+#: (b)'s processes on the one card, PEs per process P_MAIN / DIST_WORLD
+DIST_WORLD = 4
+#: (c)'s sizes under (b)'s layout: tree nodes, graph nodes (edges 4x)
+DIST_TREE, DIST_GRAPH = 1 << 18, 1 << 14
+#: seconds the parent waits for (b)'s ranks, start-up included
+DIST_TIMEOUT_S = 300
+#: (a)'s and (b)'s backends (a CPU rehearsal runs both on gloo)
+DIST_BACKENDS = {"a": "nccl", "b": "gloo"}
+
+
+def _digest(*arrays) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _synchronize(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed_collectives(dist, torch, dev):
+    """Wrap the three collectives the transport calls so that each is
+    timed between two device synchronisations (the first waits for the
+    work queued before it); returns the accumulator and an undo."""
+    acc = {"s": 0.0, "calls": 0}
+    names = ("all_to_all_single", "all_reduce", "all_gather_into_tensor",
+             "all_gather_single")
+    saved = {n: getattr(dist, n) for n in names if hasattr(dist, n)}
+
+    def timed(fn):
+        def call(*a, **kw):
+            _synchronize(torch, dev)
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            _synchronize(torch, dev)
+            acc["s"] += time.perf_counter() - t
+            acc["calls"] += 1
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(dist, n, timed(fn))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+    return acc, undo
+
+
+def _dist_rank(rank: int, world: int, init: str, work: str, device: str,
+               sizes: tuple, queue) -> None:
+    """One process of phase 16 (b) and (c): gloo over tensors on
+    ``device`` (card 0), ``P_MAIN // world`` PEs; puts its result (or
+    its traceback) on ``queue``."""
+    import datetime
+    import traceback
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            DIST_BACKENDS["b"], init_method=init, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        try:
+            queue.put((rank, True, _dist_rank_work(dev, work, sizes, torch,
+                                                   dist)))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # the parent fails the phase with this traceback
+        queue.put((rank, False, traceback.format_exc()))
+
+
+def _dist_rank_work(dev, work: str, sizes: tuple, torch, dist) -> dict:
+    from repro_torch.core import graphalg, treealg
+    from repro_torch.core.listrank import (ListRankConfig, dist_mesh,
+                                           instances, rank_list_with_stats)
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    work = pathlib.Path(work)
+    succ = np.load(work / "succ.npy")
+    rank_in = np.load(work / "rank.npy")
+    cfg = ListRankConfig(use_pallas=True, use_pallas_pack=True)
+    mesh = dist_mesh(P_MAIN)
+    out = {"pes": list(range(dist.get_rank() * mesh.pes_per_rank,
+                             (dist.get_rank() + 1) * mesh.pes_per_rank))}
+
+    def solve(**kw):
+        dist.barrier()
+        _synchronize(torch, dev)
+        t = time.perf_counter()
+        s, r, st = rank_list_with_stats(succ, rank_in, mesh, cfg=cfg,
+                                        seed=SEED, device=dev, **kw)
+        _synchronize(torch, dev)
+        return s, r, st, time.perf_counter() - t
+
+    lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
+    s, r, st, cold = solve(stage_counters=True)
+    out["launches"] = {"local_chase": lc_ops.LAUNCHES,
+                       "mailbox_pack": mp_ops.LAUNCHES}
+    out.update(cold_wall_s=cold, digest=_digest(s.cpu().numpy(),
+                                                r.cpu().numpy()),
+               counters=int_counters(st),
+               stage_collectives=st["stage_collectives"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _, _, _, warm = solve()
+    out["warm_wall_s"] = warm
+    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                if cuda else 0)
+    acc, undo = _timed_collectives(dist, torch, dev)
+    try:
+        s2, r2, _, timed_wall = solve()
+    finally:
+        undo()
+    out.update(timed_wall_s=timed_wall, collective_s=acc["s"],
+               collective_calls=acc["calls"],
+               timed_digest=_digest(s2.cpu().numpy(), r2.cpu().numpy()))
+
+    # (c) the tree and graph paths under the same layout
+    n_tree, n_graph = sizes
+    parent = instances.gen_tree_parents(n_tree, seed=SEED, locality=False)
+    t = time.perf_counter()
+    ts = treealg.tree_stats(parent, mesh, cfg=cfg, seed=SEED, device=dev)
+    out["tree_wall_s"] = time.perf_counter() - t
+    out["tree_digest"] = _digest(*(getattr(ts, k) for k in TREE_KEYS))
+    edges = instances.gen_graph_edges(n_graph, 4 * n_graph, seed=SEED,
+                                      locality=False, num_components=4)
+    t = time.perf_counter()
+    gs = graphalg.graph_stats(edges, n_graph, mesh, cfg=cfg, seed=SEED,
+                              device=dev)
+    out["graph_wall_s"] = time.perf_counter() - t
+    out["graph_digest"] = _digest(*(getattr(gs, k) for k in GRAPH_KEYS))
+    out["graph_attempts"] = gs.stats["attempts"]
+    return out
+
+
+def _run_ranks(world: int, work: pathlib.Path, device: str, sizes: tuple,
+               timeout_s: float) -> list:
+    """Spawn ``world`` ranks of :func:`_dist_rank`, join them with a
+    timeout; every rank's result in rank order, or the phase fails."""
+    import multiprocessing as mp
+    import queue as queue_lib
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"file://{work / 'store'}"
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(r, world, init, str(work), device, sizes,
+                               results))
+             for r in range(world)]
+    for pr in procs:
+        pr.start()
+    got: dict = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        while len(got) < world:
+            try:
+                rank, ok, out = results.get(timeout=1.0)
+            except queue_lib.Empty:
+                dead = {r: pr.exitcode for r, pr in enumerate(procs)
+                        if pr.exitcode not in (None, 0)}
+                if dead:
+                    fail(f"phase 16 (b): ranks exited {dead}")
+                if time.monotonic() > deadline:
+                    missing = sorted(set(range(world)) - set(got))
+                    fail(f"phase 16 (b): ranks {missing} gave no result "
+                         f"within {timeout_s} s")
+                continue
+            if not ok:
+                fail(f"phase 16 (b): rank {rank} failed:\n{out}")
+            got[rank] = out
+    finally:
+        for pr in procs:
+            pr.join(timeout=30)
+            if pr.is_alive():
+                pr.kill()
+                pr.join(timeout=30)
+    return [got[r] for r in range(world)]
+
+
+def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
+               plain_launches: dict, plain_collectives, plain_warm_s: float,
+               world: int = DIST_WORLD, n_tree: int = DIST_TREE,
+               n_graph: int = DIST_GRAPH) -> dict:
+    """Phase 16: the torch.distributed transport on the one card."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import devtime
+    from repro_torch.core import graphalg, treealg
+    from repro_torch.core.listrank import (dist_mesh, instances,
+                                           rank_list_with_stats, sim_mesh)
+    from repro_torch.core.listrank import transport as transport_lib
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+
+    s_plain, r_plain, ints_plain = plain
+    res: dict = {}
+    t_phase = time.perf_counter()
+
+    # (a) NCCL at world size 1: every PE on this process's one rank
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(DIST_BACKENDS["a"],
+                                init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = dist_mesh(P_MAIN)
+
+            def solve(**kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                s, r, st = rank_list_with_stats(
+                    succ_np, rank_np, mesh, cfg=cfg_on, seed=SEED,
+                    device=dev, **kw)
+                torch.cuda.synchronize()
+                return s, r, st, time.perf_counter() - t
+
+            lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
+            s_a, r_a, st_a, cold = solve(stage_counters=True)
+            launches = {"local_chase": lc_ops.LAUNCHES,
+                        "mailbox_pack": mp_ops.LAUNCHES}
+            if not (torch.equal(s_a, s_plain) and torch.equal(r_a, r_plain)):
+                fail("phase 16 (a): outputs differ from phase 3's")
+            if int_counters(st_a) != ints_plain:
+                fail(f"phase 16 (a): counters {int_counters(st_a)} differ "
+                     f"from phase 3's {ints_plain}")
+            if st_a["stage_collectives"] != plain_collectives:
+                fail(f"phase 16 (a): stage collectives "
+                     f"{st_a['stage_collectives']} differ from phase 3's "
+                     f"{plain_collectives}")
+            if launches != plain_launches:
+                fail(f"phase 16 (a): launches {launches}, phase 3's "
+                     f"{plain_launches}")
+            warm = [solve()[3] for _ in range(2)]
+            acc, undo = _timed_collectives(dist, torch, dev)
+            try:
+                timed = solve()[3]
+            finally:
+                undo()
+            # one level-0 hop's collectives through NCCL, under the profiler
+            tr = transport_lib.DistTransport.for_mesh(mesh, ("pe",), dev)
+            hop = torch.zeros((P_MAIN, 5, P_MAIN, 4096), dtype=torch.int32,
+                              device=dev)
+            cnt = torch.ones(P_MAIN, dtype=torch.int32, device=dev)
+
+            def hop_calls():
+                tr.all_to_all(hop, ("pe",), 1)
+                tr.psum(cnt)
+                tr.gather_pes(cnt)
+
+            hop_calls()
+            _, events, _ = devtime.window(
+                hop_calls, torch, cats=devtime.DEVICE_CATS + (
+                    "cpu_op", "user_annotation", "gpu_user_annotation"))
+        finally:
+            dist.destroy_process_group()
+    nccl_calls = sorted({e["name"] for e in events
+                         if e["name"].startswith("nccl:")})
+    if not nccl_calls:
+        fail("phase 16 (a): the window holds no NCCL call")
+    device = [e for e in events if e["cat"] in devtime.DEVICE_CATS]
+    by_name = {f"{k[:48]} (stream {e['tid']})": v
+               for k, v in devtime.per_name(device).items()
+               for e in device if e["name"] == k}
+    res["nccl"] = {"launches": launches, "cold_wall_s": cold,
+                   "warm_walls_s": warm, "timed_wall_s": timed,
+                   "collective_s": acc["s"], "collective_calls": acc["calls"],
+                   "hop_nccl_calls": nccl_calls,
+                   "hop_device_events": by_name}
+    log(f"phase 16 (a): NCCL, world size 1, {P_MAIN} PEs on one rank, "
+        f"kernels on: outputs, counters and stage collectives equal to "
+        f"phase 3's; launches {launches}; cold {cold:.3f} s, warm "
+        f"{', '.join(f'{w:.3f}' for w in warm)} s against phase 3's "
+        f"{plain_warm_s:.3f} s; with each collective timed between syncs "
+        f"{timed:.3f} s, of it {acc['s']:.3f} s in {acc['calls']} "
+        f"collectives [{card}]")
+    log(f"phase 16 (a): one hop's all_to_all, psum and gather under the "
+        f"profiler: NCCL calls {nccl_calls}; device events (count, us) "
+        f"{by_name}")
+
+    # (c)'s references: the virtual transport on the same inputs
+    parent = instances.gen_tree_parents(n_tree, seed=SEED, locality=False)
+    ts = treealg.tree_stats(parent, sim_mesh(P_MAIN), cfg=cfg_on,
+                            seed=SEED, device=dev)
+    tree_digest = _digest(*(getattr(ts, k) for k in TREE_KEYS))
+    edges = instances.gen_graph_edges(n_graph, 4 * n_graph, seed=SEED,
+                                      locality=False, num_components=4)
+    gs = graphalg.graph_stats(edges, n_graph, sim_mesh(P_MAIN),
+                              cfg=cfg_on, seed=SEED, device=dev)
+    graph_digest = _digest(*(getattr(gs, k) for k in GRAPH_KEYS))
+    del ts, gs
+
+    # (b) gloo with CUDA tensors: `world` processes share the card
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    digest = _digest(s_plain.cpu().numpy(), r_plain.cpu().numpy())
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        np.save(work / "succ.npy", succ_np)
+        np.save(work / "rank.npy", rank_np)
+        t = time.perf_counter()
+        outs = _run_ranks(world, work, str(dev), (n_tree, n_graph),
+                          DIST_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t
+    for r, out in enumerate(outs):
+        if out["digest"] != digest or out["timed_digest"] != digest:
+            fail(f"phase 16 (b): rank {r}'s outputs differ from phase 3's")
+        if out["counters"] != ints_plain:
+            fail(f"phase 16 (b): rank {r}'s counters {out['counters']} "
+                 f"differ from phase 3's {ints_plain}")
+        if out["stage_collectives"] != plain_collectives:
+            fail(f"phase 16 (b): rank {r}'s stage collectives differ from "
+                 f"phase 3's")
+        if out["launches"] != plain_launches:
+            fail(f"phase 16 (b): rank {r} launched {out['launches']}, "
+                 f"phase 3's path {plain_launches}")
+        if out["tree_digest"] != tree_digest:
+            fail(f"phase 16 (c): rank {r}'s tree_stats differ from the "
+                 f"virtual transport's")
+        if out["graph_digest"] != graph_digest:
+            fail(f"phase 16 (c): rank {r}'s graph_stats differ from the "
+                 f"virtual transport's")
+    res["gloo"] = {"world": world, "launches": outs[0]["launches"],
+                   "ranks": outs, "ranks_s": ranks_s}
+    for r, out in enumerate(outs):
+        log(f"phase 16 (b): gloo rank {r} (PEs {out['pes'][0]}.."
+            f"{out['pes'][-1]}): outputs, counters and stage collectives "
+            f"equal to phase 3's; launches {out['launches']}; cold "
+            f"{out['cold_wall_s']:.3f} s, warm {out['warm_wall_s']:.3f} s, "
+            f"peak {out['peak_memory_bytes'] / 2**30:.2f} GiB; with each "
+            f"collective timed between syncs {out['timed_wall_s']:.3f} s, "
+            f"of it {out['collective_s']:.3f} s in "
+            f"{out['collective_calls']} collectives [{card}]")
+    log(f"phase 16 (c): tree_stats n={n_tree} and graph_stats n={n_graph} "
+        f"under {world} gloo ranks equal the virtual transport's; walls "
+        f"(rank 0) tree {outs[0]['tree_wall_s']:.3f} s, graph "
+        f"{outs[0]['graph_wall_s']:.3f} s in {outs[0]['graph_attempts']} "
+        f"attempts; the ranks took {ranks_s:.1f} s with start-up [{card}]")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {res['phase_s']:.1f} s")
     return res
 
 

@@ -160,7 +160,7 @@ def _shortcut(plan, caps: GraphCaps, f, base, m, owner_of, footprint=None):
     undelivered count and the per-PE message count, summed over the
     iterations, and their merged per-PE routing telemetry (None unless
     ``plan.telemetry``)."""
-    p, dev = plan.p, plan.device
+    p, dev = plan.p_local, plan.device
     und = torch.zeros(p, dtype=torch.int32, device=dev)
     msgs = torch.zeros(p, dtype=torch.int32, device=dev)
     tele = (tele_lib.route_zero(p, plan.indirection.depth, dev)
@@ -202,7 +202,7 @@ def cc_rounds(plan, caps: GraphCaps, ea, eb, m: int, m_e: int, stats,
     Returns (f, fmask, stats): the converged labels (p, m), the local
     spanning-forest edge marks (p, m_e), and updated stats.
     """
-    p, dev = plan.p, plan.device
+    p, dev = plan.p_local, plan.device
     pe = plan.my_id()
     base = (pe * m)[:, None]
     ebase = (pe * m_e)[:, None]

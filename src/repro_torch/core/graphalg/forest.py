@@ -52,7 +52,7 @@ def build_forest_tour(plan, caps: GraphCaps, ea, eb, fmask, f, m: int,
     (un-psummed) {"sent", "leftover"} transport counters (plus the
     round's per-PE ``"telemetry"`` record with ``plan.telemetry``).
     """
-    p, dev = plan.p, plan.device
+    p, dev = plan.p_local, plan.device
     pe = plan.my_id()
     base = (pe * m)[:, None]
     gid = base + torch.arange(m, dtype=torch.int32, device=dev)

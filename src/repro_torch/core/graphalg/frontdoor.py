@@ -160,7 +160,7 @@ def _pipeline(edges_d, seed: int, perm_fn_for, *, plan, cfg: ListRankConfig,
     Returns (out, stats, tele): (p, m) int32 outputs, 0-dim counters,
     and the attempt's per-PE telemetry record (None unless
     ``plan.telemetry``; it is never reduced over PEs)."""
-    p, dev = plan.p, plan.device
+    p, dev = plan.p_local, plan.device
     pe = plan.my_id()
     base = (pe * m)[:, None]
     gid = base + torch.arange(m, dtype=torch.int32, device=dev)
@@ -332,11 +332,8 @@ def _check_edges(edges, n_nodes: int) -> np.ndarray:
 
 
 def _prepare(edges, n_nodes, mesh, pe_axes, cfg, device):
-    """Shared host-side prep: padding, plan, capacity derivation."""
-    cfg = cfg or ListRankConfig()
-    pe_axes = tuple(pe_axes) if pe_axes is not None \
-        else tuple(mesh.axis_names)
-    _, mesh = transport_lib.resolve_backend(cfg.backend, mesh, pe_axes)
+    """Shared host-side prep on a resolved mesh: padding, plan, capacity
+    derivation."""
     edges = _check_edges(edges, n_nodes)
     plan = api_lib.make_plan(mesh, pe_axes, cfg, device)
     p = plan.p
@@ -378,18 +375,23 @@ def _attempt_specs(cfg, plan, m_e: int, e_pad: int,
 
 def _run_pipeline(edges, n_nodes, mesh, pe_axes, cfg, mode, seed,
                   max_retries, tracer=None, device=None, perm_fn_for=None):
-    device = resolve_device(device)
+    cfg = cfg or ListRankConfig()
+    pe_axes = tuple(pe_axes) if pe_axes is not None \
+        else tuple(mesh.axis_names)
+    _, mesh = transport_lib.resolve_backend(cfg.backend, mesh, pe_axes)
+    device = resolve_device(device, mesh)
     cfg, plan, edges_pad, base_caps, n_pad, m, e_pad, m_e = _prepare(
         edges, n_nodes, mesh, pe_axes, cfg, device)
-    edges_d = torch.from_numpy(edges_pad.astype(np.int32)).reshape(
-        plan.p, m_e, 2).to(device)
+    # every rank holds the whole edge list and copies its own block
+    edges_d = api_lib.local_block(plan, edges_pad.astype(np.int32), device)
     perm_fn_for = perm_fn_for or default_perm_fn
     tr = trace_lib.ensure(tracer)
 
     scales = tuner.CapacityScales()
     last_stats = None
     with tr.span(f"graphalg:{mode}", cat="solve", n_nodes=n_nodes,
-                 p=plan.p, mode=mode, backend="simshard") as pipe_span:
+                 p=plan.p, mode=mode,
+                 backend=transport_lib.backend_name(mesh)) as pipe_span:
         for attempt in range(max_retries + 1):
             caps = base_caps.scaled(scales.graph)
             specs = _attempt_specs(cfg, plan, m_e, e_pad, scales)
@@ -416,7 +418,8 @@ def _run_pipeline(edges, n_nodes, mesh, pe_axes, cfg, mode, seed,
                 host_stats["stage_collectives"] = tuple(phases.units)
                 util = {}
                 if tele is not None:
-                    agg = tele_lib.aggregate(tele_lib.to_host(tele))
+                    agg = tele_lib.aggregate(tele_lib.to_host(
+                        tele, plan.transport))
                     util = tele_lib.utilization(agg)
                     spec0 = specs[0]
                     rec = tele_lib.StageRecord(
@@ -436,8 +439,10 @@ def _run_pipeline(edges, n_nodes, mesh, pe_axes, cfg, mode, seed,
                     tr.counter("telemetry/util_max", util["util_max"])
                     tr.counter("telemetry/util_mean", util["util_mean"])
                 tr.end(att, wall_s=dt, outcome="committed", **util)
-                host = {k: v.reshape(-1)[:n_nodes].cpu().numpy()
-                        for k, v in out.items()}
+                # every node's outputs on every rank (one uncounted
+                # gather a leaf on the distributed transport)
+                host = {k: plan.transport.gather_pes(v).reshape(-1)[
+                    :n_nodes].cpu().numpy() for k, v in out.items()}
                 pipe_span.annotate(attempts=attempt + 1, outcome="ok")
                 if tr.enabled:
                     from repro_torch.obs import metrics as metrics_lib

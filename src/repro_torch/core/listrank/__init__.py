@@ -4,7 +4,8 @@
 Implements the sparse-ruling-set (SRS) algorithm with ruler spawning,
 pointer doubling (Wyllie) as baseline and base case, local contraction
 for locality exploitation, and direct / grid / topology-aware message
-indirection, over a virtual-PE transport on one device.
+indirection, over a virtual-PE transport on one device (``sim_mesh``) or
+the ``torch.distributed`` transport across processes (``dist_mesh``).
 """
 from repro_torch.core.listrank.config import ListRankConfig, IndirectionSpec
 from repro_torch.core.listrank.api import rank_list, rank_list_with_stats
@@ -13,7 +14,8 @@ from repro_torch.core.listrank.faults import (FaultSpec, FaultInjector,
 from repro_torch.core.listrank.resume import SolveExhausted
 from repro_torch.core.listrank.sequential import rank_list_seq
 from repro_torch.core.listrank.srs import default_perm_fn, perm_fn_from_numpy
-from repro_torch.core.listrank.transport import SimMesh, sim_mesh
+from repro_torch.core.listrank.transport import (DistMesh, SimMesh,
+                                                 dist_mesh, sim_mesh)
 from repro_torch.core.listrank import instances, analysis, tuner
 
 __all__ = [
@@ -29,6 +31,8 @@ __all__ = [
     "CorruptedState",
     "SimMesh",
     "sim_mesh",
+    "DistMesh",
+    "dist_mesh",
     "default_perm_fn",
     "perm_fn_from_numpy",
     "instances",

@@ -281,14 +281,19 @@ def _solve_sharded(succ, rank, perm_fn, *, plan: MeshPlan,
 
 def make_plan(mesh, pe_axes: Sequence[str], cfg: ListRankConfig, device,
               indirection: IndirectionSpec | None = None) -> MeshPlan:
-    """The routing plan of a solve or a tree/graph front door: the
-    virtual-PE transport on ``device`` behind a call-counting wrapper,
-    with the config's wire format, ``mailbox_pack`` and telemetry
-    flags."""
+    """The routing plan of a solve or a tree/graph front door (``mesh``
+    resolved by ``transport.resolve_backend``): the virtual-PE transport
+    for a :class:`transport.SimMesh`, the ``torch.distributed`` one for
+    a :class:`transport.DistMesh`, on ``device`` behind a call-counting
+    wrapper, with the config's wire format, ``mailbox_pack`` and
+    telemetry flags."""
     pe_axes = tuple(pe_axes)
-    transport = transport_lib.CountingTransport(
-        transport_lib.VirtualTransport(
-            pe_axes, tuple(mesh.shape[a] for a in pe_axes), device))
+    if isinstance(mesh, transport_lib.DistMesh):
+        inner = transport_lib.DistTransport.for_mesh(mesh, pe_axes, device)
+    else:
+        inner = transport_lib.VirtualTransport(
+            pe_axes, tuple(mesh.shape[a] for a in pe_axes), device)
+    transport = transport_lib.CountingTransport(inner)
     return MeshPlan.from_mesh(mesh, pe_axes, indirection,
                               wire_packing=cfg.wire_packing,
                               pallas_pack=cfg.use_pallas_pack,
@@ -300,6 +305,16 @@ def _host_array(x, dtype) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.asarray(x).astype(dtype, copy=False)
+
+
+def local_block(plan: MeshPlan, x: np.ndarray, device) -> torch.Tensor:
+    """The (p_local, m, ...) block of the whole host array ``x`` that
+    this process's PEs own, on ``device``: every process holds the whole
+    input and copies only its own block."""
+    pes = plan.local_pes
+    blocks = np.ascontiguousarray(x).reshape((plan.p, -1) + x.shape[1:])
+    return torch.from_numpy(np.ascontiguousarray(
+        blocks[pes.start:pes.stop])).to(device)
 
 
 def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
@@ -314,8 +329,12 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
 
     ``succ``/``rank`` are numpy arrays or tensors of length n (divisible
     by the PE count), block-distributed over the PEs of ``mesh`` (a
-    :class:`transport.SimMesh`). The result tensors lie on ``device``
-    (the CUDA device when None). The solve runs as the level-resumable
+    :class:`transport.SimMesh`, or a :class:`transport.DistMesh` over a
+    process group: then the call is SPMD, every rank passes the same
+    whole input and copies only its own block to its device). The result
+    tensors lie on ``device`` (the CUDA device when None; on a DistMesh,
+    ``cuda:{LOCAL_RANK % device_count}``), the whole ``(n,)`` outputs on
+    every rank. The solve runs as the level-resumable
     stage loop (:mod:`.resume`). ``perm_fn(level, pe, cap)`` supplies
     the ruler permutations (default: :func:`srs.default_perm_fn` of
     ``seed``). ``stage_counters`` records per-stage collective counts.
@@ -339,9 +358,9 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
     output, a counter or a stage's collectives.
     """
     cfg = cfg or ListRankConfig()
-    device = resolve_device(device)
     pe_axes = tuple(pe_axes) if pe_axes is not None else tuple(mesh.axis_names)
     backend, mesh = transport_lib.resolve_backend(cfg.backend, mesh, pe_axes)
+    device = resolve_device(device, mesh)
     s_host = _host_array(succ, np.int32)
     n = s_host.shape[0]
     if indirection is None and cfg.auto_indirection:
@@ -382,10 +401,8 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
                                      else np.asarray(rank).dtype)
         r_host = _host_array(rank, np.float32 if wdt == torch.float32
                              else np.int32)
-        succ_d = torch.from_numpy(np.ascontiguousarray(s_host)).reshape(
-            p, m).to(device)
-        rank_d = torch.from_numpy(np.ascontiguousarray(r_host)).reshape(
-            p, m).to(device)
+        succ_d = local_block(plan, s_host, device)
+        rank_d = local_block(plan, r_host, device)
 
         def build_level_specs(level_scales):
             return build_specs(cfg, plan, m, n, term_bound,
@@ -419,6 +436,10 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
     if tr.enabled:
         from repro_torch.obs import metrics as metrics_lib
         metrics_lib.ingest_host_stats(tr.metrics, host_stats)
+    # the whole outputs on every process: one uncounted gather (none on
+    # the virtual-PE transport), after the solve's counted stages
+    succ_f = plan.transport.gather_pes(succ_f)
+    rank_f = plan.transport.gather_pes(rank_f)
     return succ_f.reshape(n), rank_f.reshape(n), host_stats
 
 

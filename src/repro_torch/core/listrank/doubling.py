@@ -28,11 +28,11 @@ def doubling_solve(plan: MeshPlan, st: store_lib.Store,
     """Run pointer doubling over a store. Returns (store, stats); with
     ``plan.telemetry`` ``stats["telemetry"]`` is the rounds' merged
     gather-family routing record."""
-    z = torch.zeros(plan.p, dtype=torch.int32, device=plan.device)
+    z = torch.zeros(plan.p_local, dtype=torch.int32, device=plan.device)
     stats = {"pd_rounds": z, "pd_msgs": z, "pd_undelivered": z}
     if plan.telemetry:
         stats["telemetry"] = tele_lib.route_zero(
-            plan.p, plan.indirection.depth, plan.device)
+            plan.p_local, plan.indirection.depth, plan.device)
     pending, steps = 1, 0
     while pending > 0 and steps < max_steps:
         done = (st.succ == st.ids) | ~st.valid
@@ -97,6 +97,6 @@ def allgather_solve(plan: MeshPlan, st: store_lib.Store):
     out = st.replace(
         succ=torch.where(st.valid, take(succ_f, my_slots), st.succ),
         rank=torch.where(st.valid, take(r, my_slots), st.rank))
-    z = torch.zeros(plan.p, dtype=torch.int32, device=plan.device)
+    z = torch.zeros(plan.p_local, dtype=torch.int32, device=plan.device)
     stats = {"pd_rounds": z + steps, "pd_msgs": z, "pd_undelivered": z}
     return out, stats

@@ -18,9 +18,10 @@ matrix (:class:`WireFormat`), so each hop costs exactly **one**
 collective per leaf plus one for validity) is kept behind the same API;
 both paths share every index computation, so they are bit-identical.
 
-Every per-PE tensor here carries a leading PE axis of size ``p`` (see
-:mod:`.transport`): a payload leaf is ``(p, Q, *trail)``, ``dest`` and
-``valid`` are ``(p, Q)``.
+Every per-PE tensor here carries a leading PE axis of size ``p_local``
+(``p`` on the virtual-PE transport, the rank's PEs on the distributed
+one; see :mod:`.transport`): a payload leaf is ``(p, Q, *trail)``,
+``dest`` and ``valid`` are ``(p, Q)``.
 """
 from __future__ import annotations
 
@@ -69,10 +70,24 @@ class MeshPlan:
 
     @property
     def p(self) -> int:
+        """The global PE count (the algorithm's, the tuner's and the
+        cost model's ``p``)."""
         out = 1
         for s in self.axis_sizes:
             out *= s
         return out
+
+    @property
+    def p_local(self) -> int:
+        """The leading-axis size of every per-PE tensor: the PEs this
+        process holds (``p`` on the virtual-PE transport)."""
+        return self.transport.p_local
+
+    @property
+    def local_pes(self) -> range:
+        """The global ids of the PEs this process holds."""
+        first = self.transport.first_pe
+        return range(first, first + self.p_local)
 
     @property
     def device(self) -> torch.device:
@@ -88,7 +103,7 @@ class MeshPlan:
         return out
 
     def my_id(self) -> torch.Tensor:
-        """(p,) int32 flat PE ids."""
+        """(p_local,) int32 flat ids of the local PEs."""
         return self.transport.axis_index()
 
     def all_to_all(self, x: torch.Tensor, hop: tuple[str, ...],
@@ -151,8 +166,9 @@ class MeshPlan:
                   transport=None,
                   device: torch.device | str = "cpu",
                   telemetry: bool = False) -> "MeshPlan":
-        """Plan for a :class:`transport.SimMesh`; the transport defaults
-        to the virtual-PE transport on ``device``."""
+        """Plan for a :class:`transport.SimMesh` or
+        :class:`transport.DistMesh`; the transport defaults to the
+        virtual-PE transport on ``device``."""
         pe_axes = tuple(pe_axes)
         sizes = tuple(mesh.shape[a] for a in pe_axes)
         if indirection is None:
@@ -356,7 +372,7 @@ def _route_impl(plan: MeshPlan, caps: Sequence[int],
         raise ValueError(f"{len(caps)} caps for {len(hops)} hops")
     _check_payload(payload, track_src)
     user_keys = tuple(payload.keys())
-    p, dev = plan.p, plan.device
+    p, dev = plan.p_local, plan.device
 
     cur = dict(payload)
     cur["_dest"] = dest.to(torch.int32)
@@ -464,7 +480,7 @@ def _hop_sample(plan: MeshPlan, skey: torch.Tensor, s: int, cap: int,
     equal to the reference's."""
     key = ("tele", s)
     if key not in plan._consts:
-        nb, p, dev = tele_lib.HIST_BINS, plan.p, plan.device
+        nb, p, dev = tele_lib.HIST_BINS, plan.p_local, plan.device
         # bin b holds keys from ceil(b * s / nb): thresholds in key space
         edges = (torch.arange(nb + 1, dtype=torch.int64, device=dev) * s
                  + nb - 1) // nb
@@ -508,7 +524,7 @@ def _pack_scatter(plan: MeshPlan, wf: WireFormat, payload, valid, order,
         cols = [c.contiguous() for c in wf.columns(payload, valid)]
         buf = mp_ref.mailbox_pack_ref(cols, _io_slots(order, row, col, cap),
                                       n_buckets * cap)
-    return buf.reshape(plan.p, wf.width, n_buckets, cap)
+    return buf.reshape(plan.p_local, wf.width, n_buckets, cap)
 
 
 def route(plan: MeshPlan, caps: Sequence[int],

@@ -175,7 +175,8 @@ def _tele_seed(stats, plan, tele=None):
     stats = dict(stats)
     if plan.telemetry:
         stats["telemetry"] = tele if tele is not None else \
-            tele_lib.stage_zero(plan.p, plan.indirection.depth, plan.device)
+            tele_lib.stage_zero(plan.p_local, plan.indirection.depth,
+                                plan.device)
     return stats
 
 
@@ -206,7 +207,7 @@ def _prep_body(succ, rank, *, plan, cfg, spec0, m, tele=None):
     base = plan.my_id() * m
     gid = base[:, None] + torch.arange(m, dtype=torch.int32,
                                        device=succ.device)
-    stats = _tele_seed(zero_stats(plan.p, plan.device), plan, tele)
+    stats = _tele_seed(zero_stats(plan.p_local, plan.device), plan, tele)
 
     if cfg.local_contraction:
         succ_w, rank_w, rep, aux = local_lib.contract(
@@ -435,21 +436,30 @@ def solve_fingerprint(succ, rank, n: int, p: int, seed: int,
 # host-side state validation + corruption
 # --------------------------------------------------------------------------
 
-def validate_state(state, n: int) -> None:
+def validate_state(state, n: int, plan=None) -> None:
     """Invariant check of a boundary state: every valid store slot must
     hold ids/succ inside [0, n). Catches the ``corrupt`` injection's
     sentinel (and real bit-rot) before it is checkpointed or consumed by
-    the next stage. One host synchronisation."""
+    the next stage. One host synchronisation; with ``plan`` the flags
+    are summed over the ranks (``transport.rank_sum``), so that every
+    rank raises or none does."""
     checks = [(j, plane, st.valid & ((getattr(st, plane) < 0)
                                      | (getattr(st, plane) >= n)))
               for j, st in enumerate(state["stores"])
               for plane in ("ids", "succ")]
     if not checks:
         return
-    flags = torch.stack([bad.any() for _, _, bad in checks]).tolist()
-    for (j, plane, bad), any_bad in zip(checks, flags):
+    flags = torch.stack([bad.any() for _, _, bad in checks]).to(torch.int32)
+    if plan is not None:
+        flags = plan.transport.rank_sum(flags)
+    for (j, plane, bad), any_bad in zip(checks, flags.tolist()):
         if any_bad:
-            k = int(torch.nonzero(bad.reshape(-1))[0, 0])
+            hits = torch.nonzero(bad.reshape(-1))
+            if hits.numel() == 0:  # the bad slot is another rank's
+                raise faults_lib.CorruptedState(
+                    f"store {j} plane {plane!r}: invalid global id on "
+                    f"another rank (n={n})")
+            k = int(hits[0, 0])
             v = int(getattr(state["stores"][j], plane).reshape(-1)[k])
             raise faults_lib.CorruptedState(
                 f"store {j} plane {plane!r}: invalid global id {v} at slot "
@@ -469,9 +479,13 @@ def _apply_corruption(state, spec: faults_lib.FaultSpec, plan):
     return out
 
 
-def _fatal_totals(stats) -> dict:
-    """Global fatal-stat totals from per-PE stats (or post's totals)."""
+def _fatal_totals(stats, plan) -> dict:
+    """Global fatal-stat totals from per-PE stats, summed over every
+    rank (an uncounted ``transport.rank_sum``), or from post's totals,
+    which the stage's psum already made equal on every rank."""
     tot = torch.stack([stats[k].reshape(-1).sum() for k in FATAL_KEYS])
+    if stats[FATAL_KEYS[0]].dim() > 0:
+        tot = plan.transport.rank_sum(tot)
     return dict(zip(FATAL_KEYS, (int(v) for v in tot.tolist())))
 
 
@@ -531,6 +545,12 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
     headroom report.
     """
     p = plan.p
+    if plan.p_local != p and (supervisor is not None or inject is not None):
+        raise NotImplementedError(
+            "supervisor= and inject= run on the virtual-PE transport only: "
+            "checkpoints of per-rank shards under the torch.distributed "
+            "transport are a later slice (ROADMAP queue 1, beside Mamba "
+            "serving)")
     wdt = rank_d.dtype
     sched = schedule_for(cfg)
     n_levels = cfg.srs_rounds + 1
@@ -598,7 +618,7 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
         flat, _ = supervisor.restore(global_layout(like), plan.device)
         state = per_pe_layout(flat, like)
         supervisor.stats["resumed_from"] = int(meta["idx"])
-        return state, int(meta["idx"]), _fatal_totals(state["stats"])
+        return state, int(meta["idx"]), _fatal_totals(state["stats"], plan)
 
     state, idx = None, 0
     prev_fatal = {k: 0 for k in FATAL_KEYS}
@@ -651,7 +671,7 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
                                stage=stage.label, plane=cspec.plane)
                     if stage.kind != "post":
                         out_state = out = _apply_corruption(out, cspec, plan)
-                validate_state(out_state, n)
+                validate_state(out_state, n, plan)
         except (faults_lib.InjectedFault, faults_lib.CorruptedState) as e:
             crashes += 1
             if isinstance(e, faults_lib.InjectedFault):
@@ -676,7 +696,7 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
 
         if tr.enabled:
             att.annotate(**attempt_prediction(plan, cfg.machine))
-        fatal = _fatal_totals(fatal_src)
+        fatal = _fatal_totals(fatal_src, plan)
         delta = {k: fatal[k] - prev_fatal[k] for k in FATAL_KEYS}
         fam = (injector.overflow_after(stage.kind, stage.level)
                if injector is not None else None)
@@ -722,7 +742,8 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
             # state does not — and must not — carry it.
             tele_pe = (out[3] if stage.kind == "post"
                        else out_state.pop("_telemetry"))
-            agg = tele_lib.aggregate(tele_lib.to_host(tele_pe))
+            agg = tele_lib.aggregate(tele_lib.to_host(tele_pe,
+                                                      plan.transport))
             util = tele_lib.utilization(agg)
             spec_u = _stage_spec(stage, specs)
             tele_records.append(tele_lib.StageRecord(
@@ -772,6 +793,7 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
     else:  # pragma: no cover - schedule always ends with post
         raise AssertionError("schedule ended without a post stage")
 
+    # post's psum made every total equal on every rank: no further read
     keys = list(dev_stats)
     host_stats = dict(zip(keys, torch.stack(
         [dev_stats[k] for k in keys]).tolist()))

@@ -140,9 +140,13 @@ def perm_fn_from_numpy(table):
     return perm_fn
 
 
-def _perms(perm_fn, level: int, p: int, cap: int, device) -> torch.Tensor:
+def _perms(perm_fn, level: int, pes: range, cap: int,
+           device) -> torch.Tensor:
+    """The (len(pes), cap) ruler permutations of the PEs ``pes`` (their
+    global ids: a rank draws its own PEs' rulers)."""
+    p = len(pes)
     perm = torch.stack([torch.as_tensor(perm_fn(level, pe, cap)).to(
-        torch.int32) for pe in range(p)])
+        torch.int32) for pe in pes])
     if perm.shape != (p, cap):
         raise ValueError(f"perm_fn returned shape {tuple(perm.shape[1:])}, "
                          f"expected ({cap},)")
@@ -162,7 +166,7 @@ def gather_until_done(plan: MeshPlan, targets, valid, owner_of, lookup_fn,
     ``plan.telemetry`` the passes' merged routing record rides in the
     returned stats' ``"telemetry"``."""
     results, remaining = None, valid
-    msgs = torch.zeros(plan.p, dtype=torch.int32, device=plan.device)
+    msgs = torch.zeros(plan.p_local, dtype=torch.int32, device=plan.device)
     tele = _route_zero(plan)
     rn, rn_t, it = 1, None, 0
     while rn > 0 and it < max_iters:
@@ -190,7 +194,8 @@ def _route_zero(plan: MeshPlan):
     ``plan.telemetry``)."""
     if not plan.telemetry:
         return None
-    return tele_lib.route_zero(plan.p, plan.indirection.depth, plan.device)
+    return tele_lib.route_zero(plan.p_local, plan.indirection.depth,
+                               plan.device)
 
 
 def route_until_done(plan: MeshPlan, caps, payload, dest, valid,
@@ -204,7 +209,7 @@ def route_until_done(plan: MeshPlan, caps, payload, dest, valid,
     q = dest.shape[1]
     pending_t = plan.psum(_sum32(valid))
     pending, it = int(pending_t[0]), 0
-    msgs = torch.zeros(plan.p, dtype=torch.int32, device=plan.device)
+    msgs = torch.zeros(plan.p_local, dtype=torch.int32, device=plan.device)
     tele = _route_zero(plan)
     while pending > 0 and it < max_iters:
         delivered, dval, (payload, dest, valid), dropped, st = route_compact(
@@ -301,7 +306,7 @@ def _chase(plan: MeshPlan, spec: LevelSpec, owner_of, st, visited, is_ruler,
     queue compaction."""
     cap = st.cap
     qc = spec.queue_cap
-    p, dev = plan.p, plan.device
+    p, dev = plan.p_local, plan.device
     rank_dtype = st.rank.dtype
     inbox = plan.hop_size(plan.indirection.hops[-1]) * spec.mail_caps[-1]
 
@@ -514,7 +519,7 @@ def descend_level(plan: MeshPlan, cfg: ListRankConfig, spec: LevelSpec,
     everything :func:`ascend_level` needs to finish the level once the
     subproblem is solved."""
     cap = st.cap
-    p, dev = plan.p, plan.device
+    p, dev = plan.p_local, plan.device
     is_term = st.valid & (st.succ == st.ids)
     visited = is_term | ~st.valid
     is_ruler = torch.zeros_like(st.valid)
@@ -523,7 +528,7 @@ def descend_level(plan: MeshPlan, cfg: ListRankConfig, spec: LevelSpec,
         forced = torch.zeros_like(st.valid)
     forced = forced & st.valid & ~is_term
 
-    perm = _perms(perm_fn, level, p, cap, dev)
+    perm = _perms(perm_fn, level, plan.local_pes, cap, dev)
     perm = torch.cat([perm, torch.full((p, spec.spawn_window), cap,
                                        dtype=torch.int32, device=dev)], 1)
 

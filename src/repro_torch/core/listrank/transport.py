@@ -18,19 +18,47 @@ PE axis:
 Because the PE axis is an ordinary batch dimension, the CUDA kernels take
 it as their batch axis and run under this transport unchanged.
 
+:class:`DistTransport` is the ``torch.distributed`` transport, the
+counterpart of the reference's mesh backend: PEs live in separate
+processes (ranks). Rank ``r`` of a world of ``w`` owns the ``k = p / w``
+global PEs ``[r*k, (r+1)*k)`` (flattened row-major, as the reference's
+mesh flattens them), so every per-PE tensor's leading axis has size
+``k`` (``p_local``) instead of ``p``. ``k = 1`` is the reference's
+layout, one PE per device; ``k > 1`` is what fits on one card. Each
+collective is one ``torch.distributed`` call:
+
+- ``axis_index`` is the rank's own global ids;
+- ``all_to_all`` over a hop is ONE ``all_to_all_single`` with static
+  split sizes from the hop's peer map, the rows put into place by one
+  ``index_select`` on each side; peers on the same rank move by index,
+  not over the wire;
+- ``psum`` is a local sum over the ``k`` PEs, then one ``all_reduce``
+  (int32 sums wrap, as the reference's do; a float sum gathers every
+  PE's value and sums in PE order, as the virtual transport does);
+- ``all_gather`` is one ``all_gather_into_tensor``, broadcast to the
+  ``k`` local PEs.
+
+Both transports also carry two *uncounted* host reads, which are not
+collectives of the algorithm (the reference reads a global array on the
+host, which is no collective in its program): :meth:`gather_pes` (every
+PE's rows on every rank: outputs, telemetry records) and
+:meth:`rank_sum` (a host-read total equal on every rank, so that every
+rank takes the same branch).
+
 :class:`CountingTransport` wraps a transport and counts its calls and
 per-PE payload bytes per collective, so ``resume.run_staged`` can report
 how many collectives each stage issued and price them (the run-time
 counterpart of counting collectives in a traced program).
 
 :class:`SimMesh` is the device-free mesh description (axis names and
-sizes) every front door accepts.
+sizes) every front door accepts; :class:`DistMesh` (:func:`dist_mesh`)
+the same over an initialised process group.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -77,29 +105,91 @@ def sim_mesh(shape: int | Sequence[int],
     return SimMesh(axis_names=tuple(axis_names), axis_sizes=shape)
 
 
+@dataclasses.dataclass(frozen=True)
+class DistMesh:
+    """A mesh over the ranks of a ``torch.distributed`` process group:
+    axis names and sizes of the ``p`` PEs, the group (``None``: the
+    default group), the world size and this process's rank in it.
+    Rank ``r`` owns the ``pes_per_rank`` global PEs starting at
+    ``r * pes_per_rank``."""
+
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+    world: int
+    rank: int
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        SimMesh(self.axis_names, self.axis_sizes)  # the same checks
+        if self.size % self.world != 0:
+            raise ValueError(f"{self.size} PEs do not split over "
+                             f"{self.world} ranks")
+        if not 0 <= self.rank < self.world:
+            raise ValueError(f"rank {self.rank} outside world {self.world}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.axis_sizes, dtype=np.int64))
+
+    @property
+    def pes_per_rank(self) -> int:
+        return self.size // self.world
+
+
+def dist_mesh(shape: int | Sequence[int],
+              axis_names: Sequence[str] | None = None,
+              group=None) -> DistMesh:
+    """The PE mesh ``shape`` over the ranks of ``group`` (the default
+    process group when None), which must be initialised: the counterpart
+    of the reference's ``compat.make_mesh``. ``dist_mesh(8)`` over 2
+    ranks gives each rank 4 PEs on axis ``"pe"``."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("dist_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    sim = sim_mesh(shape, axis_names)
+    return DistMesh(axis_names=sim.axis_names, axis_sizes=sim.axis_sizes,
+                    world=dist.get_world_size(group),
+                    rank=dist.get_rank(group), group=group)
+
+
 def is_sim(mesh) -> bool:
     return isinstance(mesh, SimMesh)
+
+
+def backend_name(mesh) -> str:
+    """The backend label of a resolved mesh object (span annotations,
+    trace metadata); keep in sync with :func:`resolve_backend`."""
+    return "simshard" if is_sim(mesh) else "mesh"
 
 
 def resolve_backend(backend: str, mesh, pe_axes: Sequence[str]):
     """Resolve a ``ListRankConfig.backend`` against the mesh object.
 
-    Returns ``(backend, mesh)``, with any mesh-like object (``axis_names``
-    and ``shape``) swapped for its SimMesh twin when simshard is forced.
-    The ``torch.distributed`` transport (``"mesh"``) is not ported yet.
+    Returns ``(backend, mesh)``: ``"auto"`` follows the mesh object
+    (``"mesh"`` for a :class:`DistMesh`, ``"simshard"`` for a
+    :class:`SimMesh`); ``"simshard"`` swaps any mesh-like object (``axis_
+    names`` and ``shape``) for its SimMesh twin; ``"mesh"`` rejects a
+    SimMesh, as the reference does, and needs a DistMesh.
     """
     pe_axes = tuple(pe_axes)
     if backend == "auto":
         backend = "simshard" if is_sim(mesh) else "mesh"
-    if backend == "mesh":
-        raise NotImplementedError(
-            "the torch.distributed transport (backend='mesh') is not "
-            "ported yet; pass a SimMesh or backend='simshard'")
-    if backend != "simshard":
-        raise ValueError(f"unknown transport backend {backend!r}")
-    if not is_sim(mesh):
+    if backend == "simshard" and not is_sim(mesh):
         mesh = SimMesh(axis_names=pe_axes,
                        axis_sizes=tuple(mesh.shape[a] for a in pe_axes))
+    elif backend == "mesh" and is_sim(mesh):
+        raise ValueError("backend='mesh' requires a real device mesh; "
+                         "got a SimMesh (use backend='auto'/'simshard')")
+    elif backend == "mesh" and not isinstance(mesh, DistMesh):
+        raise TypeError(f"backend='mesh' runs over a DistMesh "
+                        f"(dist_mesh); got {type(mesh).__name__}")
+    elif backend not in ("mesh", "simshard"):
+        raise ValueError(f"unknown transport backend {backend!r}")
     return backend, mesh
 
 
@@ -109,6 +199,36 @@ def _strides(sizes: Sequence[int]) -> list[int]:
         out.append(acc)
         acc *= s
     return out[::-1]
+
+
+def hop_sources(pe_axes: Sequence[str], axis_sizes: Sequence[int],
+                hop: Sequence[str]):
+    """Static maps of one hop over all ``p`` PEs: ``src[j, b]`` is the
+    PE whose mailbox row ``coord[j]`` lands in row ``b`` of PE ``j``'s
+    receive buffer (the peer with hop coordinate ``b`` and ``j``'s other
+    coords)."""
+    pe_axes, axis_sizes = tuple(pe_axes), tuple(axis_sizes)
+    strides = _strides(axis_sizes)
+    p = int(np.prod(axis_sizes, dtype=np.int64))
+    pe = np.arange(p, dtype=np.int64)
+    coord = np.zeros_like(pe)
+    rest = pe.copy()
+    s = 1
+    for a in hop:
+        i = pe_axes.index(a)
+        c = (pe // strides[i]) % axis_sizes[i]
+        coord = coord * axis_sizes[i] + c
+        rest -= c * strides[i]
+        s *= axis_sizes[i]
+    # hop coordinate b -> its contribution to the flat PE id
+    b = np.arange(s, dtype=np.int64)
+    contrib = np.zeros(s, np.int64)
+    for a in reversed(hop):
+        i = pe_axes.index(a)
+        contrib += (b % axis_sizes[i]) * strides[i]
+        b = b // axis_sizes[i]
+    src = rest[:, None] + contrib[None, :]
+    return src, coord
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -125,34 +245,13 @@ class VirtualTransport:
     def p(self) -> int:
         return int(np.prod(self.axis_sizes, dtype=np.int64))
 
+    #: every PE is local: the leading axis of every tensor has size p
+    p_local = p
+    first_pe = 0
+
     def axis_index(self) -> torch.Tensor:
         """(p,) int32: every PE's own flat id."""
         return torch.arange(self.p, dtype=torch.int32, device=self.device)
-
-    def _hop_sources(self, hop: Sequence[str]):
-        """Static maps of one hop: ``src[j, b]`` is the PE whose mailbox
-        row ``coord[j]`` lands in row ``b`` of PE ``j``'s receive buffer
-        (the peer with hop coordinate ``b`` and ``j``'s other coords)."""
-        strides = _strides(self.axis_sizes)
-        pe = np.arange(self.p, dtype=np.int64)
-        coord = np.zeros_like(pe)
-        rest = pe.copy()
-        s = 1
-        for a in hop:
-            i = self.pe_axes.index(a)
-            c = (pe // strides[i]) % self.axis_sizes[i]
-            coord = coord * self.axis_sizes[i] + c
-            rest -= c * strides[i]
-            s *= self.axis_sizes[i]
-        # hop coordinate b -> its contribution to the flat PE id
-        b = np.arange(s, dtype=np.int64)
-        contrib = np.zeros(s, np.int64)
-        for a in reversed(hop):
-            i = self.pe_axes.index(a)
-            contrib += (b % self.axis_sizes[i]) * strides[i]
-            b = b // self.axis_sizes[i]
-        src = rest[:, None] + contrib[None, :]
-        return src, coord
 
     def all_to_all(self, x: torch.Tensor, hop: Sequence[str],
                    axis: int) -> torch.Tensor:
@@ -161,7 +260,7 @@ class VirtualTransport:
         split and concatenated, as ``lax.all_to_all(..., tiled=True)``."""
         hop = tuple(hop)
         if hop not in self._perm:
-            src, coord = self._hop_sources(hop)
+            src, coord = hop_sources(self.pe_axes, self.axis_sizes, hop)
             s = src.shape[1]
             # receive row (j, b) <- send row (src[j, b], coord[j])
             flat = (src * s + coord[:, None]).reshape(-1)
@@ -186,6 +285,163 @@ class VirtualTransport:
         flat = x.reshape((1, -1) + tuple(x.shape[2:]))
         return flat.expand((self.p,) + tuple(flat.shape[1:]))
 
+    def gather_pes(self, x: torch.Tensor) -> torch.Tensor:
+        """Every PE's rows, (p, ...): ``x`` itself (uncounted)."""
+        return x
+
+    def rank_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A host-read total over the ranks: ``x`` itself (uncounted)."""
+        return x
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the collectives take it: contiguous, bool as uint8."""
+    x = x.contiguous()
+    return x.view(torch.uint8) if x.dtype == torch.bool else x
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DistTransport:
+    """The PEs of one rank of a process group; collectives are
+    ``torch.distributed`` calls over the group (see the module doc).
+    Every tensor's leading axis holds the rank's ``p_local`` PEs."""
+
+    pe_axes: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+    device: torch.device
+    world: int
+    rank: int
+    group: Any = None
+    #: per-hop maps (split sizes, device index maps), built once per hop
+    _maps: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @classmethod
+    def for_mesh(cls, mesh: DistMesh, pe_axes: Sequence[str], device):
+        pe_axes = tuple(pe_axes)
+        return cls(pe_axes, tuple(mesh.shape[a] for a in pe_axes),
+                   torch.device(device), mesh.world, mesh.rank, mesh.group)
+
+    @property
+    def p(self) -> int:
+        return int(np.prod(self.axis_sizes, dtype=np.int64))
+
+    @property
+    def p_local(self) -> int:
+        return self.p // self.world
+
+    @property
+    def first_pe(self) -> int:
+        return self.rank * self.p_local
+
+    def axis_index(self) -> torch.Tensor:
+        """(k,) int32: the rank's own global PE ids."""
+        return torch.arange(self.first_pe, self.first_pe + self.p_local,
+                            dtype=torch.int32, device=self.device)
+
+    def _hop_maps(self, hop: tuple[str, ...]):
+        """(s, send index, send splits, receive index, receive splits)
+        of one hop on this rank. Receive row (j, b) comes from send row
+        (src[j, b], coord[j]); rows between two ranks travel in the
+        receiver's row order, so both sides derive the same layout."""
+        if hop in self._maps:
+            return self._maps[hop]
+        src, coord = hop_sources(self.pe_axes, self.axis_sizes, hop)
+        k, r = self.p_local, self.rank
+        p, s = src.shape
+        dst = np.repeat(np.arange(p), s)              # receiving PE j
+        snd = src.reshape(-1)                         # sending PE
+        snd_row = (snd % k) * s + coord[dst]          # row in its buffer
+        dst_rank, snd_rank = dst // k, snd // k
+        # send: rows this rank ships to other ranks, grouped by receiver
+        out = (snd_rank == r) & (dst_rank != r)
+        order = np.argsort(dst_rank[out], kind="stable")
+        send_idx = snd_row[out][order]
+        send_splits = np.bincount(dst_rank[out], minlength=self.world)
+        # receive: this rank's rows in order, from the wire (grouped by
+        # sender, receiver order within) or, for local senders, by index
+        mine = dst_rank == r
+        from_rank = snd_rank[mine]
+        wire = from_rank != r
+        recv_splits = np.bincount(from_rank[wire], minlength=self.world)
+        n_recv = int(recv_splits.sum())
+        pos = np.empty(from_rank.shape[0], np.int64)
+        # the wire delivers sender by sender, each in this rank's row
+        # order: a row's place is its rank in a stable sort by sender
+        by_sender = np.argsort(from_rank[wire], kind="stable")
+        wire_pos = np.empty_like(by_sender)
+        wire_pos[by_sender] = np.arange(by_sender.shape[0])
+        pos[wire] = wire_pos
+        pos[~wire] = n_recv + snd_row[mine][~wire]
+        dev = self.device
+        maps = (s, torch.as_tensor(send_idx, device=dev),
+                send_splits.tolist(), torch.as_tensor(pos, device=dev),
+                recv_splits.tolist())
+        self._maps[hop] = maps
+        return maps
+
+    def all_to_all(self, x: torch.Tensor, hop: Sequence[str],
+                   axis: int) -> torch.Tensor:
+        """Tiled all_to_all over the axis group ``hop`` (as
+        :meth:`VirtualTransport.all_to_all`, on the rank's (k, ...)
+        slice): one ``all_to_all_single``."""
+        import torch.distributed as dist
+        hop = tuple(hop)
+        s, send_idx, send_splits, recv_idx, recv_splits = self._hop_maps(hop)
+        ax = axis + 1
+        if x.shape[ax] != s:
+            raise ValueError(f"mailbox axis has size {x.shape[ax]}, hop "
+                             f"{hop} has {s} peers")
+        xm = x.movedim(ax, 1)                       # (k, s, ...)
+        rows = _wire(xm.reshape((self.p_local * s,) + xm.shape[2:]))
+        send = rows.index_select(0, send_idx)
+        recv = rows.new_empty((sum(recv_splits),) + rows.shape[1:])
+        dist.all_to_all_single(recv, send, recv_splits, send_splits,
+                               group=self.group)
+        out = torch.cat([recv, rows]).index_select(0, recv_idx)
+        if x.dtype == torch.bool:
+            out = out.view(torch.bool)
+        return out.reshape(xm.shape).movedim(1, ax)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(k, ...) on every rank -> (p, ...): one all_gather."""
+        import torch.distributed as dist
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+        wx = _wire(x)
+        out = wx.new_empty((self.world * wx.shape[0],) + wx.shape[1:])
+        gather(out, wx, group=self.group)
+        return out.view(torch.bool) if x.dtype == torch.bool else out
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over every PE, broadcast back to the rank's PEs (dtype
+        kept: int32 sums wrap like the reference's)."""
+        import torch.distributed as dist
+        if x.is_floating_point():
+            tot = self._gather(x).sum(dim=0, keepdim=True, dtype=x.dtype)
+        else:
+            tot = x.sum(dim=0, keepdim=True, dtype=x.dtype)
+            dist.all_reduce(tot, group=self.group)
+        return tot.expand_as(x)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Tiled gather over every PE: (k, c, ...) -> (k, p*c, ...)."""
+        flat = self._gather(x).reshape((1, -1) + tuple(x.shape[2:]))
+        return flat.expand((self.p_local,) + tuple(flat.shape[1:]))
+
+    def gather_pes(self, x: torch.Tensor) -> torch.Tensor:
+        """Every PE's rows on every rank, (p, ...): one all_gather that
+        no counter sees (a host read, not a collective of the
+        algorithm)."""
+        return self._gather(x)
+
+    def rank_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks (one uncounted all_reduce): a
+        host-read total, equal on every rank."""
+        import torch.distributed as dist
+        tot = x.clone()
+        dist.all_reduce(tot, group=self.group)
+        return tot
+
 
 class CountingTransport:
     """Wraps a transport; counts every collective call by name.
@@ -193,9 +449,12 @@ class CountingTransport:
     ``counts`` is a ``collections.Counter`` over ``all_to_all``,
     ``psum`` and ``all_gather`` (``axis_index`` is not a collective);
     ``nbytes`` the same over each call's payload bytes per PE, the
-    input's ``numel() * element_size() // p`` (the reference's simshard
-    normalization). Both read tensor metadata only: no device work, no
-    synchronisation. ``resume.run_staged`` clears them per stage."""
+    input's ``numel() * element_size()`` over the PEs its leading axis
+    holds (``p_local``: p on the virtual transport, the rank's PEs on the
+    distributed one), so a stage's bytes per PE are the same on both.
+    Both read tensor metadata only: no device work, no synchronisation.
+    ``resume.run_staged`` clears them per stage. The uncounted host
+    reads (``gather_pes``, ``rank_sum``) pass through."""
 
     def __init__(self, inner):
         self.inner = inner
@@ -203,11 +462,14 @@ class CountingTransport:
         self.nbytes: collections.Counter = collections.Counter()
 
     p = property(lambda self: self.inner.p)
+    p_local = property(lambda self: self.inner.p_local)
+    first_pe = property(lambda self: self.inner.first_pe)
     device = property(lambda self: self.inner.device)
 
     def _count(self, prim: str, x) -> None:
         self.counts[prim] += 1
-        self.nbytes[prim] += x.numel() * x.element_size() // self.inner.p
+        self.nbytes[prim] += (x.numel() * x.element_size()
+                              // self.inner.p_local)
 
     def clear(self) -> None:
         self.counts.clear()
@@ -233,3 +495,9 @@ class CountingTransport:
     def all_gather(self, x):
         self._count("all_gather", x)
         return self.inner.all_gather(x)
+
+    def gather_pes(self, x):
+        return self.inner.gather_pes(x)
+
+    def rank_sum(self, x):
+        return self.inner.rank_sum(x)

@@ -75,7 +75,7 @@ def _build_sharded(parent, cut: int, *, plan, m: int, child_cap: int,
     (p,) ``tour_undelivered`` / ``tour_msgs`` counters — with
     ``plan.telemetry`` a 4th element, the rounds' per-PE telemetry record
     (graph family; never psum'd)."""
-    p, dev = plan.p, plan.device
+    p, dev = plan.p_local, plan.device
     base = (plan.my_id() * m)[:, None]
     gid = base + torch.arange(m, dtype=torch.int32, device=dev)
     q = parent
@@ -183,7 +183,8 @@ def build_tour(parent, mesh, pe_axes=None, cfg: ListRankConfig | None = None,
         behind :func:`repro_torch.core.treealg.ops.root_tree`. Requires
         a single-tree input.
       device: where the tour is built (the CUDA device when None; without
-        CUDA that raises).
+        CUDA that raises). On a ``DistMesh`` every rank passes the whole
+        parent array and builds its own block of the tour.
       tracer: records a ``build_tour`` span with one ``build_tour#k``
         attempt span per construction attempt; with ``cfg.telemetry``
         the tour span carries the rounds' graph-family StageRecord.
@@ -192,13 +193,14 @@ def build_tour(parent, mesh, pe_axes=None, cfg: ListRankConfig | None = None,
       (succ, weight, n_pad): (2*n_pad,) int32 tensors on ``device`` — a
       list-ranking instance over the arc ids, block-sharded like the
       nodes — and the padded node count. Slots of padding/root nodes are
-      weight-0 self-loops.
+      weight-0 self-loops. On a ``DistMesh`` every rank gets the whole
+      tour (one uncounted gather), the input the list front door takes.
     """
     cfg = cfg or ListRankConfig()
-    device = resolve_device(device)
     pe_axes = tuple(pe_axes) if pe_axes is not None else tuple(mesh.axis_names)
     backend, mesh = transport_lib.resolve_backend(cfg.backend, mesh,
                                                   pe_axes)
+    device = resolve_device(device, mesh)
     parent_np = _host_parent(parent)
     n = parent_np.shape[0]
     if n == 0:
@@ -221,8 +223,7 @@ def build_tour(parent, mesh, pe_axes=None, cfg: ListRankConfig | None = None,
     parent_pad = np.concatenate([parent_np, np.arange(n, n + pad)])
     n_pad = n + pad
     m = n_pad // p
-    parent_d = torch.from_numpy(parent_pad.astype(np.int32)).reshape(
-        p, m).to(device)
+    parent_d = api_lib.local_block(plan, parent_pad.astype(np.int32), device)
     cut = int(cut_at) if closed else -1
 
     cap1, cap2 = tour_caps(parent_pad, p)
@@ -244,7 +245,8 @@ def build_tour(parent, mesh, pe_axes=None, cfg: ListRankConfig | None = None,
             if ok:
                 util = {}
                 if plan.telemetry:
-                    agg = tele_lib.aggregate(tele_lib.to_host(out[3]))
+                    agg = tele_lib.aggregate(tele_lib.to_host(
+                        out[3], plan.transport))
                     util = tele_lib.utilization(agg)
                     tour_span.annotate(
                         telemetry=tele_lib.StageRecord(
@@ -253,6 +255,8 @@ def build_tour(parent, mesh, pe_axes=None, cfg: ListRankConfig | None = None,
                             tele=agg).to_json())
                 tr.end(att, wall_s=dt, outcome="committed", **util)
                 tour_span.annotate(attempts=attempt + 1, outcome="ok")
+                succ = plan.transport.gather_pes(succ)
+                w = plan.transport.gather_pes(w)
                 return succ.reshape(2 * n_pad), w.reshape(2 * n_pad), n_pad
             tr.end(att, wall_s=dt, outcome="overflow")
             cap1, cap2 = 2 * cap1, 2 * cap2  # defensive: caps are exact

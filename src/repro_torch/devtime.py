@@ -166,8 +166,11 @@ def window(fn: Callable, torch, cats=DEVICE_CATS):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
     events = trace_events(prof, cats=tuple(cats) + ("user_annotation",))
+    # the span's CPU range (a window that also reads GPU annotations
+    # holds its GPU-side copy too)
     (start, end), = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                     for e in events if e["name"] == SPAN]
+                     for e in events if e["name"] == SPAN
+                     and e["cat"] == "user_annotation"]
     return result, [e for e in events if e["cat"] in cats
                     and e["name"] != SPAN
                     and start <= float(e["ts"]) <= end], wall

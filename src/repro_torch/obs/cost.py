@@ -30,7 +30,9 @@ Pricing rule (the same alpha-beta decomposition as
 - ``words = payload_bytes / 8`` (beta is per 8-byte word).
   ``per_pe_scale`` converts recorded bytes to per-PE bytes: the
   reference's simshard jaxpr records p x the per-PE payload and passes
-  ``1/p``; the port's transport records per-PE bytes already (scale 1).
+  ``1/p``; both of the port's transports (virtual-PE and
+  ``torch.distributed``) record per-PE bytes already, so every stage is
+  priced at scale 1, as the reference prices a mesh stage.
 
 Pricing is host arithmetic over counts the transport kept anyway: it
 adds no collective and no device work.
@@ -92,7 +94,8 @@ def predict_stage(footprint: dict, plan, machine,
     """Stage prediction from a ``MeshPlan`` (hop sizes + p) — the form
     the resume-loop instrumentation uses. ``sim`` divides the recorded
     bytes by p, the reference's simshard normalization (see module
-    doc); the port's footprints are per-PE already."""
+    doc); the port's footprints are per-PE already on both transports,
+    so it prices every stage as the reference prices a mesh stage."""
     return predict_footprint(
         footprint, plan.p, hop_sizes_of(plan), machine,
         per_pe_scale=(1.0 / plan.p) if sim else 1.0)

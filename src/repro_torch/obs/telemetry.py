@@ -196,11 +196,15 @@ def store_fill(p: int, depth: int, demand, cap: int):
 # the one device-to-host copy of a stage's record
 # --------------------------------------------------------------------------
 
-def to_host(tele) -> dict:
+def to_host(tele, transport=None) -> dict:
     """A record of per-PE tensors as numpy arrays of the same shapes,
     through ONE device-to-host copy: every leaf's 32-bit words are laid
     side by side in one int32 tensor (float32 leaves bit-cast, not
-    converted), copied, and split again on the host."""
+    converted), copied, and split again on the host. With a
+    ``transport`` whose leading axis holds only this process's PEs (the
+    ``torch.distributed`` one), that buffer is first gathered from every
+    rank in one uncounted call (``transport.gather_pes``), so the arrays
+    cover all p PEs, as the virtual-PE transport's do."""
     leaves: list[tuple[tuple, torch.Tensor]] = []
 
     def walk(node, path):
@@ -217,7 +221,11 @@ def to_host(tele) -> dict:
         if v.dtype not in (torch.int32, torch.float32):
             raise TypeError(f"telemetry leaf of dtype {v.dtype}")
         words.append(v.contiguous().view(torch.int32).reshape(p, -1))
-    flat = torch.cat(words, 1).cpu().numpy()
+    flat = torch.cat(words, 1)
+    if transport is not None:
+        flat = transport.gather_pes(flat)
+    flat = flat.cpu().numpy()
+    p = flat.shape[0]
     out: dict = {}
     off = 0
     for (path, v), w in zip(leaves, words):
@@ -229,7 +237,8 @@ def to_host(tele) -> dict:
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(arr).reshape(tuple(v.shape))
+        node[path[-1]] = np.ascontiguousarray(arr).reshape(
+            (p,) + tuple(v.shape[1:]))
     return out
 
 

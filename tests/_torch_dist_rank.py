@@ -1,0 +1,258 @@
+"""Rank processes for the ``torch.distributed`` transport's tests.
+
+:class:`RankPool` spawns ``world`` processes once (``spawn`` start
+method, ``init_method="file://..."`` in a temporary directory, so no TCP
+port is involved) and runs jobs in all of them: every rank gets the same
+job and arguments, as an SPMD program's ranks do, and the pool returns
+each rank's result, or raises with a rank's traceback, or raises
+``TimeoutError`` (and closes the pool) when a job outlasts its timeout.
+
+This module is what the ranks import: torch, numpy and ``repro_torch``
+only, never jax or the JAX package. Inputs (instances, the reference's
+ruler permutations) arrive as numpy arrays from the parent.
+"""
+from __future__ import annotations
+
+import datetime
+import multiprocessing as mp
+import os
+import queue as queue_lib
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+
+#: seconds a rank waits in one collective before gloo gives up (a rank
+#: that raised leaves its peers waiting)
+COLLECTIVE_TIMEOUT_S = 120
+
+
+class RankPool:
+    """``world`` rank processes of one process group, kept across jobs."""
+
+    def __init__(self, world: int, backend: str = "gloo",
+                 device: str = "cpu", start_timeout: float = 120.0):
+        self.world = world
+        ctx = mp.get_context("spawn")
+        self._tmp = tempfile.mkdtemp(prefix="rankpool")
+        init = "file://" + os.path.join(self._tmp, "store")
+        self._jobs = [ctx.Queue() for _ in range(world)]
+        self._results = ctx.Queue()
+        self._procs = [ctx.Process(
+            target=_serve, args=(r, world, backend, device, init,
+                                 self._jobs[r], self._results), daemon=True)
+            for r in range(world)]
+        for pr in self._procs:
+            pr.start()
+        self.closed = False
+        self.run("ready", timeout=start_timeout)
+
+    def run(self, job: str, *args, timeout: float = 60.0) -> list:
+        """Run ``job`` (a function of this module's ``JOBS``) with
+        ``args`` on every rank; each rank's result, in rank order."""
+        if self.closed:
+            raise RuntimeError("the rank pool is closed")
+        for q in self._jobs:
+            q.put((job, args))
+        got: dict = {}
+        deadline = time.monotonic() + timeout
+        while len(got) < self.world:
+            try:
+                rank, ok, out = self._results.get(timeout=0.5)
+            except queue_lib.Empty:
+                dead = {r: pr.exitcode for r, pr in enumerate(self._procs)
+                        if pr.exitcode is not None}
+                if dead or time.monotonic() > deadline:
+                    self.close()
+                    raise TimeoutError(
+                        f"job {job!r}: ranks exited {dead}" if dead else
+                        f"job {job!r}: no result from ranks "
+                        f"{sorted(set(range(self.world)) - set(got))} "
+                        f"within {timeout} s")
+                continue
+            if not ok:
+                self.close()
+                raise RuntimeError(f"job {job!r} failed on rank {rank}:\n"
+                                   f"{out}")
+            got[rank] = out
+        return [got[r] for r in range(self.world)]
+
+    def close(self) -> None:
+        """Stop every rank (a clean exit if they are idle, else killed)
+        and remove the rendezvous directory."""
+        if self.closed:
+            return
+        self.closed = True
+        for q in self._jobs:
+            q.put(None)
+        for pr in self._procs:
+            pr.join(timeout=10)
+            if pr.is_alive():
+                pr.kill()
+                pr.join(timeout=10)
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+
+def _serve(rank, world, backend, device, init, jobs, results):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(
+        backend, init_method=init, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    try:
+        while True:
+            item = jobs.get()
+            if item is None:
+                break
+            name, args = item
+            try:
+                results.put((rank, True, JOBS[name](device, *args)))
+            except Exception:  # reported to the parent, which fails
+                results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# jobs (run on every rank; ``device`` is the pool's)
+# --------------------------------------------------------------------------
+
+def _ready(device):
+    return {"jax": "jax" in sys.modules,
+            "repro": any(m == "repro" or m.startswith("repro.")
+                         for m in sys.modules)}
+
+
+def _mesh(shape, axis_names):
+    from repro_torch.core.listrank import dist_mesh
+    return dist_mesh(tuple(shape), tuple(axis_names))
+
+
+def _host_stats(stats: dict) -> dict:
+    """The picklable part of a front door's stats."""
+    keep = {}
+    for k, v in stats.items():
+        if isinstance(v, (int, float, str, tuple, list, dict)):
+            keep[k] = v
+    return keep
+
+
+def _perm_fn(table):
+    from repro_torch.core.listrank import perm_fn_from_numpy
+    return perm_fn_from_numpy(table) if table is not None else None
+
+
+def _solve(device, succ, rank, shape, axis_names, cfg, table, kw):
+    """``rank_list_with_stats`` over the process group; the whole outputs
+    and the stats, with the kernels' launch counts."""
+    from repro_torch.core.listrank import rank_list_with_stats
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
+    kw = dict(kw)
+    tracer = None
+    if kw.pop("tracer", False):
+        from repro_torch import obs
+        tracer = obs.Tracer()
+    s, r, st = rank_list_with_stats(
+        succ, rank, _mesh(shape, axis_names), cfg=cfg, device=device,
+        perm_fn=_perm_fn(table), tracer=tracer, **kw)
+    out = {"succ": s.cpu().numpy(), "rank": r.cpu().numpy(),
+           "stats": _host_stats(st),
+           "launches": {"local_chase": lc_ops.LAUNCHES,
+                        "mailbox_pack": mp_ops.LAUNCHES}}
+    if tracer is not None:
+        out["spans"] = [(sp.name, sp.cat, dict(sp.args))
+                        for sp in tracer.spans]
+    return out
+
+
+def _refusals(device, shape, axis_names):
+    """What a DistMesh refuses (supervision and fault injection), and
+    the meshes ``launch/mesh.py`` makes over the group."""
+    from repro_torch.core.listrank import (FaultSpec, instances,
+                                           rank_list_with_stats)
+    from repro_torch.runtime.fault_tolerance import (SolveSupervisor,
+                                                     SolveSupervisorConfig)
+    succ, rank = instances.gen_list(64, gamma=1.0, seed=1)
+    mesh = _mesh(shape, axis_names)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, kw in (
+                ("supervisor", {"supervisor": SolveSupervisor(
+                    SolveSupervisorConfig(ckpt_dir=tmp))}),
+                ("inject", {"inject": FaultSpec("pe_loss", stage="prep")})):
+            try:
+                rank_list_with_stats(succ, rank, mesh, device=device, **kw)
+                out[what] = None
+            except NotImplementedError as exc:
+                out[what] = str(exc)
+    from repro_torch.launch import mesh as mesh_lib
+    out["meshes"] = {
+        name: ((m.axis_names, m.axis_sizes), m.pes_per_rank)
+        for name, m in (("listrank", mesh_lib.make_listrank_mesh()),
+                        ("listrank_k4", mesh_lib.make_listrank_mesh(4)),
+                        ("host", mesh_lib.make_host_mesh()))}
+    return out
+
+
+def _collectives(device, shape, axis_names, cases):
+    """Each collective of ``DistTransport`` on this rank's block of the
+    whole (p, ...) inputs: ``cases`` is a list of (op, args, x) with op
+    one of ``all_to_all`` (args: hop, axis), ``psum``, ``all_gather``,
+    ``gather_pes``; returns this rank's outputs, and the counting
+    wrapper's counts and bytes per PE."""
+    import torch
+    from repro_torch.core.listrank import transport as tl
+    mesh = _mesh(shape, axis_names)
+    tr = tl.CountingTransport(tl.DistTransport.for_mesh(
+        mesh, mesh.axis_names, device))
+    k, first = tr.p_local, tr.first_pe
+    outs = []
+    for op, args, x in cases:
+        xl = torch.from_numpy(x[first:first + k]).to(device)
+        if op == "all_to_all":
+            y = tr.all_to_all(xl, tuple(args[0]), args[1])
+        else:
+            y = getattr(tr, op)(xl)
+        outs.append(y.cpu().numpy())
+    return {"outs": outs, "ids": tr.axis_index().cpu().numpy(),
+            "footprint": tr.footprint()}
+
+
+def _tree_graph(device, parent, edges, n_nodes, shape, axis_names, cfg,
+                seed):
+    """``tree_stats``, ``root_tree``, ``solve_forest``, ``graph_stats``
+    (traced) and ``spanning_forest`` over the process group."""
+    from repro_torch import obs
+    from repro_torch.core import graphalg, treealg
+    mesh = _mesh(shape, axis_names)
+    ts = treealg.tree_stats(parent, mesh, cfg=cfg, seed=seed, device=device)
+    tracer = obs.Tracer()
+    gs = graphalg.graph_stats(edges, n_nodes, mesh, cfg=cfg, seed=seed,
+                              device=device, tracer=tracer)
+    tree = {k: getattr(ts, k) for k in ("depth", "subtree_size", "preorder",
+                                        "postorder", "root_of")}
+    graph = {k: getattr(gs, k) for k in ("components", "parent", "depth",
+                                         "subtree_size", "preorder",
+                                         "postorder")}
+    (span,) = tracer.find(cat="solve")
+    rooted = treealg.root_tree(parent, 7, mesh, cfg=cfg, seed=seed,
+                               device=device)
+    forest = treealg.solve_forest([parent[:50], parent[:50]], mesh,
+                                  cfg=cfg, seed=seed, device=device)
+    span_parent, labels, _ = graphalg.spanning_forest(
+        edges, n_nodes, mesh, cfg=cfg, seed=seed, device=device)
+    return {"tree": tree, "tree_stats": _host_stats(ts.stats),
+            "root_tree": rooted, "forest_depth": [f.depth for f in forest],
+            "spanning_forest": (span_parent, labels),
+            "graph": graph, "graph_stats": _host_stats(gs.stats),
+            "graph_span_backend": span.args.get("backend")}
+
+
+JOBS = {"ready": _ready, "solve": _solve, "refusals": _refusals,
+        "collectives": _collectives, "tree_graph": _tree_graph}

@@ -580,6 +580,41 @@ def test_telemetry_and_tracing_cuda_change_nothing(cuda, monkeypatch):
     assert st1["telemetry"] == st2["telemetry"]
 
 
+# ------------------------------------------------ the distributed transport
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_dist_solve_cuda_equals_the_virtual_transport(cuda, backend, world):
+    """At 2^20, p = 8, kernels on: a solve over ``world`` spawned ranks on
+    the card (gloo with CUDA tensors, 4 PEs a rank; NCCL at world size 1,
+    every PE on one rank) gives the virtual transport's outputs, counters
+    and per-stage collectives, with each kernel launched as often on
+    every rank as in the virtual solve."""
+    from _torch_dist_rank import RankPool
+    from repro_torch.core.listrank import (ListRankConfig, instances,
+                                           rank_list_with_stats, sim_mesh)
+    succ, rank = instances.gen_list(1 << 20, gamma=1.0, seed=3)
+    cfg = ListRankConfig(use_pallas=True, use_pallas_pack=True)
+    lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
+    s0, r0, st0 = rank_list_with_stats(succ, rank, sim_mesh(8), cfg=cfg,
+                                       device=cuda, stage_counters=True)
+    launches = {"local_chase": lc_ops.LAUNCHES,
+                "mailbox_pack": mp_ops.LAUNCHES}
+    assert launches["local_chase"] == 1 and launches["mailbox_pack"] > 0
+    pool = RankPool(world, backend=backend, device="cuda:0")
+    try:
+        outs = pool.run("solve", succ, rank, (8,), ("pe",), cfg, None,
+                        {"stage_counters": True}, timeout=300)
+    finally:
+        pool.close()
+    for out in outs:
+        np.testing.assert_array_equal(out["succ"], s0.cpu().numpy())
+        np.testing.assert_array_equal(out["rank"], r0.cpu().numpy())
+        assert {k: v for k, v in out["stats"].items() if isinstance(v, int)
+                } == _int_stats(st0)
+        assert out["stats"]["stage_collectives"] == st0["stage_collectives"]
+        assert out["launches"] == launches
+
+
 # ------------------------------------------------------------ fault tolerance
 @pytest.mark.torch_cuda
 def test_checkpoint_cuda_tree_round_trips_onto_the_card(cuda, tmp_path):

@@ -8,8 +8,8 @@
   injected;
 - an int and a float instance match the oracle at p in {8, 64};
 - the front door's contract: CUDA by default, supervision, fault
-  injection, the tracer and the telemetry plane run, the
-  ``torch.distributed`` backend raises.
+  injection, the tracer and the telemetry plane run, ``backend="mesh"``
+  refuses a SimMesh.
 """
 import numpy as np
 import pytest
@@ -137,7 +137,9 @@ def test_stage_counters_count_collectives_per_stage():
 def test_front_door_contract(monkeypatch, tmp_path):
     succ, rank = instances.gen_list(64, gamma=1.0, seed=1)
     mesh = sim_mesh(4)
-    with pytest.raises(NotImplementedError):
+    # a SimMesh is no device mesh: backend="mesh" refuses it, as the
+    # reference does (the torch.distributed transport runs on a DistMesh)
+    with pytest.raises(ValueError, match="requires a real device mesh"):
         rank_list_with_stats(succ, rank, mesh, device="cpu",
                              cfg=ListRankConfig(backend="mesh"))
     # the tracer and the telemetry plane run, and change nothing
