@@ -132,7 +132,24 @@ Phases, each fatal on failure:
    layout at 2^18 tree nodes and 2^14 graph nodes, each equal to the
    virtual transport's on the same input. The parent joins its ranks
    with a timeout; any rank's failure fails the phase. No number here
-   is communication between cards: there is one card.
+   is communication between cards: there is one card;
+17. the SSM serving path: (a) ``flash_attention`` at hymba's heads (Hq
+   25, Hkv 5, D 64, window 1024), prefill at Lq = Lk = 2048 and 4096 in
+   bf16 and f32 and split-K decode at per-slot offsets around the
+   window's edge over 4096 keys, and ``ssd_scan`` at hymba's SSD shape
+   (Bt 1, L 4096, H 50, P 64, G 1, N 16, chunk 128) in bf16 and f32,
+   each against its plain version, with kernel, plain and (attention)
+   masked-SDPA times and the bound; (b) mamba2-130m and (c) hymba-1.5b
+   at full width and depth (bf16, kernels on) served through the engine
+   (8 slots, 16 requests of 32..1024 and 32..3000 tokens, 32 new tokens
+   each; every request answered, every token in the vocabulary; mamba2
+   launches no kernel, as the reference serves it, hymba
+   ``flash_attention`` on every attention call); prefill ms per bucket,
+   decode ms per tick, tokens/s and peak memory; (d) in float32 (TF32
+   off), kernels on, the engine's admission (a prefill with the prompt's
+   valid length) and 17 teacher-forced decode steps against ``forward``
+   (atol 2e-3, rtol 1e-3), and hymba's forward with kernels on against
+   off.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -268,7 +285,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-16 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-17 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -596,6 +613,19 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
             kern[f"launches_dist_{part}"] = results["dist"][part][
                 "launches"].get(kern["name"], 0)
 
+    # --------------------------------------------------------- phase 17
+    t_phase = time.perf_counter()
+    fa_entry["hymba"], ssd_entry["hymba"] = ssm_kernels_phase(dev)
+    results["ssm_serve"] = {
+        arch: ssm_serve_phase(dev, arch, max_seq, max_prompt)
+        for arch, max_seq, max_prompt, _ in SSM_SERVE}
+    for kern in kernels:
+        for arch, res in results["ssm_serve"].items():
+            kern[f"launches_serve_{arch}"] = res["launches"][kern["name"]]
+    results["ssm_exact"] = ssm_exactness_phase(dev)
+    results["ssm_phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: {results['ssm_phase_s']:.1f} s")
+
     results["card"] = card
     results["kernels"] = kernels
     if out_path:
@@ -876,16 +906,21 @@ SERVE_ARCH = "tinyllama-1.1b"
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_MAX_NEW, SERVE_REQUESTS = 8, 2048, 32, 16
 
 
-def attention_bound(b, hq, hkv, lq, d, offsets, lk, elem_bytes):
-    """(bound ms, what bounds it) of causal attention: 4*D operations per
-    unmasked (q, k) pair at the bf16 tensor peak; bytes of q, o and the
-    K/V rows some query keeps, each moved once."""
-    pos = np.asarray(offsets, np.int64)[:, None] + np.arange(lq)
-    pairs = int(np.clip(pos + 1, 0, lk).sum())
-    kv_rows = int(np.clip(pos.max(axis=1) + 1, 0, lk).sum())
-    nbytes = elem_bytes * (2 * b * hq * lq * d + 2 * hkv * kv_rows * d)
+def attention_bound(b, hq, hkv, lq, d, offsets, lk, elem_bytes, window=None,
+                    ops_per_s=None):
+    """(bound ms, what bounds it) of causal attention, over the last
+    ``window`` keys if given: 4*D operations per unmasked (q, k) pair at
+    ``ops_per_s`` (the bf16 tensor peak by default); bytes of q, o and
+    the K/V rows some query keeps, each moved once."""
     from repro_torch.devtime import BF16_OPS_PER_S, bound_ms
-    return bound_ms(nbytes, 4 * hq * d * pairs, BF16_OPS_PER_S)
+    pos = np.asarray(offsets, np.int64)[:, None] + np.arange(lq)
+    lo = np.zeros_like(pos) if window is None else pos - window + 1
+    lo = np.clip(lo, 0, lk)
+    pairs = int((np.clip(pos + 1, 0, lk) - lo).clip(0).sum())
+    kv_rows = int((np.clip(pos.max(axis=1) + 1, 0, lk)
+                   - lo.min(axis=1)).clip(0).sum())
+    nbytes = elem_bytes * (2 * b * hq * lq * d + 2 * hkv * kv_rows * d)
+    return bound_ms(nbytes, 4 * hq * d * pairs, ops_per_s or BF16_OPS_PER_S)
 
 
 def sdpa_backend(fn, torch) -> tuple[list[str], dict]:
@@ -1027,21 +1062,27 @@ def flash_attention_phase(dev):
 
 
 # ---------------------------------------------------------------- phase 9
-def serve_phase(dev) -> dict:
-    """Phase 9: tinyllama-1.1b at full width served through the engine."""
+def serve_traffic(dev, phase: int, cfg, max_seq: int, max_prompt: int) -> dict:
+    """Serve ``SERVE_REQUESTS`` requests (prompts of 32..``max_prompt``
+    tokens from ``default_rng(0)``, ``SERVE_MAX_NEW`` tokens each) over
+    ``SERVE_SLOTS`` slots of ``max_seq`` with ``cfg`` (random weights from
+    seed ``SEED``) through the engine; every request answered with tokens
+    in the vocabulary. Each kernel's launches are counted from 0 just
+    before the run; prefill and decode calls are timed between syncs."""
     import torch
-    from repro_torch import configs
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
-    cfg = configs.get_config(SERVE_ARCH).with_(use_kernels=True)
     params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
     eng = ServingEngine(params, cfg, ServeConfig(
-        slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+        slots=SERVE_SLOTS, max_seq=max_seq,
         max_new_tokens=SERVE_MAX_NEW), device=dev)
     rng = np.random.default_rng(0)
-    lengths = rng.integers(32, 1025, SERVE_REQUESTS)
+    lengths = rng.integers(32, max_prompt + 1, SERVE_REQUESTS)
     for uid, n in enumerate(lengths):
         eng.submit(Request(uid=uid, prompt=rng.integers(
             2, cfg.vocab_size, n).astype(np.int32)))
@@ -1063,49 +1104,67 @@ def serve_phase(dev) -> dict:
         int(a[1].shape[1]), []).append(ms))
     eng._decode = timed(eng._decode, lambda a, ms: decode_ms.append(ms))
     torch.cuda.reset_peak_memory_stats(dev)
-    fa_ops.LAUNCHES = 0
+    mods = {"local_chase": lc_ops, "mailbox_pack": mp_ops,
+            "flash_attention": fa_ops, "ssd_scan": ssd_ops}
+    for mod in mods.values():
+        mod.LAUNCHES = 0
     t0 = time.perf_counter()
     out = eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa_ops.LAUNCHES
+    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
 
     n_prefill = sum(len(v) for v in prefill_ms.values())
     ticks = len(decode_ms)
     tokens = sum(len(v) for v in out.values())
     if sorted(out) != list(range(SERVE_REQUESTS)) or n_prefill != SERVE_REQUESTS:
-        fail(f"serving: {len(out)} requests answered, {n_prefill} prefills")
+        fail(f"serving {cfg.name}: {len(out)} requests answered, {n_prefill} "
+             "prefills")
     for uid, toks in out.items():
         if not 1 <= len(toks) <= SERVE_MAX_NEW or not all(
                 0 <= t < cfg.vocab_size for t in toks):
-            fail(f"serving: request {uid} returned {toks}")
-    need = cfg.num_layers * (n_prefill + ticks)
-    if launches < need:
-        fail(f"serving: flash_attention launched {launches} times, the path "
-             f"has {need} attention calls")
+            fail(f"serving {cfg.name}: request {uid} returned {toks}")
     res = {"arch": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "requests": SERVE_REQUESTS,
-           "prompt_lengths": lengths.tolist(), "prefills": n_prefill,
-           "decode_ticks": ticks, "generated_tokens": tokens,
-           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "max_seq": max_seq, "prompt_lengths": lengths.tolist(),
+           "prefills": n_prefill, "decode_ticks": ticks,
+           "generated_tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
            "prefill_ms_median": {b: statistics.median(v)
                                  for b, v in sorted(prefill_ms.items())},
            "prefill_ms": {b: v for b, v in sorted(prefill_ms.items())},
            "decode_ms_median": statistics.median(decode_ms),
            "decode_ms": decode_ms, "launches": launches,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
-    log(f"phase 9: served {SERVE_REQUESTS} requests with {cfg.name} "
+    log(f"phase {phase}: served {SERVE_REQUESTS} requests with {cfg.name} "
         f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{str(cfg.dtype).removeprefix('torch.')}, kernels on):"
         f" {n_prefill} prefills, {ticks} decode ticks, {tokens} tokens in "
-        f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; flash_attention "
-        f"launches {launches} >= {need}")
+        f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; launches {launches}")
     log("  prefill ms per bucket (median of n): " + ", ".join(
         f"{b}: {statistics.median(v):.2f} (n={len(v)})"
         for b, v in sorted(prefill_ms.items())))
     log(f"  decode ms per tick: median {res['decode_ms_median']:.3f}, min "
         f"{min(decode_ms):.3f}, max {max(decode_ms):.3f}; peak memory "
         f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    del params, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_phase(dev) -> dict:
+    """Phase 9: tinyllama-1.1b at full width served through the engine,
+    ``flash_attention`` on every attention call."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(SERVE_ARCH).with_(use_kernels=True)
+    res = serve_traffic(dev, 9, cfg, SERVE_MAX_SEQ, 1024)
+    need = cfg.num_layers * (res["prefills"] + res["decode_ticks"])
+    res["launches"] = res["launches"]["flash_attention"]
+    if res["launches"] < need:
+        fail(f"serving: flash_attention launched {res['launches']} times, "
+             f"the path has {need} attention calls")
+    log(f"phase 9: flash_attention launches {res['launches']} >= {need}")
     return res
 
 
@@ -1173,21 +1232,22 @@ SSD_MAIN = (8, 1024, 24, 1, 128, 64, 256)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
 
 
-def ssd_bound(bt, l, h, g, n, p, chunk, elem_bytes, skip=True):
+def ssd_bound(bt, l, h, g, n, p, chunk, elem_bytes, skip=True,
+              ops_per_s=None):
     """(bound ms, what bounds it) of the chunked scan. Operations: per
     (batch, head) and chunk of r rows, C B^T and W (dt x) over the causal
     triangle only, 2 (N + P) per pair s <= t and r (r + 1) / 2 pairs (the
     masked half is not work, as attention_bound counts only unmasked
     pairs), then C S and the state update (2 r N P each), at the bf16
-    tensor peak. Bytes: x, y, B, C in ``elem_bytes``, dt, A and D in
-    float32, each moved once."""
+    tensor peak (or ``ops_per_s``). Bytes: x, y, B, C in ``elem_bytes``,
+    dt, A and D in float32, each moved once."""
     q = min(chunk, l)
     rows = [q] * (l // q) + ([l % q] if l % q else [])
     ops = bt * h * sum(r * (r + 1) * (n + p) + 4 * r * n * p for r in rows)
     nbytes = (elem_bytes * (2 * bt * l * h * p + 2 * bt * l * g * n)
               + 4 * (bt * l * h + h * (2 if skip else 1)))
     from repro_torch.devtime import BF16_OPS_PER_S, bound_ms
-    return bound_ms(nbytes, ops, BF16_OPS_PER_S)
+    return bound_ms(nbytes, ops, ops_per_s or BF16_OPS_PER_S)
 
 
 def ssd_scan_phase(dev):
@@ -2258,6 +2318,265 @@ def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
         f"attempts; the ranks took {ranks_s:.1f} s with start-up [{card}]")
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 16: {res['phase_s']:.1f} s")
+    return res
+
+
+# --------------------------------------------------------------- phase 17
+#: the SSM serving phase's models: (arch, max_seq, longest prompt, the
+#: exactness prompt's length)
+SSM_SERVE = (("mamba2-130m", 2048, 1024, 1000), ("hymba-1.5b", 4096, 3000,
+                                                 1500))
+#: hymba's attention: Hq, Hkv, D, window; its prefill lengths (Lq = Lk)
+HYMBA_ATTN, HYMBA_PREFILL_L = (25, 5, 64, 1024), (2048, 4096)
+#: hymba's split-K decode: per-slot offsets around the window's edge, Lk
+HYMBA_DECODE_OFFSETS, HYMBA_DECODE_LK = (100, 1023, 1024, 1025, 3000,
+                                         4095), 4096
+#: hymba's SSD shape: (Bt, L, H, G, N, P, chunk)
+HYMBA_SSD = (1, 4096, 50, 1, 16, 64, 128)
+
+
+def ops_rate(dt, torch) -> float:
+    """The card's peak operations a second for inputs of dtype ``dt``: the
+    bf16 tensor cores, or float32 outside them."""
+    from repro_torch.devtime import BF16_OPS_PER_S, FP32_OPS_PER_S
+    return BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+
+
+def window_mask(lq, lk, offsets, window, dev, torch):
+    """(B, 1, Lq, Lk) bool: causal from each row's offset, the last
+    ``window`` keys kept (SDPA's mask for the windowed attention)."""
+    pos = torch.tensor(offsets, device=dev)[:, None] + torch.arange(
+        lq, device=dev)
+    key = torch.arange(lk, device=dev)
+    keep = (key <= pos[..., None]) & (key > pos[..., None] - window)
+    return keep[:, None]
+
+
+def ssm_kernels_phase(dev) -> tuple[dict, dict]:
+    """Phase 17 (a): ``flash_attention`` and ``ssd_scan`` at hymba's shapes
+    against their plain versions, with kernel, plain and (attention) SDPA
+    times and the kernel's bound. Returns (flash rows, ssd rows)."""
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import ATTN_TOL, SSD_TOL, ssd_inputs
+    from repro_torch import devtime
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    hq, hkv, d, win = HYMBA_ATTN
+    g = torch.Generator(device=dev).manual_seed(17)
+    cases = [("prefill", l, dt, 1, l, [0]) for l in HYMBA_PREFILL_L
+             for dt in (torch.bfloat16, torch.float32)]
+    cases.append(("decode", 1, torch.bfloat16, len(HYMBA_DECODE_OFFSETS),
+                  HYMBA_DECODE_LK, list(HYMBA_DECODE_OFFSETS)))
+    fa_rows = {}
+    for kind, lq, dt, b, lk, offs in cases:
+        q = torch.randn((b, hq, lq, d), generator=g, device=dev).to(dt)
+        k = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dt)
+        v = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dt)
+        off = offs[0] if kind == "prefill" else torch.tensor(
+            offs, dtype=torch.int32, device=dev)
+        kw = dict(window=win, q_offset=off)
+        mask = window_mask(lq, lk, offs, win, dev, torch)
+
+        def library_call():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        out = fa_ops.flash_attention(q, k, v, **kw).float()
+        want = fa_ref.attention_ref(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        err = max_abs_err(out, want, torch)
+        name = f"{kind}_{lq if kind == 'prefill' else lk}_" \
+            f"{str(dt).removeprefix('torch.')}"
+        if not torch.allclose(out, want, **ATTN_TOL[dt]):
+            fail(f"phase 17 (a): flash_attention {name} differs from its "
+                 f"plain version by {err}")
+        if kind == "decode":
+            parts = fa_ref.attention_split_ref(
+                q, k, v, part_len=fa_ops.decode_part_len(
+                    lk, fa_ops.decode_splits(
+                        b, hkv, hq // hkv, lk, torch.cuda
+                        .get_device_properties(dev).multi_processor_count)),
+                **kw).float()
+            if not torch.allclose(out, parts, **ATTN_TOL[dt]):
+                fail("phase 17 (a): the split-K decode differs from its plain "
+                     f"split-and-merge by {max_abs_err(out, parts, torch)}")
+        lib = library_call().float()
+        if not torch.allclose(lib, want, **ATTN_TOL[torch.bfloat16]):
+            fail(f"phase 17 (a): the SDPA yardstick computes another "
+                 f"function ({name}: {max_abs_err(lib, want, torch)})")
+        del out, want, lib
+        ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), torch)
+        plain = time_ms(lambda: fa_ref.attention_ref(q, k, v, **kw), torch,
+                        reps=5)
+        lib_ms = time_ms(library_call, torch, reps=5)
+        kname = "f32" if dt == torch.float32 else f"{kind}_bf16"
+        dev_ms = device_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
+                           torch, devtime.EXPECT[f"flash_attention_{kname}"])
+        bnd, by = attention_bound(b, hq, hkv, lq, d, offs, lk,
+                                  q.element_size(), window=win,
+                                  ops_per_s=ops_rate(dt, torch))
+        fa_rows[name] = {"b": b, "lq": lq, "lk": lk, "offsets": offs,
+                         "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                         "plain_ms": plain, "library_ms": lib_ms,
+                         "bound_ms": bnd, "bound_by": by}
+        log(f"phase 17 (a): flash_attention {name} B={b} Hq={hq} Hkv={hkv} "
+            f"D={d} window={win} Lq={lq} Lk={lk}"
+            + (f" offsets {offs}" if kind == "decode" else "")
+            + f": max |err| {err:.3g} (tolerance {ATTN_TOL[dt]}); kernel "
+              f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), plain "
+              f"{plain:.4f} ms, SDPA (masked) {lib_ms:.4f} ms, bound "
+              f"{bnd:.4f} ms by {by}")
+        del q, k, v, mask
+    torch.cuda.empty_cache()
+
+    bt, l, h, gr, n, p, chunk = HYMBA_SSD
+    ssd_rows = {}
+    for dt, tol in ((torch.bfloat16, dict(atol=2e-2, rtol=2e-2)),
+                    (torch.float32, SSD_TOL)):
+        name = str(dt).removeprefix("torch.")
+        args = [t.to(dev) for t in ssd_inputs(bt, l, h, gr, n, p, seed=17,
+                                              dtype=dt)]
+        out = ssd_ops.ssd_scan(*args, chunk)
+        want = ssd_ref.ssd_ref(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(out.float(), want.float(), torch)
+        if not torch.allclose(out.float(), want.float(), **tol):
+            fail(f"phase 17 (a): ssd_scan {name} at hymba's shape differs "
+                 f"from its plain version by {err}")
+        ms = time_ms(lambda: ssd_ops.ssd_scan(*args, chunk), torch)
+        kind = "bf16" if dt == torch.bfloat16 else "f32"
+        dev_ms = device_ms(lambda: ssd_ops.ssd_scan(*args, chunk), torch,
+                           devtime.EXPECT[f"ssd_scan_{kind}"])
+        plain = time_ms(lambda: ssd_ref.ssd_chunked_ref(*args, chunk=chunk),
+                        torch, reps=5)
+        bnd, by = ssd_bound(*HYMBA_SSD, args[0].element_size(),
+                            ops_per_s=ops_rate(dt, torch))
+        ssd_rows[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                          "plain_ms": plain, "bound_ms": bnd, "bound_by": by}
+        log(f"phase 17 (a): ssd_scan {name} Bt={bt} L={l} H={h} P={p} G={gr} "
+            f"N={n} Q={chunk}: max |err| {err:.3g} (tolerance {tol}); kernel "
+            f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), ssd_chunked_ref "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms by {by}")
+        del out, want, args
+    torch.cuda.empty_cache()
+    return fa_rows, ssd_rows
+
+
+def ssm_serve_phase(dev, arch: str, max_seq: int, max_prompt: int) -> dict:
+    """Phase 17 (b), (c): ``arch`` at full width and depth (bfloat16,
+    kernels on) served through the engine. mamba2-130m's serving path
+    launches no kernel (the reference's: the prefill through
+    ``ssd_chunked_ref``, the decode through ``ssd_decode_step``); hymba's
+    launches ``flash_attention`` on every attention call."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch).with_(use_kernels=True)
+    part = "b" if cfg.family == "mamba" else "c"
+    res = serve_traffic(dev, 17, cfg, max_seq, max_prompt)
+    launches = res["launches"]
+    if launches["ssd_scan"] or launches["local_chase"] \
+            or launches["mailbox_pack"]:
+        fail(f"phase 17 ({part}): {cfg.name}'s serving path launched "
+             f"{launches}")
+    if cfg.family == "mamba":
+        if launches["flash_attention"]:
+            fail(f"phase 17 (b): {cfg.name} launched flash_attention")
+        log(f"phase 17 (b): {cfg.name} serves as the reference does, through "
+            "no kernel: the prefill through ssd_chunked_ref, the decode "
+            "through ssd_decode_step (plain torch)")
+    else:
+        need = cfg.num_layers * (res["prefills"] + res["decode_ticks"])
+        if launches["flash_attention"] < need:
+            fail(f"phase 17 (c): flash_attention launched "
+                 f"{launches['flash_attention']} times, the path has {need} "
+                 "attention calls")
+        log(f"phase 17 (c): flash_attention launches "
+            f"{launches['flash_attention']} >= {need} (every attention call, "
+            f"window {cfg.local_window} on {sum(cfg.is_local_flags)} of "
+            f"{cfg.num_layers} layers); ssd_scan 0: the SSM branch serves "
+            "through ssd_chunked_ref and ssd_decode_step, as in the "
+            "reference")
+    return res
+
+
+def ssm_exactness_phase(dev) -> dict:
+    """Phase 17 (d): in float32 (TF32 off), kernels on, the engine's path —
+    its admission's prefill with the valid length, then the last prompt
+    token and 16 teacher-forced tokens through ``decode_step`` — against
+    ``forward`` on the same tokens (right-padded to a whole number of SSD
+    chunks: causal, so the padding changes no kept logit); and hymba's
+    forward with kernels on against off."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps, res = 16, {}
+    for arch, max_seq, _, plen in SSM_SERVE:
+        cfg = configs.get_config(arch).with_(dtype=torch.float32,
+                                             use_kernels=True)
+        params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+        rng = np.random.default_rng(7)
+        toks = rng.integers(2, cfg.vocab_size, plen + steps).astype(np.int32)
+        eng = ServingEngine(params, cfg, ServeConfig(
+            slots=1, max_seq=max_seq, max_new_tokens=steps), device=dev)
+        eng.submit(Request(uid=0, prompt=toks[:plen]))
+        fa_ops.LAUNCHES = ssd_ops.LAUNCHES = 0
+        eng._admit()
+        if eng.pos[0] != plen - 1:
+            fail(f"phase 17 (d): admission left position {eng.pos[0]}")
+        got = []
+        for i in range(plen - 1, plen + steps):
+            lg, _ = M.decode_step(params, torch.from_numpy(
+                toks[i:i + 1]).to(dev)[None], i, cfg, eng.cache)
+            got.append(lg[:, 0])
+        got = torch.cat(got)
+        path_launches = {"flash_attention": fa_ops.LAUNCHES,
+                         "ssd_scan": ssd_ops.LAUNCHES}
+        total = plen + steps
+        padded = -(-total // cfg.ssm_chunk) * cfg.ssm_chunk
+        batch = np.zeros((1, padded), np.int32)
+        batch[0, :total] = toks
+        batch = {"tokens": torch.from_numpy(batch).to(dev)}
+        with torch.no_grad():
+            full, _ = M.forward(params, batch, cfg)
+        want = full[0, plen - 1:total]
+        torch.cuda.synchronize()
+        diff = max_abs_err(got, want, torch)
+        row = {"prompt": plen, "steps": steps, "max_abs_diff": diff,
+               "launches": path_launches}
+        log(f"phase 17 (d): {cfg.name} float32, kernels on: admission "
+            f"prefill of a {plen}-token prompt (valid length {plen - 1}) + "
+            f"{steps + 1} decode steps against forward: max |logits diff| "
+            f"{diff:.3g}; launches {path_launches}")
+        if not torch.allclose(got, want, atol=2e-3, rtol=1e-3):
+            fail(f"phase 17 (d): {cfg.name}'s engine path differs from "
+                 f"forward by {diff}")
+        if cfg.family == "hybrid":
+            with torch.no_grad():
+                off, _ = M.forward(params, batch, cfg.with_(use_kernels=False))
+            torch.cuda.synchronize()
+            row["forward_on_off_max_abs_diff"] = d_on_off = max_abs_err(
+                full[0, :total], off[0, :total], torch)
+            log(f"phase 17 (d): {cfg.name} forward on {total} tokens, "
+                f"kernels on against off: max |logits diff| {d_on_off:.3g}")
+            if not torch.allclose(full[0, :total], off[0, :total], atol=2e-3,
+                                  rtol=1e-3):
+                fail(f"phase 17 (d): {cfg.name}'s forward with kernels on "
+                     f"differs from off by {d_on_off}")
+            del off
+        res[arch] = row
+        del params, eng, full, got, want
+        torch.cuda.empty_cache()
     return res
 
 

@@ -3,9 +3,9 @@
 The JAX package's ten architectures (see DESIGN.md) as data, each with
 its full-size CONFIG and a reduced SMOKE config of the same family for
 CPU tests. The five dense decoders (tinyllama, gemma2, qwen2.5,
-phi4-mini, pixtral) run in the port, and mamba2-130m runs its forward
-(training, not serving); the MoE, hybrid and encdec configs raise
-NotImplementedError when a model is built from them.
+phi4-mini, pixtral), mamba2-130m and hymba-1.5b run in the port; the MoE
+and encdec configs raise NotImplementedError when a model is built from
+them.
 """
 from __future__ import annotations
 

@@ -16,6 +16,9 @@ masked by the kernel. By dtype:
 on the card, whatever the number of kernels). The backward goes through
 the sequential ``ssd_ref`` and never through ``ssd_chunked_ref``, whose
 masked exponentials give NaN gradients at long sequences.
+
+:func:`ssd_decode_step`, the serving path's one-token state update, is
+plain torch, as it is plain jnp in the JAX package: no kernel reaches it.
 """
 from __future__ import annotations
 
@@ -155,3 +158,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _check(x, dt, A, B, C, D, chunk)
     return _SSDScan.apply(x, dt, A, B, C, D, min(chunk, max(x.shape[1], 1)))
 
+
+def ssd_decode_step(x, dt, A, B, C, D, state):
+    """Single-token decode: update the (Bt, H, N, P) float32 state and emit
+    y, as ``repro.kernels.ssd_scan.ops.ssd_decode_step``.
+
+    x: (Bt, H, P); dt: (Bt, H); A, D: (H,); B, C: (Bt, G, N). Returns
+    (y in x's dtype, the new float32 state)."""
+    h = x.shape[1]
+    rep = h // B.shape[1]
+    xf = x.float()
+    dtf = dt.float()
+    Bf = B.float().repeat_interleave(rep, dim=1)
+    Cf = C.float().repeat_interleave(rep, dim=1)
+    decay = torch.exp(dtf * A.float())[..., None, None]
+    upd = (dtf[..., None] * Bf)[..., None] * xf[..., None, :]
+    state = decay * state.float() + upd
+    y = torch.einsum("bhn,bhnp->bhp", Cf, state)
+    if D is not None:
+        y = y + D.float()[None, :, None] * xf
+    return y.to(x.dtype), state

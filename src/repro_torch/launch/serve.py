@@ -3,9 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --requests 12 --max-new 32 --device cpu
 
-Runs on the CUDA device unless ``--device`` says otherwise;
-``--use-kernels`` sends attention through the ``flash_attention`` kernel
-(its plain version on the CPU).
+Serves every family the port runs: the dense decoders, mamba2-130m and
+hymba-1.5b (``--arch mamba2-130m`` / ``--arch hymba-1.5b``). Runs on the
+CUDA device unless ``--device`` says otherwise; ``--use-kernels`` sends
+attention through the ``flash_attention`` kernel (its plain version on the
+CPU). The SSM branches serve through plain torch, as in the JAX package.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Model building blocks of the dense decoder and the Mamba-2 stack, in
-PyTorch.
+"""Model building blocks of the dense decoder, the Mamba-2 stack and the
+Hymba hybrid, in PyTorch.
 
 Every block has a ``*_specs(cfg)`` (ParamSpec tree) and an apply function
 on plain tensors, as in the JAX package. Attention goes to the
@@ -7,8 +7,10 @@ on plain tensors, as in the JAX package. Attention goes to the
 version otherwise; the Mamba-2 mixer without a cache goes to the
 ``ssd_scan`` kernel when ``cfg.use_kernels`` and to ``ssd_chunked_ref``
 otherwise. Both kernels are differentiable (backward through their plain
-versions). The Mamba-2 cache paths (prefill, decode) belong to the
-mamba-serving slice; the MoE and cross-attention blocks to later slices.
+versions). With a cache the mixer serves as the JAX package's does: the
+prefill through ``ssd_chunked_ref(return_state=True)``, the decode through
+the plain ``ssd_decode_step``. The MoE and cross-attention blocks are
+later slices.
 """
 from __future__ import annotations
 
@@ -189,8 +191,10 @@ def swiglu(p, x):
 # Mamba-2 mixer
 # ---------------------------------------------------------------------------
 
-MAMBA_SERVING = ("the mamba-serving slice of the port (SSM cache, "
-                 "ssd_decode_step, chunked prefill)")
+
+class SSMCache(NamedTuple):
+    conv: torch.Tensor   # (B, K-1, conv_dim), the model dtype
+    state: torch.Tensor  # (B, H, N, P) float32; the model stacks layers
 
 
 def _mamba_dims(cfg):
@@ -217,24 +221,44 @@ def mamba_specs(cfg):
     }
 
 
-def _causal_conv(x, w, b):
-    """x: (B, L, C) depthwise causal conv, kernel (K, C)."""
+def _causal_conv(x, w, b, cache=None):
+    """x: (B, L, C) depthwise causal conv, kernel (K, C), after the K - 1
+    inputs in ``cache`` (zeros without one). Returns (out, x_pad): the
+    inputs with their K - 1 predecessors in front."""
     k = w.shape[0]
-    x_pad = F.pad(x, (0, 0, k - 1, 0))
-    return sum(x_pad[:, i:i + x.shape[1]] * w[i] for i in range(k)) + b
+    x_pad = F.pad(x, (0, 0, k - 1, 0)) if cache is None else \
+        torch.cat([cache, x], dim=1)
+    out = sum(x_pad[:, i:i + x.shape[1]] * w[i] for i in range(k)) + b
+    return out, x_pad
 
 
-def mamba_mixer(p, x, cfg, *, cache=None):
-    """Mamba-2 block body without a cache (the training and full-sequence
-    forward). x: (B, L, D) -> ((B, L, D), None)."""
-    if cache is not None:
-        raise NotImplementedError(f"mamba_mixer with a cache: {MAMBA_SERVING}")
+def mamba_mixer(p, x, cfg, *, cache: SSMCache | None = None,
+                valid_len: int | None = None):
+    """Mamba-2 block body. x: (B, L, D) -> ((B, L, D), cache).
+
+    Without a cache, the full-sequence forward: the ``ssd_scan`` kernel when
+    ``cfg.use_kernels``, ``ssd_chunked_ref`` otherwise. With this layer's
+    cache, as the JAX package: one token (L = 1) advances the state through
+    ``ssd_decode_step``; a prefill (L > 1) convolves after ``cache.conv``
+    and scans from a zero state through ``ssd_chunked_ref`` with
+    ``return_state``, whatever ``cache.state`` holds. Both update the cache
+    IN PLACE and return it (the JAX package returns a new one), as
+    :func:`attention` does with its KV cache.
+
+    ``valid_len`` (prefill only): the inputs from that position on are
+    padding. Their dt is 0, so exp(dt A) = 1 and the update is 0: the
+    state stops at ``valid_len``; the conv cache takes the K - 1 inputs
+    that end there. Without it every position is valid, as in the JAX
+    package.
+    """
     b, l, d = x.shape
     d_inner, h, conv_dim = _mamba_dims(cfg)
     g, n, pdim = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
     zxbcdt = x @ p["in_proj"]
     z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, conv_dim, h], dim=-1)
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xbc, x_pad = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+                              None if cache is None else cache.conv)
+    xbc = F.silu(xbc)
     xin, bmat, cmat = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
@@ -242,11 +266,70 @@ def mamba_mixer(p, x, cfg, *, cache=None):
     xh = xin.reshape(b, l, h, pdim).contiguous()
     bh = bmat.reshape(b, l, g, n).contiguous()
     ch = cmat.reshape(b, l, g, n).contiguous()
-    if cfg.use_kernels:
+    if cache is not None and l == 1:
+        y, state = ssd_ops.ssd_decode_step(xh[:, 0], dt[:, 0], a, bh[:, 0],
+                                           ch[:, 0], p["d_skip"], cache.state)
+        y = y[:, None]
+        cache.conv.copy_(x_pad[:, 1:])
+        cache.state.copy_(state)
+    elif cache is not None:
+        end = l if valid_len is None else valid_len
+        if end < l:
+            dt = torch.where(torch.arange(l, device=x.device)[:, None] < end,
+                             dt, 0.0)
+        y, state = ssd_ref.ssd_chunked_ref(xh, dt, a, bh, ch, p["d_skip"],
+                                           chunk=cfg.ssm_chunk,
+                                           return_state=True)
+        # the conv cache holds the last K-1 *pre-conv* inputs
+        cache.conv.copy_(x_pad[:, end:end + cfg.ssm_conv - 1])
+        cache.state.copy_(state)
+    elif cfg.use_kernels:
         y = ssd_ops.ssd_scan(xh, dt, a, bh, ch, p["d_skip"], cfg.ssm_chunk)
     else:
         y = ssd_ref.ssd_chunked_ref(xh, dt, a, bh, ch, p["d_skip"],
                                     chunk=cfg.ssm_chunk)
     y = y.reshape(b, l, d_inner)
     y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"], None
+    return y @ p["out_proj"], cache
+
+
+def init_ssm_cache(cfg, batch, dtype, device):
+    """A zero SSM cache: the conv tail in ``dtype``, the state in float32.
+    ``batch``: the leading dims, an int or a tuple (the model stacks its
+    layers in front: ``(n_layers, B)``)."""
+    _, h, conv_dim = _mamba_dims(cfg)
+    lead = (batch,) if isinstance(batch, int) else tuple(batch)
+    return SSMCache(
+        conv=torch.zeros(lead + (cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                         device=device),
+        state=torch.zeros(lead + (h, cfg.ssm_state, cfg.ssm_head_dim),
+                          dtype=torch.float32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Hymba mixer: parallel attention + SSM heads (arXiv:2411.13676)
+# ---------------------------------------------------------------------------
+
+
+def hymba_specs(cfg):
+    return {
+        "attn": attention_specs(cfg),
+        "mamba": mamba_specs(cfg),
+        "norm_attn": rms_norm_spec(cfg.d_model),
+        "norm_ssm": rms_norm_spec(cfg.d_model),
+    }
+
+
+def hymba_mixer(p, x, cfg, *, positions, is_local=None, cache=None,
+                cache_pos=None, valid_len: int | None = None):
+    """Parallel attention and SSM heads, each output normalised, then
+    averaged (the paper's beta-weighted mean with beta = 1). ``cache``: this
+    layer's (KVCache, SSMCache), both updated in place, or None."""
+    kv, ssm = cache if cache is not None else (None, None)
+    attn_out, kv = attention(p["attn"], x, cfg, positions=positions,
+                             is_local=is_local, cache=kv, cache_pos=cache_pos)
+    ssm_out, ssm = mamba_mixer(p["mamba"], x, cfg, cache=ssm,
+                               valid_len=valid_len)
+    out = 0.5 * (rms_norm(p["norm_attn"], attn_out, cfg.norm_eps)
+                 + rms_norm(p["norm_ssm"], ssm_out, cfg.norm_eps))
+    return out, None if cache is None else (kv, ssm)

@@ -1,5 +1,6 @@
-"""The model zoo in PyTorch: the dense/GQA decoder family (forward,
-prefill, decode) and the attention-free Mamba-2 stack (forward).
+"""The model zoo in PyTorch: the dense/GQA decoder family, the
+attention-free Mamba-2 stack (mamba) and the parallel attention + SSM
+heads of Hymba (hybrid), each with forward, prefill and decode.
 
 The configuration and the parameter tree are the JAX package's
 (``repro.models.model``): the same ``ModelConfig`` fields and defaults,
@@ -11,10 +12,13 @@ differentiable (the training path, ``repro_torch.train.steps``).
 checkpointing, and autograd keeps every layer's activations. mamba2-130m
 trains at batch 8 x 1024 tokens in bf16 on one 80 GB card without it.
 
-The mamba family runs ``forward`` only: its cache paths (``init_cache``,
-``prefill``, ``decode_step``) are the mamba-serving slice. The MoE FFN
-and the hybrid and encdec families raise ``NotImplementedError``: they
-are later slices of the port.
+The serving cache is the JAX package's pytree with layers stacked in
+front: a ``KVCache`` (decoder), an ``SSMCache`` (mamba), or the tuple
+``(KVCache, SSMCache)`` (hybrid). Prefill and decode update it in place.
+``prefill`` takes a ``valid_len`` that stops the SSM state at the end of a
+right-padded prompt (the serving engine's admission); without it the
+prefill is the JAX package's. The MoE FFN and the encdec family raise
+``NotImplementedError``: they are later slices of the port.
 """
 from __future__ import annotations
 
@@ -102,17 +106,9 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-def _require_ported(cfg: ModelConfig, serving: bool = False) -> None:
-    """Raise for what the port does not run yet: the hybrid, encdec and
-    MoE models, and (``serving``) the mamba family's cache paths."""
-    if cfg.family == "mamba":
-        if serving:
-            raise NotImplementedError(f"{cfg.name}: {L.MAMBA_SERVING}")
-        return
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family (parallel attention and SSM "
-            "heads) is a later slice of the port")
+def _require_ported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not run yet: the encdec and MoE
+    models."""
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{cfg.name}: the encdec family (encoder, cross-attention) is a "
@@ -120,7 +116,7 @@ def _require_ported(cfg: ModelConfig, serving: bool = False) -> None:
     if cfg.moe:
         raise NotImplementedError(
             f"{cfg.name}: the MoE FFN is a later slice of the port")
-    if cfg.family != "decoder":
+    if cfg.family not in ("decoder", "hybrid", "mamba"):
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -133,10 +129,11 @@ def _block_specs(cfg: ModelConfig):
     if cfg.family == "mamba":  # no FFN, no norm_ffn
         return {"norm_mixer": L.rms_norm_spec(cfg.d_model),
                 "mixer": L.mamba_specs(cfg)}
+    mixer = L.hymba_specs(cfg) if cfg.family == "hybrid" else \
+        L.attention_specs(cfg)
     s: dict[str, Any] = {"norm_mixer": L.rms_norm_spec(cfg.d_model),
                          "norm_ffn": L.rms_norm_spec(cfg.d_model),
-                         "mixer": L.attention_specs(cfg),
-                         "ffn": L.swiglu_specs(cfg)}
+                         "mixer": mixer, "ffn": L.swiglu_specs(cfg)}
     if cfg.post_norms:
         s["post_norm_mixer"] = L.rms_norm_spec(cfg.d_model)
         s["post_norm_ffn"] = L.rms_norm_spec(cfg.d_model)
@@ -182,15 +179,22 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None,
 # ---------------------------------------------------------------------------
 
 
-def _block_apply(bp, x, cfg, *, positions, is_local, cache, cache_pos):
+def _block_apply(bp, x, cfg, *, positions, is_local, cache, cache_pos,
+                 valid_len=None):
     """One transformer block. Returns (x, cache)."""
     h = L.rms_norm(bp["norm_mixer"], x, cfg.norm_eps)
     if cfg.family == "mamba":
-        out, cache = L.mamba_mixer(bp["mixer"], h, cfg, cache=cache)
+        out, cache = L.mamba_mixer(bp["mixer"], h, cfg, cache=cache,
+                                   valid_len=valid_len)
         return x + out, cache
-    out, cache = L.attention(bp["mixer"], h, cfg, positions=positions,
-                             is_local=is_local, cache=cache,
-                             cache_pos=cache_pos)
+    if cfg.family == "hybrid":
+        out, cache = L.hymba_mixer(bp["mixer"], h, cfg, positions=positions,
+                                   is_local=is_local, cache=cache,
+                                   cache_pos=cache_pos, valid_len=valid_len)
+    else:
+        out, cache = L.attention(bp["mixer"], h, cfg, positions=positions,
+                                 is_local=is_local, cache=cache,
+                                 cache_pos=cache_pos)
     if cfg.post_norms:
         out = L.rms_norm(bp["post_norm_mixer"], out, cfg.norm_eps)
     x = x + out
@@ -201,18 +205,25 @@ def _block_apply(bp, x, cfg, *, positions, is_local, cache, cache_pos):
     return x + out, cache
 
 
+def map_cache(fn, cache):
+    """``fn`` over every tensor of a cache: a ``KVCache``, an ``SSMCache``
+    or the hybrid's ``(KVCache, SSMCache)``."""
+    if type(cache) is tuple:
+        return tuple(map_cache(fn, c) for c in cache)
+    return type(cache)(*map(fn, cache))
+
+
 def _run_stack(stacked, x, cfg, *, positions, local_flags, caches,
-               cache_pos):
+               cache_pos, valid_len=None):
     """The layers in order over stacked params (a loop in place of the
-    JAX ``lax.scan``). ``caches``: a KVCache of (n_layers, B, Hkv, S, Dh)
-    tensors, updated in place layer by layer, or None."""
+    JAX ``lax.scan``). ``caches``: the stacked cache of :func:`init_cache`,
+    updated in place layer by layer, or None."""
     for i, is_local in enumerate(local_flags):
         bp = map_tree(lambda a: a[i], stacked)
-        cache = None if caches is None else L.KVCache(caches.k[i],
-                                                      caches.v[i])
+        cache = None if caches is None else map_cache(lambda a: a[i], caches)
         x, _ = _block_apply(bp, x, cfg, positions=positions,
                             is_local=is_local, cache=cache,
-                            cache_pos=cache_pos)
+                            cache_pos=cache_pos, valid_len=valid_len)
     return x, caches
 
 
@@ -250,31 +261,48 @@ def forward(params, batch, cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
-    """Stacked per-layer KV cache, (n_layers, B, Hkv, S, Dh) zeros, on
-    ``device`` (CUDA unless given)."""
-    _require_ported(cfg, serving=True)
+    """Stacked per-layer zero cache on ``device`` (CUDA unless given): a
+    ``KVCache`` of (n_layers, B, Hkv, S, Dh) tensors, an ``SSMCache`` of
+    (n_layers, B, K-1, conv_dim) in the model dtype and (n_layers, B, H, N,
+    P) float32 (mamba), or both (hybrid)."""
+    _require_ported(cfg)
     device = resolve_device(device)
-    shape = (cfg.num_layers, batch, cfg.n_kv_heads, max_seq,
-             cfg.resolved_head_dim)
-    return L.KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-                     v=torch.zeros(shape, dtype=cfg.dtype, device=device))
+    n = cfg.num_layers
+
+    def kv():
+        shape = (n, batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
+        return L.KVCache(
+            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+            v=torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+    def ssm():
+        return L.init_ssm_cache(cfg, (n, batch), cfg.dtype, device)
+
+    if cfg.family == "mamba":
+        return ssm()
+    if cfg.family == "hybrid":
+        return kv(), ssm()
+    return kv()
 
 
-def prefill(params, batch, cfg: ModelConfig, cache):
+def prefill(params, batch, cfg: ModelConfig, cache,
+            valid_len: int | None = None):
     """Process the prompt, filling the cache in place from position 0.
-    Returns (last-position logits (B, 1, V), cache)."""
-    _require_ported(cfg, serving=True)
+    Returns (last-position logits (B, 1, V), cache). ``valid_len``: the
+    prompt's positions from there on are padding, which the SSM state and
+    conv cache do not take in (see ``layers.mamba_mixer``)."""
+    _require_ported(cfg)
     x, positions = _inputs_to_embeds(params, batch, cfg)
     x, cache = _run_stack(params["layers"], x, cfg, positions=positions,
                           local_flags=cfg.is_local_flags, caches=cache,
-                          cache_pos=0)
+                          cache_pos=0, valid_len=valid_len)
     return _logits(params, x[:, -1:], cfg), cache
 
 
 def decode_step(params, tokens, pos: int, cfg: ModelConfig, cache):
     """One decode step. tokens: (B, 1); pos: the position of every row.
     Returns (logits (B, 1, V), cache), the cache updated in place."""
-    _require_ported(cfg, serving=True)
+    _require_ported(cfg)
     x = L.embed(params["embed"], tokens, cfg)
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)

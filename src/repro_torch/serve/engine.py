@@ -1,16 +1,29 @@
 """Batched serving engine: continuous batching over a fixed slot pool.
 
-The engine owns a (slots, max_seq) KV cache on its device. Requests
-queue up; free slots are prefilled (one prefill per admission, right-
-padded to a bucket length), then all active slots advance together
+The engine owns a cache of ``slots`` rows on its device: a (slots,
+max_seq) KV cache, the SSM cache's conv tail and float32 state per slot,
+or both (hybrid), each with layers in front (``model.init_cache``).
+Requests queue up; free slots are prefilled (one prefill per admission,
+right-padded to a bucket length), then all active slots advance together
 through one decode step with per-slot positions. Finished slots (EOS or
 length limit) free immediately and the next queued request is admitted.
 
-The behaviour is the JAX package's ``repro.serve.engine``, admission
-quirk included: the prefill's logits are discarded and the last prompt
-token is decoded again at position ``plen - 1``. The cache is updated in
-place. Greedy (argmax) or temperature sampling from a seeded
-``torch.Generator``, whose draws differ from ``jax.random``'s.
+The behaviour is the JAX package's ``repro.serve.engine``: the prefill's
+logits are discarded and the last prompt token is decoded again at
+position ``plen - 1``, which for a KV cache rewrites that entry. For a
+model that carries SSM state the port differs, because the JAX engine's
+admission is wrong there (its tokens are not the model's): the padding
+advances the state and fills the conv tail, the decode of the last prompt
+token takes it into the state a second time, and the prefill convolves
+after the previous request's conv tail. The port zeroes the slot's SSM
+rows before the prefill and passes it the valid length ``plen - 1``: the
+state stops there and the conv tail ends there, so the decode at
+``plen - 1`` takes the last prompt token in once, and the tokens are the
+model's greedy continuation. KV caches are admitted as before.
+
+Caches are updated in place. Greedy (argmax) or temperature sampling
+from a seeded ``torch.Generator``, whose draws differ from
+``jax.random``'s.
 """
 from __future__ import annotations
 
@@ -77,11 +90,19 @@ class ServingEngine:
             nxt = torch.argmax(logits, dim=-1)
         return nxt.to(torch.int32)
 
-    def _prefill(self, slot: int, toks: torch.Tensor) -> torch.Tensor:
-        """Prefill one slot's rows of the cache in place; the logits."""
-        sub = L.KVCache(self.cache.k[:, slot:slot + 1],
-                        self.cache.v[:, slot:slot + 1])
-        logits, _ = M.prefill(self.params, {"tokens": toks}, self.cfg, sub)
+    def _prefill(self, slot: int, toks: torch.Tensor,
+                 valid_len: int) -> torch.Tensor:
+        """Prefill one slot's rows of the cache in place from the first
+        ``valid_len`` tokens of ``toks`` (the rest is padding, which only a
+        KV cache takes in); the logits. The slot's SSM rows start from
+        zero."""
+        sub = M.map_cache(lambda c: c[:, slot:slot + 1], self.cache)
+        for part in (sub if type(sub) is tuple else (sub,)):
+            if isinstance(part, L.SSMCache):
+                part.conv.zero_()
+                part.state.zero_()
+        logits, _ = M.prefill(self.params, {"tokens": toks}, self.cfg, sub,
+                              valid_len=valid_len)
         return logits
 
     # ------------------------------------------------------- public API
@@ -102,8 +123,10 @@ class ServingEngine:
             toks[0, :plen] = req.prompt
             # the logits of the padded bucket's last position are not the
             # prompt's: they are discarded, and the prompt's last token is
-            # decoded again at plen - 1, which rewrites its cache entry
-            self._prefill(slot, torch.from_numpy(toks).to(self.device))
+            # decoded at plen - 1 (again for a KV cache, which it rewrites;
+            # for the first time for the SSM state, stopped at plen - 1)
+            self._prefill(slot, torch.from_numpy(toks).to(self.device),
+                          plen - 1)
             self.active[slot] = True
             self.uid[slot] = req.uid
             self.budget[slot] = req.max_new_tokens or self.scfg.max_new_tokens

@@ -324,6 +324,57 @@ def test_flash_attention_cuda_split_decode(cuda, d):
         assert torch.count_nonzero(out[4]) == 0
 
 
+#: hymba-1.5b's attention: Hq, Hkv (a GQA group of 5), D, window
+HYMBA_ATTN = (25, 5, 64, 1024)
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [2048, 4096])
+def test_flash_attention_cuda_hymba_windowed_prefill(cuda, l, dtype):
+    """hymba's heads and 1024-key window over a bucket longer than the
+    window (the prefill kernel skips the K/V tiles before it)."""
+    hq, hkv, d, win = HYMBA_ATTN
+    q, k, v = (t.to(cuda) for t in attn_inputs(1, hq, hkv, l, l, d, seed=l,
+                                                dtype=dtype))
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, window=win)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    torch.testing.assert_close(
+        out.float(), fa_ref.attention_ref(q, k, v, window=win).float(),
+        **ATTN_TOL[dtype])
+
+
+@pytest.mark.torch_cuda
+def test_flash_attention_cuda_hymba_split_decode_at_the_window_edge(cuda):
+    """bf16 split-K decode with hymba's heads over 4096 keys at per-slot
+    offsets on both sides of the window's edge: whole parts before the
+    window keep no key (l = 0) and the group of 5 fills 5 of 16 rows."""
+    hq, hkv, d, win = HYMBA_ATTN
+    lk = 4096
+    offsets = torch.tensor([100, 1023, 1024, 1025, 3000, 4095],
+                           dtype=torch.int32, device=cuda)
+    q, k, v = (t.to(cuda) for t in attn_inputs(6, hq, hkv, 1, lk, d, seed=7,
+                                                dtype=torch.bfloat16))
+    splits = fa_ops.decode_splits(6, hkv, hq // hkv, lk, torch.cuda
+                                  .get_device_properties(cuda)
+                                  .multi_processor_count)
+    assert splits > 1
+    kw = dict(q_offset=offsets, window=win)
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    torch.testing.assert_close(
+        out.float(), fa_ref.attention_ref(q, k, v, **kw).float(),
+        **ATTN_TOL[torch.bfloat16])
+    torch.testing.assert_close(
+        out.float(), fa_ref.attention_split_ref(
+            q, k, v, part_len=fa_ops.decode_part_len(lk, splits),
+            **kw).float(), **ATTN_TOL[torch.bfloat16])
+
+
 @pytest.mark.torch_cuda
 def test_flash_attention_cuda_rejects_what_it_does_not_take(cuda):
     q, k, v = (t.to(cuda) for t in attn_inputs(1, 4, 2, 8, 8, 48, seed=0))
@@ -377,6 +428,17 @@ def test_ssd_scan_cuda_ragged_and_grouped(cuda, shape):
 def test_ssd_scan_cuda_mamba_shape(cuda, dtype):
     tol = SSD_TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
     _ssd_check(cuda, MAMBA_SHAPE, dtype, tol, seed=1)
+
+
+#: hymba-1.5b's SSD shape: 50 heads, N = 16
+HYMBA_SSD = (1, 4096, 50, 1, 16, 64, 128)
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_cuda_hymba_shape(cuda, dtype):
+    tol = SSD_TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    _ssd_check(cuda, HYMBA_SSD, dtype, tol, seed=2)
 
 
 @pytest.mark.torch_cuda
@@ -744,3 +806,35 @@ def test_supervised_training_cuda_restores_bit_for_bit(cuda, tmp_path):
         assert torch.equal(a, b.cpu())
     rel = abs(losses[6] - straight[6]) / abs(straight[6])
     assert np.isfinite(losses[6]) and rel <= 1e-4, (losses, straight)
+
+
+@pytest.mark.torch_cuda
+def test_hymba_engine_cuda_matches_the_cpu(cuda):
+    """hymba-1.5b SMOKE (float32) served on the card with the kernels on
+    gives the same engine's tokens on the CPU: slots reused, both prefill
+    buckets, the 16-token window crossed."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models.params import map_tree
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    cfg = configs.get_config("hymba-1.5b", smoke=True).with_(
+        use_kernels=True)
+    params = M.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in (72, 3, 150, 129, 21)]
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = ServingEngine(
+            map_tree(lambda t: t.to(dev), params), cfg,
+            ServeConfig(slots=2, max_seq=256, max_new_tokens=6, eos_id=-1),
+            device=dev)
+        for uid, prompt in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=prompt))
+        before = fa_ops.LAUNCHES
+        out[str(dev)] = eng.run_to_completion()
+        if dev == cuda:
+            assert fa_ops.LAUNCHES > before
+    assert out["cpu"] == out[str(cuda)]
+

@@ -2,8 +2,9 @@
 same parameters carried across through numpy, then forward, prefill and
 decode logits of the tinyllama, gemma2 and qwen2.5 SMOKE configs (float32,
 atol 1e-4), the parameter schema at full size (no allocation), the
-configs as data, the mamba family's forward-only status, and the families
-still to port. The Mamba-2 layers' parity is in test_torch_train.py."""
+configs as data, the Mamba-2 schema and forward, and the families still
+to port. The Mamba-2 layers' parity is in test_torch_train.py, the SSM
+serving path's (mamba2-130m, hymba-1.5b) in test_torch_ssm_serve.py."""
 import dataclasses
 
 import jax
@@ -23,10 +24,9 @@ from repro_torch.models import params as P
 
 DENSE = ["tinyllama-1.1b", "gemma2-2b", "qwen2.5-14b", "phi4-mini-3.8b",
          "pixtral-12b"]
-#: ported for the forward (training) only; serving is a later slice
-FORWARD_ONLY = ["mamba2-130m"]
-NOT_PORTED = [a for a in configs.list_archs()
-              if a not in DENSE + FORWARD_ONLY]
+#: the models that carry SSM state (mamba, hybrid)
+SSM = ["mamba2-130m", "hymba-1.5b"]
+NOT_PORTED = [a for a in configs.list_archs() if a not in DENSE + SSM]
 ATOL = 1e-4
 
 
@@ -223,7 +223,7 @@ def test_prefix_embeds_match_jax():
 
 
 # --------------------------------------------------- schema, configs, init
-@pytest.mark.parametrize("arch", DENSE + FORWARD_ONLY)
+@pytest.mark.parametrize("arch", DENSE + SSM)
 def test_full_size_param_shapes_match_jax(arch):
     """Shapes, dtypes and structure at full size, allocating nothing."""
     cfg_t = configs.get_config(arch)
@@ -254,20 +254,7 @@ def test_unported_families_raise(arch):
         M.init_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("arch", FORWARD_ONLY)
-def test_mamba_serving_raises_naming_its_slice(arch):
-    cfg = configs.get_config(arch, smoke=True)
-    params = M.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="mamba-serving slice"):
-        M.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="mamba-serving slice"):
-        M.prefill(params, {"tokens": toks}, cfg, None)
-    with pytest.raises(NotImplementedError, match="mamba-serving slice"):
-        M.decode_step(params, toks[:, :1], 4, cfg, None)
-
-
-@pytest.mark.parametrize("arch", FORWARD_ONLY)
+@pytest.mark.parametrize("arch", ["mamba2-130m"])
 def test_mamba_param_specs_and_forward_work(arch):
     """The schema (no FFN, no norm_ffn; float32 a_log, dt_bias, d_skip in a
     bfloat16 model) and a forward of the SMOKE config in bfloat16."""

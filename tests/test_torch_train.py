@@ -2,7 +2,8 @@
 configs in float32: the LR schedules, AdamW given the same gradients and
 state, the next-token loss, the packed data pipeline (byte for byte), the
 Mamba-2 mixer and forward (kernels on and off), the loss and every
-parameter gradient of one train step for mamba2-130m and tinyllama-1.1b,
+parameter gradient of one train step for mamba2-130m, tinyllama-1.1b and
+hymba-1.5b,
 gradient accumulation, and the training entry point end to end on the CPU."""
 import functools
 
@@ -232,14 +233,6 @@ def test_mamba_mixer_matches_jax(use_kernels):
     _close(out_t, out_j)
 
 
-def test_mamba_mixer_cache_belongs_to_the_serving_slice():
-    cfg = configs.get_config("mamba2-130m", smoke=True)
-    p = M.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    bp = P.map_tree(lambda a: a[0], p["layers"])["mixer"]
-    with pytest.raises(NotImplementedError, match="mamba-serving"):
-        L.mamba_mixer(bp, torch.zeros(1, 1, cfg.d_model), cfg, cache=object())
-
-
 @pytest.mark.parametrize("use_kernels", [True, False])
 def test_mamba_forward_matches_jax(use_kernels):
     cfg_j, cfg_t, params_j, params_t = _pair("mamba2-130m", use_kernels, 1)
@@ -266,7 +259,8 @@ def _jax_value_and_grad(cfg_j, tcfg_j):
         lambda p, b: steps_j.loss_fn(p, b, cfg_j, tcfg_j), has_aux=True))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "tinyllama-1.1b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "tinyllama-1.1b",
+                                  "hymba-1.5b"])
 def test_loss_and_every_gradient_match_jax(arch):
     """``value_and_grad`` of the port's loss (kernel wrappers on: the plain
     forward on the CPU, backward through the plain versions) against

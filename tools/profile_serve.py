@@ -7,10 +7,12 @@ Run from the root of the repository, after or beside ``chip_smoke.py``:
 
 It builds the ``ServingEngine`` of ``chip_smoke.py`` phase 9 (full width,
 bfloat16, random weights from seed 0, 8 slots, 2048 positions, the
-``flash_attention`` kernel on), fills every slot with a 512-token prompt,
-and profiles with torch.profiler:
+``flash_attention`` kernel on; ``--arch mamba2-130m`` or ``hymba-1.5b``
+for phase 17's models), fills every slot with a 512-token prompt, and
+profiles with torch.profiler:
 
-- one prefill of a 1024-token bucket (``ServingEngine._prefill``);
+- one prefill of a 1024-token bucket (``ServingEngine._prefill``, as an
+  admission of a 1024-token prompt);
 - ``--ticks`` decode ticks with all slots active (``ServingEngine.step``).
 
 From the first of up to four windows of each that caught every
@@ -104,8 +106,10 @@ def main() -> None:
         eng.step()
     toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 1024))
                             .astype(np.int32)).to(dev)
-    eng._prefill(0, toks)  # warm the 1024 bucket (slot 0 is rewritten
-    torch.cuda.synchronize()  # below and decodes on as before)
+    plen = toks.shape[1]
+    # warm the 1024 bucket (slot 0 is rewritten below and decodes on)
+    eng._prefill(0, toks, plen - 1)
+    torch.cuda.synchronize()
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.dtype}, {scfg.slots} slots, max_seq {scfg.max_seq}; card "
           f"{torch.cuda.get_device_name(0)}")
@@ -135,7 +139,8 @@ def main() -> None:
             run, devtime.repeat_check(check), windows=4)
         return events, wall
 
-    events, wall = counted(lambda: eng._prefill(0, toks), devtime.EXPECT[
+    events, wall = counted(lambda: eng._prefill(0, toks, plen - 1),
+                           devtime.EXPECT[
         f"flash_attention_prefill_{kinds}" if kinds == "bf16"
         else "flash_attention_f32"])
     report("prefill, bucket 1024", events, wall, 1)
