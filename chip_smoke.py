@@ -149,7 +149,34 @@ Phases, each fatal on failure:
    off), kernels on, the engine's admission (a prefill with the prompt's
    valid length) and 17 teacher-forced decode steps against ``forward``
    (atol 2e-3, rtol 1e-3), and hymba's forward with kernels on against
-   off.
+   off;
+18. the MoE FFN and the encoder-decoder: (a) ``flash_attention`` at
+   every attention shape of (b) and (c): at seamless-m4t's heads (Hq =
+   Hkv = 16, D 64, B 8) in bf16 and f32, the encoder's non-causal
+   self-attention over 1024 frames, a cross prefill of 256 target
+   positions over 1024 frames, a cross decode of one query over 1000 and
+   1024 frames (not a whole number of 64-key tiles, and one), and in bf16
+   the decoder's causal self-attention, a prefill of 64 over a 96-key
+   cache and a decode at offsets 64 and 95 in it; at granite-moe's heads
+   (Hq 16, Hkv 8, D 64) in bf16, the engine's causal prefill at buckets
+   128 and 1024 over its 2048-key slot and its split-K decode at eight
+   per-slot offsets over 2048 keys; each against its plain version (a
+   decode also against its split-and-merge) with kernel, plain and SDPA
+   times and the bound; (b) granite-moe-1b at full width and depth
+   (bf16, kernels on) served through the engine with phase 17's traffic
+   (8 slots, 16 requests of 32..1024 tokens, 32 new each), the
+   single-program MoE dispatch on every layer, ``flash_attention``
+   exactly 24 x (prefills + ticks); (c) seamless-m4t-medium at full width
+   and depth (bf16, kernels on): ``encode`` of 8 x 1024 random frames, a
+   prefill of 8 x 64 target tokens (which encodes again, as the
+   reference's does), 32 greedy ``decode_step(..., enc_out=)`` steps,
+   ``flash_attention`` exactly 12 per encode and 24 per prefill and step;
+   ms of each and peak memory (counter reset once the weights and the
+   cache are allocated, as in (b)); (d)
+   in float32 (TF32 off) at SMOKE width, granite-moe's, kimi-k2's and
+   seamless's forward with kernels on against off (atol 2e-3, rtol
+   1e-3), and granite-moe's engine tokens at capacity factor 8 (nothing
+   dropped) equal to the greedy continuation of its own ``forward``.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -285,7 +312,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-17 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-18 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -625,6 +652,22 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     results["ssm_exact"] = ssm_exactness_phase(dev)
     results["ssm_phase_s"] = time.perf_counter() - t_phase
     log(f"phase 17: {results['ssm_phase_s']:.1f} s")
+
+    # --------------------------------------------------------- phase 18
+    t_phase = time.perf_counter()
+    fa_rows = moe_encdec_kernels_phase(dev)
+    fa_entry["seamless"], fa_entry["granite"] = (fa_rows["seamless"],
+                                                 fa_rows["granite"])
+    results["moe_serve"] = moe_serve_phase(dev)
+    results["encdec"] = encdec_phase(dev)
+    for kern in kernels:
+        kern[f"launches_serve_{MOE_ARCH}"] = results["moe_serve"][
+            "launches"][kern["name"]]
+        kern[f"launches_encdec_{ENCDEC_ARCH}"] = results["encdec"][
+            "launches"][kern["name"]]
+    results["moe_exact"] = moe_exactness_phase(dev)
+    results["moe_phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {results['moe_phase_s']:.1f} s")
 
     results["card"] = card
     results["kernels"] = kernels
@@ -1147,6 +1190,9 @@ def serve_traffic(dev, phase: int, cfg, max_seq: int, max_prompt: int) -> dict:
     log(f"  decode ms per tick: median {res['decode_ms_median']:.3f}, min "
         f"{min(decode_ms):.3f}, max {max(decode_ms):.3f}; peak memory "
         f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    # the timers hold the engine's bound methods: break the cycle, or the
+    # weights and the cache outlive the phase until a garbage collection
+    del eng._prefill, eng._decode
     del params, eng
     torch.cuda.empty_cache()
     return res
@@ -2577,6 +2623,356 @@ def ssm_exactness_phase(dev) -> dict:
         res[arch] = row
         del params, eng, full, got, want
         torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------- phase 18
+MOE_ARCH, ENCDEC_ARCH = "granite-moe-1b-a400m", "seamless-m4t-medium"
+#: seamless's attention: (Hq, Hkv, D); the batch; the encoder's frames; the
+#: cross prefill's target positions; the cross decode's key counts
+SEAMLESS_ATTN, SEAMLESS_B, SEAMLESS_LS, SEAMLESS_LT = (16, 16, 64), 8, 1024, 256
+SEAMLESS_DECODE_LK = (1000, 1024)
+#: the encdec run: batch, frames, target prompt tokens, greedy steps
+ENCDEC_RUN = (8, 1024, 64, 32)
+#: granite-moe's attention: (Hq, Hkv, D); the engine's prefill buckets
+#: (the smallest and the largest of (b)); the decode's per-slot offsets
+#: (where (b)'s slots are: prompts of 32..1024 tokens, 32 new tokens)
+GRANITE_ATTN, GRANITE_PREFILL_L = (16, 8, 64), (128, 1024)
+GRANITE_DECODE_OFFSETS = (31, 64, 255, 511, 1000, 1023, 1024, 1055)
+#: the SMOKE models whose forward is held kernels on against off
+EXACT_ARCHS = (MOE_ARCH, "kimi-k2-1t-a32b", ENCDEC_ARCH)
+#: the engine check's traffic: slots, max_seq, new tokens, prompt lengths
+EXACT_SERVE = (2, 256, 6, (72, 3, 150, 129, 21))
+
+
+def cross_bound(b, hq, hkv, lq, lk, d, elem_bytes, ops_per_s):
+    """(bound ms, what bounds it) of non-causal attention: 4*D operations
+    per (q, k) pair at ``ops_per_s``; q, o, k and v each moved once."""
+    from repro_torch.devtime import bound_ms
+    nbytes = elem_bytes * (2 * b * hq * lq * d + 2 * b * hkv * lk * d)
+    return bound_ms(nbytes, 4 * b * hq * lq * lk * d, ops_per_s)
+
+
+def moe_encdec_kernels_phase(dev) -> dict:
+    """Phase 18 (a): ``flash_attention`` at every attention shape that (b)
+    and (c) give it, against its plain version (a decode also against its
+    plain split-and-merge), with kernel, plain and SDPA times, device time
+    and the bound. Returns the rows by model and case."""
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import ATTN_TOL
+    from repro_torch import devtime
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(18)
+    b, ls, lt = SEAMLESS_B, SEAMLESS_LS, SEAMLESS_LT
+    _, _, prompt, steps = ENCDEC_RUN
+    # (model, kind, heads, B, Lq, Lk, causal, offsets (None: one int),
+    # dtypes)
+    cases = [("seamless", "encoder", SEAMLESS_ATTN, b, ls, ls, False, [0],
+              (bf16, f32)),
+             ("seamless", "cross_prefill", SEAMLESS_ATTN, b, lt, ls, False,
+              [0], (bf16, f32))]
+    cases += [("seamless", "cross_decode", SEAMLESS_ATTN, b, 1, lk, False,
+               [0], (bf16, f32)) for lk in SEAMLESS_DECODE_LK]
+    cases.append(("seamless", "self_prefill", SEAMLESS_ATTN, b, prompt,
+                  prompt + steps, True, [0], (bf16,)))
+    cases += [("seamless", f"self_decode_at{off}", SEAMLESS_ATTN, b, 1,
+               prompt + steps, True, [off], (bf16,))
+              for off in (prompt, prompt + steps - 1)]
+    cases += [("granite", "prefill", GRANITE_ATTN, 1, lq, SERVE_MAX_SEQ, True,
+               [0], (bf16,)) for lq in GRANITE_PREFILL_L]
+    cases.append(("granite", "decode", GRANITE_ATTN, SERVE_SLOTS, 1,
+                  SERVE_MAX_SEQ, True, list(GRANITE_DECODE_OFFSETS), (bf16,)))
+    rows: dict = {"seamless": {}, "granite": {}}
+    for model, kind, (hq, hkv, d), b, lq, lk, causal, offs, dts in cases:
+        per_slot = len(offs) > 1
+        offs = offs * (1 if per_slot else b)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev) if per_slot \
+            else offs[0]
+        kw = dict(causal=causal, q_offset=off)
+        mask = None
+        if causal:
+            pos = torch.tensor(offs, device=dev)[:, None] + torch.arange(
+                lq, device=dev)
+            mask = (torch.arange(lk, device=dev) <= pos[..., None])[:, None]
+        for dt in dts:
+            q = torch.randn((b, hq, lq, d), generator=g, device=dev).to(dt)
+            k = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dt)
+            v = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dt)
+
+            def library_call():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=hq != hkv)
+
+            out = fa_ops.flash_attention(q, k, v, **kw).float()
+            want = fa_ref.attention_ref(q, k, v, **kw).float()
+            torch.cuda.synchronize()
+            err = max_abs_err(out, want, torch)
+            name = f"{kind}_{lq}x{lk}_{str(dt).removeprefix('torch.')}"
+            if not torch.allclose(out, want, **ATTN_TOL[dt]):
+                fail(f"phase 18 (a): flash_attention {model} {name} differs "
+                     f"from its plain version by {err}")
+            if lq == 1 and dt == bf16:
+                parts = fa_ref.attention_split_ref(
+                    q, k, v, part_len=fa_ops.decode_part_len(
+                        lk, fa_ops.decode_splits(b, hkv, hq // hkv, lk,
+                                                 n_sm)), **kw).float()
+                if not torch.allclose(out, parts, **ATTN_TOL[dt]):
+                    fail(f"phase 18 (a): the split-K decode {model} {name} "
+                         "differs from its plain split-and-merge by "
+                         f"{max_abs_err(out, parts, torch)}")
+            lib = library_call().float()
+            if not torch.allclose(lib, want, **ATTN_TOL[bf16]):
+                fail(f"phase 18 (a): the SDPA yardstick computes another "
+                     f"function ({model} {name}: "
+                     f"{max_abs_err(lib, want, torch)})")
+            del out, want, lib
+            ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), torch)
+            plain = time_ms(lambda: fa_ref.attention_ref(q, k, v, **kw),
+                            torch, reps=5)
+            lib_ms = time_ms(library_call, torch, reps=5)
+            kname = "f32" if dt == f32 else \
+                ("decode_bf16" if lq == 1 else "prefill_bf16")
+            dev_ms = device_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
+                               torch, devtime.EXPECT[f"flash_attention_{kname}"])
+            if causal:
+                bnd, by = attention_bound(b, hq, hkv, lq, d, offs, lk,
+                                          q.element_size(),
+                                          ops_per_s=ops_rate(dt, torch))
+            else:
+                bnd, by = cross_bound(b, hq, hkv, lq, lk, d, q.element_size(),
+                                      ops_rate(dt, torch))
+            rows[model][name] = {
+                "b": b, "hq": hq, "hkv": hkv, "lq": lq, "lk": lk,
+                "causal": causal, "offsets": offs, "max_abs_err": err,
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by}
+            log(f"phase 18 (a): flash_attention {model} {name} B={b} Hq={hq} "
+                f"Hkv={hkv} D={d} {'causal' if causal else 'non-causal'} "
+                f"Lq={lq} Lk={lk}"
+                + (f" offsets {offs}" if causal and lq == 1 else "")
+                + f": max |err| {err:.3g} (tolerance {ATTN_TOL[dt]}); kernel "
+                  f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), plain "
+                  f"{plain:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bnd:.4f} ms "
+                  f"by {by}")
+            del q, k, v
+        del mask
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_serve_phase(dev) -> dict:
+    """Phase 18 (b): granite-moe-1b at full width and depth (bfloat16,
+    kernels on) served through the engine with phase 17's traffic: the
+    single-program MoE dispatch on every layer, ``flash_attention`` on
+    every attention call and no other kernel."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(MOE_ARCH).with_(use_kernels=True)
+    res = serve_traffic(dev, 18, cfg, SERVE_MAX_SEQ, 1024)
+    launches = res["launches"]
+    need = cfg.num_layers * (res["prefills"] + res["decode_ticks"])
+    if launches["flash_attention"] != need or any(
+            n for name, n in launches.items() if name != "flash_attention"):
+        fail(f"phase 18 (b): {cfg.name}'s serving path launched {launches}; "
+             f"its {need} attention calls launch flash_attention, and "
+             "nothing else launches")
+    log(f"phase 18 (b): flash_attention launches {need} = "
+        f"{cfg.num_layers} x ({res['prefills']} prefills + "
+        f"{res['decode_ticks']} ticks); the MoE dispatch ({cfg.num_experts} "
+        f"experts, top {cfg.top_k}, capacity factor {cfg.capacity_factor}) "
+        "is plain torch, as the reference's is plain jnp")
+    return res
+
+
+def encdec_phase(dev) -> dict:
+    """Phase 18 (c): seamless-m4t-medium at full width and depth (bfloat16,
+    kernels on): ``encode``, a prefill (which encodes again) and greedy
+    ``decode_step(..., enc_out=)`` steps, each timed between syncs, with
+    the launches of every kernel counted from 0 and each stage's peak
+    memory (the counter reset once the weights, the inputs and the cache
+    are allocated, and before each stage)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import model as M
+
+    cfg = configs.get_config(ENCDEC_ARCH).with_(use_kernels=True)
+    b, ls, lt, steps = ENCDEC_RUN
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    g = torch.Generator(dev).manual_seed(SEED + 18)
+    frames = torch.randn((b, ls, cfg.prefix_embed_dim), generator=g,
+                         device=dev)
+    target = torch.randint(2, cfg.vocab_size, (b, lt), generator=g,
+                           device=dev, dtype=torch.int32)
+    cache = M.init_cache(cfg, b, lt + steps, dev)
+    # as serve_traffic: the peaks count from the weights, the inputs and
+    # the cache, not init's float32 draws
+    resident = torch.cuda.memory_allocated(dev)
+    peaks: dict = {}
+    mods = {"local_chase": lc_ops, "mailbox_pack": mp_ops,
+            "flash_attention": fa_ops, "ssd_scan": ssd_ops}
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+
+    def timed(fn, stage):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[stage] = max(peaks.get(stage, 0),
+                           torch.cuda.max_memory_allocated(dev))
+        return out, (time.perf_counter() - t) * 1e3
+
+    def greedy(logits):
+        if logits.shape != (b, 1, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            fail(f"phase 18 (c): logits {tuple(logits.shape)}, finite "
+                 f"{bool(torch.isfinite(logits).all())}")
+        return torch.argmax(logits[:, 0, :cfg.vocab_size], dim=-1).int()
+
+    enc_out, enc_ms = timed(lambda: M.encode(
+        params, {"enc_embeds": frames}, cfg), "encode")
+    (lg, _), prefill_ms = timed(lambda: M.prefill(
+        params, {"tokens": target, "enc_embeds": frames}, cfg, cache),
+        "prefill")
+    tok, step_ms, out = greedy(lg), [], []
+    for i in range(steps):
+        (lg, _), ms = timed(lambda: M.decode_step(
+            params, tok[:, None], lt + i, cfg, cache, enc_out=enc_out),
+            "decode")
+        step_ms.append(ms)
+        tok = greedy(lg)
+        out.append(tok)
+    launches = {name: mod.LAUNCHES for name, mod in mods.items()}
+    need = cfg.num_encoder_layers * 2 + 2 * cfg.num_layers * (1 + steps)
+    if launches["flash_attention"] != need or any(
+            n for name, n in launches.items() if name != "flash_attention"):
+        fail(f"phase 18 (c): {cfg.name} launched {launches}; want "
+             f"flash_attention {need} = {cfg.num_encoder_layers} x 2 encodes "
+             f"+ 2 x {cfg.num_layers} x (1 prefill + {steps} steps)")
+    tokens = torch.stack(out, dim=1).cpu()
+    res = {"arch": cfg.name, "layers": cfg.num_layers,
+           "encoder_layers": cfg.num_encoder_layers, "d_model": cfg.d_model,
+           "batch": b, "frames": ls, "target": lt, "steps": steps,
+           "encode_ms": enc_ms, "prefill_ms": prefill_ms,
+           "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+           "decode_tokens_per_s": b * steps / (sum(step_ms) / 1e3),
+           "launches": launches,
+           "resident_bytes": resident,
+           "peak_memory_bytes": max(peaks.values()),
+           "peak_bytes_by_stage": peaks, "sample": tokens[0, :8].tolist()}
+    log(f"phase 18 (c): {cfg.name} ({cfg.num_encoder_layers} + "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{str(cfg.dtype).removeprefix('torch.')}, kernels on): encode {b} x {ls} frames {enc_ms:.2f} ms; prefill {b} x {lt} "
+        f"tokens (encoding again) {prefill_ms:.2f} ms; {steps} greedy "
+        f"decode steps median {res['step_ms_median']:.3f} ms (min "
+        f"{min(step_ms):.3f}, max {max(step_ms):.3f}) = "
+        f"{res['decode_tokens_per_s']:.1f} tokens/s; peak memory "
+        f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB (resident "
+        f"{resident / 2 ** 30:.2f} GiB; by stage " + ", ".join(
+            f"{k} {v / 2 ** 30:.2f}" for k, v in peaks.items())
+        + "); flash_attention "
+        f"launches {need} = {cfg.num_encoder_layers} x 2 encodes + 2 x "
+        f"{cfg.num_layers} x {1 + steps} (self and cross)")
+    del params, cache, enc_out, frames
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_exactness_phase(dev) -> dict:
+    """Phase 18 (d): in float32 (TF32 off) at SMOKE width, each of
+    ``EXACT_ARCHS``' forward with kernels on against off, and granite-moe's
+    engine tokens at capacity factor 8 against the greedy continuation of
+    its own ``forward`` (the requests right-padded to one length: causal,
+    and no assignment dropped, so the padding changes no kept logit)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    rng = np.random.default_rng(18)
+    for arch in EXACT_ARCHS:
+        cfg = configs.get_config(arch, smoke=True)
+        params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            2, cfg.vocab_size, (2, 96)).astype(np.int32)).to(dev)}
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = torch.from_numpy(rng.normal(
+                size=(2, 80, cfg.prefix_embed_dim)).astype(np.float32)).to(dev)
+        fa_ops.LAUNCHES = 0
+        on, aux_on = M.forward(params, batch, cfg.with_(use_kernels=True))
+        launches = fa_ops.LAUNCHES
+        off, aux_off = M.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        diff = max_abs_err(on, off, torch)
+        need = cfg.num_layers * (2 if cfg.family == "encdec" else 1) \
+            + cfg.num_encoder_layers
+        res[arch] = {"max_abs_diff": diff, "launches": launches,
+                     "aux_on": float(aux_on), "aux_off": float(aux_off)}
+        log(f"phase 18 (d): {cfg.name} SMOKE float32 forward, kernels on "
+            f"against off: max |logits diff| {diff:.3g}, aux {float(aux_on)!r}"
+            f" / {float(aux_off)!r}; flash_attention launches {launches}")
+        if launches != need:
+            fail(f"phase 18 (d): {cfg.name}'s forward launched "
+                 f"flash_attention {launches} times, not {need}")
+        if not torch.allclose(on, off, atol=2e-3, rtol=1e-3) or not \
+                torch.allclose(aux_on, aux_off, atol=2e-3, rtol=1e-3):
+            fail(f"phase 18 (d): {cfg.name}'s forward with kernels on differs "
+                 f"from off by {diff} (aux {float(aux_on)} / "
+                 f"{float(aux_off)})")
+        del params, on, off
+
+    slots, max_seq, new, lengths = EXACT_SERVE
+    cfg = configs.get_config(MOE_ARCH, smoke=True).with_(
+        use_kernels=True, capacity_factor=8.0)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    eng = ServingEngine(params, cfg, ServeConfig(
+        slots=slots, max_seq=max_seq, max_new_tokens=new, eos_id=-1),
+        device=dev)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt))
+    fa_ops.LAUNCHES = 0
+    got = eng.run_to_completion()
+    launches = fa_ops.LAUNCHES
+    seqs = [list(p) for p in prompts]
+    toks = np.zeros((len(prompts), max_seq), np.int32)
+    for _ in range(new):
+        for i, s in enumerate(seqs):
+            toks[i, :len(s)] = s
+        logits, _ = M.forward(params, {"tokens": torch.from_numpy(toks).to(
+            dev)}, cfg)
+        for i, s in enumerate(seqs):
+            s.append(int(torch.argmax(logits[i, len(s) - 1,
+                                             :cfg.vocab_size])))
+    want = {uid: s[len(p):] for uid, (p, s) in enumerate(zip(prompts, seqs))}
+    res["engine"] = {"requests": len(prompts), "new_tokens": new,
+                     "equal": got == want, "launches": launches}
+    log(f"phase 18 (d): {cfg.name} SMOKE float32 engine, capacity factor "
+        f"{cfg.capacity_factor}, {len(prompts)} requests of {list(lengths)} "
+        f"tokens over {slots} slots: {new} tokens each equal to its own "
+        f"forward's greedy continuation: {got == want}; flash_attention "
+        f"launches {launches}")
+    if got != want:
+        fail(f"phase 18 (d): the engine's tokens {got} are not the greedy "
+             f"continuation {want}")
+    del params, eng
+    torch.cuda.empty_cache()
     return res
 
 

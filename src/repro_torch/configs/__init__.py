@@ -2,10 +2,10 @@
 
 The JAX package's ten architectures (see DESIGN.md) as data, each with
 its full-size CONFIG and a reduced SMOKE config of the same family for
-CPU tests. The five dense decoders (tinyllama, gemma2, qwen2.5,
-phi4-mini, pixtral), mamba2-130m and hymba-1.5b run in the port; the MoE
-and encdec configs raise NotImplementedError when a model is built from
-them.
+CPU tests. Every one runs in the port: the five dense decoders
+(tinyllama, gemma2, qwen2.5, phi4-mini, pixtral), the MoE decoders
+(granite-moe, kimi-k2), mamba2-130m, hymba-1.5b and the encoder-decoder
+seamless-m4t-medium.
 """
 from __future__ import annotations
 

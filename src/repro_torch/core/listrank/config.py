@@ -114,8 +114,9 @@ class ListRankConfig:
     #: ``"auto"`` follows the mesh object passed to the front door (a
     #: ``transport.SimMesh`` selects the virtual-PE transport);
     #: ``"simshard"`` forces virtual PEs; ``"mesh"`` is the
-    #: ``torch.distributed`` transport, not ported yet (raises
-    #: NotImplementedError).
+    #: ``torch.distributed`` transport over a ``transport.DistMesh``
+    #: (``dist_mesh``); it raises ValueError for a SimMesh and TypeError
+    #: for any other mesh object (``transport.resolve_backend``).
     backend: Literal["auto", "mesh", "simshard"] = "auto"
 
     #: run local contraction's pointer doubling through the hand-written

@@ -549,8 +549,8 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
         raise NotImplementedError(
             "supervisor= and inject= run on the virtual-PE transport only: "
             "checkpoints of per-rank shards under the torch.distributed "
-            "transport are a later slice (ROADMAP queue 1, beside Mamba "
-            "serving)")
+            "transport are a later slice (ROADMAP queue 1: checkpoints of "
+            "per-rank shards under the distributed transport)")
     wdt = rank_d.dtype
     sched = schedule_for(cfg)
     n_levels = cfg.srs_rounds + 1

@@ -3,11 +3,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --requests 12 --max-new 32 --device cpu
 
-Serves every family the port runs: the dense decoders, mamba2-130m and
-hymba-1.5b (``--arch mamba2-130m`` / ``--arch hymba-1.5b``). Runs on the
-CUDA device unless ``--device`` says otherwise; ``--use-kernels`` sends
-attention through the ``flash_attention`` kernel (its plain version on the
-CPU). The SSM branches serve through plain torch, as in the JAX package.
+Serves every decoder-only family: the dense decoders, the MoE decoders
+(``--arch granite-moe-1b-a400m`` / ``kimi-k2-1t-a32b``), mamba2-130m and
+hymba-1.5b. The encdec family (seamless-m4t-medium) exits with a message,
+as the JAX package's entry point does: it serves through
+``model.encode`` and ``model.decode_step(..., enc_out=)``, not the
+engine. Runs on the CUDA device unless ``--device`` says otherwise;
+``--use-kernels`` sends attention through the ``flash_attention`` kernel
+(its plain version on the CPU). The SSM branches serve through plain
+torch, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,14 +42,17 @@ def main(argv=None):
     ap.add_argument("--use-kernels", action="store_true")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = configs.get_config(args.arch, smoke=args.smoke).with_(
         use_kernels=args.use_kernels)
+    device = resolve_device(args.device)
     params = M.init(cfg, torch.Generator(device).manual_seed(0), device)
     scfg = ServeConfig(slots=args.slots, max_seq=args.max_seq,
                        temperature=args.temperature,
                        max_new_tokens=args.max_new)
-    eng = ServingEngine(params, cfg, scfg, device=device)
+    try:
+        eng = ServingEngine(params, cfg, scfg, device=device)
+    except ValueError as err:  # the engine refuses the encdec family
+        raise SystemExit(str(err)) from None
     rng = np.random.default_rng(0)
     for uid in range(args.requests):
         plen = int(rng.integers(4, 32))

@@ -17,6 +17,9 @@ step); SIGTERM/SIGINT write a checkpoint and stop. Without
 Runs on the CUDA device unless ``--device`` says otherwise;
 ``--use-kernels`` sends attention through ``flash_attention`` and the
 Mamba-2 scan through ``ssd_scan`` (their plain versions on the CPU).
+Every family trains: an MoE model adds its aux loss, and an encdec model's
+batch carries ``enc_embeds``, the stubbed frontend's frames (normals drawn
+on the device from the step, :func:`enc_embeds`).
 Prints a line per logged step and a final JSON summary.
 """
 from __future__ import annotations
@@ -53,6 +56,16 @@ def state_like(cfg, tcfg: train_steps.TrainConfig):
     return params, adamw.init(params, tcfg.optimizer)
 
 
+def enc_embeds(cfg, dcfg: pipeline.DataConfig, step: int, device):
+    """An encdec batch's encoder input: (global_batch, seq_len,
+    prefix_embed_dim) float32 normals drawn on ``device`` from a generator
+    seeded by (``dcfg.seed``, ``step``), so a replayed step draws them
+    again."""
+    gen = torch.Generator(device).manual_seed(dcfg.seed * 1_000_003 + step)
+    return torch.randn((dcfg.global_batch, dcfg.seq_len, cfg.prefix_embed_dim),
+                       generator=gen, device=device)
+
+
 def step_fn(cfg, dcfg: pipeline.DataConfig, tcfg: train_steps.TrainConfig,
             device):
     """``one_step(state, step) -> (state, metrics)``: batch ``step`` and
@@ -63,6 +76,8 @@ def step_fn(cfg, dcfg: pipeline.DataConfig, tcfg: train_steps.TrainConfig,
         params, opt = state
         t0 = time.perf_counter()
         batch = pipeline.device_batch(dcfg, step, device)
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = enc_embeds(cfg, dcfg, step, device)
         batch_s = time.perf_counter() - t0
         params, opt, metrics = train_steps.train_step(params, opt, batch, cfg,
                                                       tcfg)

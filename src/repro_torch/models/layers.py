@@ -1,16 +1,19 @@
-"""Model building blocks of the dense decoder, the Mamba-2 stack and the
-Hymba hybrid, in PyTorch.
+"""Model building blocks of the dense decoder, the MoE FFN, the Mamba-2
+stack, the Hymba hybrid and the encoder-decoder's cross-attention, in
+PyTorch.
 
 Every block has a ``*_specs(cfg)`` (ParamSpec tree) and an apply function
-on plain tensors, as in the JAX package. Attention goes to the
-``flash_attention`` kernel when ``cfg.use_kernels`` and to its plain
-version otherwise; the Mamba-2 mixer without a cache goes to the
+on plain tensors, as in the JAX package. Attention (self and cross) goes
+to the ``flash_attention`` kernel when ``cfg.use_kernels`` and to its
+plain version otherwise; the Mamba-2 mixer without a cache goes to the
 ``ssd_scan`` kernel when ``cfg.use_kernels`` and to ``ssd_chunked_ref``
 otherwise. Both kernels are differentiable (backward through their plain
 versions). With a cache the mixer serves as the JAX package's does: the
 prefill through ``ssd_chunked_ref(return_state=True)``, the decode through
-the plain ``ssd_decode_step``. The MoE and cross-attention blocks are
-later slices.
+the plain ``ssd_decode_step``. The MoE FFN is the JAX package's
+single-program sort-based dispatch (no kernel there either: its sort,
+scatter and combine are plain tensor code and its expert products batched
+matrix products).
 """
 from __future__ import annotations
 
@@ -87,7 +90,9 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def attention_specs(cfg):
+def attention_specs(cfg, cross: bool = False):
+    """q/k/v/o projections; q/k/v biases when ``cfg.qkv_bias``, except in a
+    cross-attention block (``cross``), as in the JAX package."""
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     s = {
         "wq": spec((d, hq * dh), ("embed", "qkv_features"), cfg.dtype),
@@ -95,23 +100,26 @@ def attention_specs(cfg):
         "wv": spec((d, hkv * dh), ("embed", "kv_features"), cfg.dtype),
         "wo": spec((hq * dh, d), ("qkv_features", "embed"), cfg.dtype),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = spec((hq * dh,), ("qkv_features",), cfg.dtype, "zeros")
         s["bk"] = spec((hkv * dh,), ("kv_features",), cfg.dtype, "zeros")
         s["bv"] = spec((hkv * dh,), ("kv_features",), cfg.dtype, "zeros")
     return s
 
 
-def _project_qkv(p, x, cfg):
-    b, l, _ = x.shape
+def _project_qkv(p, xq, xkv, cfg):
+    """Queries from ``xq`` (B, Lq, D), keys and values from ``xkv`` (B, Lk,
+    D): (B, Lq, Hq, Dh), (B, Lk, Hkv, Dh), (B, Lk, Hkv, Dh)."""
+    b, lq, _ = xq.shape
+    lk = xkv.shape[1]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = xq @ p["wq"]
+    k = xkv @ p["wk"]
+    v = xkv @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, l, hq, dh), k.reshape(b, l, hkv, dh),
-            v.reshape(b, l, hkv, dh))
+    return (q.reshape(b, lq, hq, dh), k.reshape(b, lk, hkv, dh),
+            v.reshape(b, lk, hkv, dh))
 
 
 def _sdpa(q, k, v, cfg, *, causal, window, q_offset):
@@ -125,8 +133,8 @@ def _sdpa(q, k, v, cfg, *, causal, window, q_offset):
 
 
 def attention(p, x, cfg, *, positions, causal=True, is_local=None,
-              cache: KVCache | None = None, cache_pos=None):
-    """Self-attention with an optional KV cache.
+              cache: KVCache | None = None, cache_pos=None, kv_x=None):
+    """Self- or cross-attention with an optional KV cache.
 
     ``is_local``: this layer's sliding-window flag (a Python bool).
     ``cache``: this layer's (B, Hkv, S, Dh) cache, updated IN PLACE (the
@@ -136,11 +144,15 @@ def attention(p, x, cfg, *, positions, causal=True, is_local=None,
     positions (continuous-batching decode, one new token per row).
     Attention then runs over the whole cache length, with the query
     offset ``cache_pos``: per-slot offsets go to the kernel as they are.
+    ``kv_x``: the encoder's output (B, Ls, D) for cross-attention: keys and
+    values come from it, without rope, and no cache is read or written
+    (the JAX package's cross-attention recomputes them every call).
     """
     b, lq, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(p, x, x if kv_x is None else kv_x, cfg)
+    if kv_x is None:  # rope only for self-attention
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     q_offset = 0
     if cache is not None:
@@ -169,7 +181,7 @@ def attention(p, x, cfg, *, positions, causal=True, is_local=None,
 
 
 # ---------------------------------------------------------------------------
-# feed-forward: dense SwiGLU
+# feed-forward: dense SwiGLU and MoE
 # ---------------------------------------------------------------------------
 
 
@@ -185,6 +197,104 @@ def swiglu_specs(cfg, d_ff=None):
 def swiglu(p, x):
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+def moe_specs(cfg):
+    """A float32 router, ``num_experts`` stacked SwiGLU experts and, with
+    ``num_shared_experts``, one shared SwiGLU of their summed width."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    s = {
+        "router": spec((d, e), ("embed", "experts"), torch.float32,
+                       "small_normal"),
+        "w_gate": spec((e, d, f), ("experts", "embed", "expert_mlp"),
+                       cfg.dtype),
+        "w_up": spec((e, d, f), ("experts", "embed", "expert_mlp"), cfg.dtype),
+        "w_down": spec((e, f, d), ("experts", "expert_mlp", "embed"),
+                       cfg.dtype),
+    }
+    if cfg.num_shared_experts:
+        s["shared"] = swiglu_specs(cfg, d_ff=cfg.d_ff * cfg.num_shared_experts)
+    return s
+
+
+def _top_k(probs, k):
+    """``jax.lax.top_k`` over the last axis: the k largest, largest first,
+    the lower index first among equals (``torch.topk`` promises no order
+    among equals on CUDA)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(p, x, cfg):
+    """The MoE FFN, (B, L, D) -> ((B, L, D), float32 aux loss): sort-based
+    top-k dispatch with per-expert capacity, as the JAX package's
+    ``_moe_ffn_dense``. The JAX package's ``moe_ffn`` takes its
+    expert-parallel ``moe_ffn_ep`` under a mesh context instead; the port
+    has no mesh context yet (ROADMAP queue 1: the expert-parallel MoE).
+
+    The router's float32 softmax picks ``top_k`` experts a token, their
+    gates renormalised. The n * k assignments are sorted by expert (a
+    stable sort, so by token within an expert); an assignment at position
+    ``pos >= cap`` of its expert's run is dropped, with ``cap = max(8,
+    int(capacity_factor * n * k / E))``. The kept tokens are packed into an
+    (E, cap, D) buffer, the experts run as batched matrix products, and
+    each token sums its k gate-weighted results. The aux loss is the
+    Switch load-balancing loss, ``E * sum(mean prob * assignment share)``.
+    """
+    b, l, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    n = b * l
+    xf = x.reshape(n, d)
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, eidx = _top_k(probs, k)                 # (n, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    flat_e = eidx.reshape(-1)                          # (n*k,)
+    order = torch.argsort(flat_e, stable=True)
+    se, sgate = flat_e[order], gate_vals.reshape(-1)[order]
+    stok = order // k                                  # the token of each
+    # where each expert's run starts in the sorted assignments
+    starts = torch.searchsorted(
+        se, torch.arange(e + 1, dtype=se.dtype, device=x.device),
+        right=False, out_int32=True)
+
+    # aux loss (Switch-style load balancing). The runs' lengths are each
+    # expert's exact assignment count (torch.bincount would read its input's
+    # max back to the host on CUDA: a sync a layer)
+    me = probs.mean(dim=0)
+    ce = (starts[1:] - starts[:-1]).float() / (n * k)
+    aux_loss = e * torch.sum(me * ce)
+
+    pos = torch.arange(n * k, dtype=torch.int32, device=x.device) - starts[se]
+    cap = max(8, int(cfg.capacity_factor * n * k / e)) if e > 1 else n * k
+    keep = pos < cap
+    row = torch.where(keep, se, e)
+    col = torch.where(keep, pos, cap).long()
+
+    # the sentinel row e / column cap takes every dropped assignment (jax's
+    # mode="drop"), so it is the only index written twice (on CUDA in an
+    # unspecified order), and it is sliced off
+    buf = torch.zeros((e + 1, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((row, col), xf[stok])[:e, :cap]
+    h = torch.bmm(buf, p["w_gate"])
+    u = torch.bmm(buf, p["w_up"])
+    yb = torch.bmm(F.silu(h) * u, p["w_down"])
+    # combine: each kept result weighted by its gate (a product in x's
+    # dtype, as the reference's), put back in its (token, k) slot through
+    # the inverse of ``order`` (a permutation: no index repeats), then
+    # summed over k. The reference's scatter-add over tokens would repeat
+    # every token k times, which on CUDA sums in no fixed order.
+    gathered = yb[torch.clamp(row, max=e - 1), torch.clamp(col, max=cap - 1)]
+    contrib = torch.where(keep[:, None],
+                          gathered * sgate[:, None].to(x.dtype), 0)
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n * k, device=x.device))
+    y = contrib[inv].reshape(n, k, d).sum(dim=1)
+    if cfg.num_shared_experts:
+        y = y + swiglu(p["shared"], xf)
+    return y.reshape(b, l, d), aux_loss
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,34 @@
-"""The model zoo in PyTorch: the dense/GQA decoder family, the
-attention-free Mamba-2 stack (mamba) and the parallel attention + SSM
-heads of Hymba (hybrid), each with forward, prefill and decode.
+"""The model zoo in PyTorch: every family of the JAX package
+(``repro.models.model``), each with forward, prefill and decode:
 
-The configuration and the parameter tree are the JAX package's
-(``repro.models.model``): the same ``ModelConfig`` fields and defaults,
-the same nested dict of parameters with layers stacked on axis 0. Layers
-run as a Python loop in place of ``lax.scan``. ``forward`` is
-differentiable (the training path, ``repro_torch.train.steps``).
+- decoder: the dense/GQA decoder (tinyllama, gemma2, qwen2.5, phi4-mini,
+  pixtral's backbone), with the MoE FFN for granite-moe and kimi-k2;
+- mamba: the attention-free Mamba-2 stack (mamba2-130m);
+- hybrid: Hymba's parallel attention + SSM heads (hymba-1.5b);
+- encdec: the encoder-decoder with cross-attention (seamless-m4t's
+  backbone; the audio frontend is stubbed as frame embeddings,
+  ``batch["enc_embeds"]``).
+
+The configuration and the parameter tree are the JAX package's: the same
+``ModelConfig`` fields and defaults, the same nested dict of parameters
+with layers stacked on axis 0. Layers run as a Python loop in place of
+``lax.scan``. ``forward`` is differentiable (the training path,
+``repro_torch.train.steps``) and returns the MoE aux loss, summed over
+the layers in float32.
 
 ``remat`` and ``remat_policy`` have no effect: the port has no activation
 checkpointing, and autograd keeps every layer's activations. mamba2-130m
 trains at batch 8 x 1024 tokens in bf16 on one 80 GB card without it.
 
 The serving cache is the JAX package's pytree with layers stacked in
-front: a ``KVCache`` (decoder), an ``SSMCache`` (mamba), or the tuple
-``(KVCache, SSMCache)`` (hybrid). Prefill and decode update it in place.
+front: a ``KVCache`` (decoder, and the encdec decoder's self-attention),
+an ``SSMCache`` (mamba), or the tuple ``(KVCache, SSMCache)`` (hybrid).
+Prefill and decode update it in place. An encdec model's cross-attention
+keys and values are not cached: ``decode_step(..., enc_out=)`` recomputes
+them from the encoder's output every step, as the JAX package does.
 ``prefill`` takes a ``valid_len`` that stops the SSM state at the end of a
 right-padded prompt (the serving engine's admission); without it the
-prefill is the JAX package's. The MoE FFN and the encdec family raise
-``NotImplementedError``: they are later slices of the port.
+prefill is the JAX package's.
 """
 from __future__ import annotations
 
@@ -106,18 +116,13 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: the encdec and MoE
-    models."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encdec family (encoder, cross-attention) is a "
-            "later slice of the port")
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is a later slice of the port")
-    if cfg.family not in ("decoder", "hybrid", "mamba"):
-        raise ValueError(f"unknown family {cfg.family!r}")
+FAMILIES = ("decoder", "hybrid", "mamba", "encdec")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}; the families are "
+                         f"{FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +130,9 @@ def _require_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _block_specs(cfg: ModelConfig):
+def _block_specs(cfg: ModelConfig, cross: bool = False):
+    """One layer's parameters; ``cross``: an encdec decoder layer's
+    cross-attention and its norm."""
     if cfg.family == "mamba":  # no FFN, no norm_ffn
         return {"norm_mixer": L.rms_norm_spec(cfg.d_model),
                 "mixer": L.mamba_specs(cfg)}
@@ -133,7 +140,12 @@ def _block_specs(cfg: ModelConfig):
         L.attention_specs(cfg)
     s: dict[str, Any] = {"norm_mixer": L.rms_norm_spec(cfg.d_model),
                          "norm_ffn": L.rms_norm_spec(cfg.d_model),
-                         "mixer": mixer, "ffn": L.swiglu_specs(cfg)}
+                         "mixer": mixer,
+                         "ffn": L.moe_specs(cfg) if cfg.moe else
+                         L.swiglu_specs(cfg)}
+    if cross:
+        s["cross"] = L.attention_specs(cfg, cross=True)
+        s["norm_cross"] = L.rms_norm_spec(cfg.d_model)
     if cfg.post_norms:
         s["post_norm_mixer"] = L.rms_norm_spec(cfg.d_model)
         s["post_norm_ffn"] = L.rms_norm_spec(cfg.d_model)
@@ -146,12 +158,17 @@ def _stack_specs(block, n):
 
 
 def param_specs(cfg: ModelConfig):
-    _require_ported(cfg)
+    _check_family(cfg)
     specs: dict[str, Any] = {
         "embed": L.embed_specs(cfg),
         "final_norm": L.rms_norm_spec(cfg.d_model),
-        "layers": _stack_specs(_block_specs(cfg), cfg.num_layers),
+        "layers": _stack_specs(_block_specs(cfg, cross=cfg.family == "encdec"),
+                               cfg.num_layers),
     }
+    if cfg.family == "encdec":
+        specs["enc_layers"] = _stack_specs(_block_specs(cfg),
+                                           cfg.num_encoder_layers)
+        specs["enc_final_norm"] = L.rms_norm_spec(cfg.d_model)
     if cfg.prefix_embed_dim:
         specs["prefix_proj"] = spec((cfg.prefix_embed_dim, cfg.d_model),
                                     ("embed", "embed"), cfg.dtype)
@@ -179,30 +196,41 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None,
 # ---------------------------------------------------------------------------
 
 
-def _block_apply(bp, x, cfg, *, positions, is_local, cache, cache_pos,
-                 valid_len=None):
-    """One transformer block. Returns (x, cache)."""
+def _block_apply(bp, x, cfg, *, positions, causal, is_local, cache,
+                 cache_pos, enc_out=None, valid_len=None):
+    """One transformer block. Returns (x, aux): aux is the MoE FFN's aux
+    loss, None without one. ``enc_out``: the encoder's output, which an
+    encdec decoder layer cross-attends to."""
+    aux = None
     h = L.rms_norm(bp["norm_mixer"], x, cfg.norm_eps)
     if cfg.family == "mamba":
         out, cache = L.mamba_mixer(bp["mixer"], h, cfg, cache=cache,
                                    valid_len=valid_len)
-        return x + out, cache
+        return x + out, aux
     if cfg.family == "hybrid":
         out, cache = L.hymba_mixer(bp["mixer"], h, cfg, positions=positions,
                                    is_local=is_local, cache=cache,
                                    cache_pos=cache_pos, valid_len=valid_len)
     else:
         out, cache = L.attention(bp["mixer"], h, cfg, positions=positions,
-                                 is_local=is_local, cache=cache,
-                                 cache_pos=cache_pos)
+                                 causal=causal, is_local=is_local,
+                                 cache=cache, cache_pos=cache_pos)
     if cfg.post_norms:
         out = L.rms_norm(bp["post_norm_mixer"], out, cfg.norm_eps)
     x = x + out
+    if enc_out is not None and "cross" in bp:
+        h = L.rms_norm(bp["norm_cross"], x, cfg.norm_eps)
+        out, _ = L.attention(bp["cross"], h, cfg, positions=positions,
+                             causal=False, kv_x=enc_out)
+        x = x + out
     h = L.rms_norm(bp["norm_ffn"], x, cfg.norm_eps)
-    out = L.swiglu(bp["ffn"], h)
+    if cfg.moe:
+        out, aux = L.moe_ffn(bp["ffn"], h, cfg)
+    else:
+        out = L.swiglu(bp["ffn"], h)
     if cfg.post_norms:
         out = L.rms_norm(bp["post_norm_ffn"], out, cfg.norm_eps)
-    return x + out, cache
+    return x + out, aux
 
 
 def map_cache(fn, cache):
@@ -214,17 +242,22 @@ def map_cache(fn, cache):
 
 
 def _run_stack(stacked, x, cfg, *, positions, local_flags, caches,
-               cache_pos, valid_len=None):
+               cache_pos, causal=True, enc_out=None, valid_len=None):
     """The layers in order over stacked params (a loop in place of the
     JAX ``lax.scan``). ``caches``: the stacked cache of :func:`init_cache`,
-    updated in place layer by layer, or None."""
+    updated in place layer by layer, or None. Returns (x, aux, caches):
+    aux the layers' MoE aux losses summed in float32 in layer order."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, is_local in enumerate(local_flags):
         bp = map_tree(lambda a: a[i], stacked)
         cache = None if caches is None else map_cache(lambda a: a[i], caches)
-        x, _ = _block_apply(bp, x, cfg, positions=positions,
-                            is_local=is_local, cache=cache,
-                            cache_pos=cache_pos, valid_len=valid_len)
-    return x, caches
+        x, aux_l = _block_apply(bp, x, cfg, positions=positions,
+                                causal=causal, is_local=is_local, cache=cache,
+                                cache_pos=cache_pos, enc_out=enc_out,
+                                valid_len=valid_len)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return x, aux, caches
 
 
 def _inputs_to_embeds(params, batch, cfg):
@@ -234,9 +267,7 @@ def _inputs_to_embeds(params, batch, cfg):
         pre = batch["prefix_embeds"].to(cfg.dtype) @ params["prefix_proj"]
         x = torch.cat([pre, x], dim=1)
     b, l, _ = x.shape
-    positions = torch.arange(l, dtype=torch.int32,
-                             device=x.device)[None, :].expand(b, l)
-    return x, positions
+    return x, _positions(b, l, x.device)
 
 
 def _logits(params, x, cfg):
@@ -245,14 +276,35 @@ def _logits(params, x, cfg):
     return L.unembed({"embedding": head}, x, cfg)
 
 
+def _positions(b, l, device):
+    return torch.arange(l, dtype=torch.int32,
+                        device=device)[None, :].expand(b, l)
+
+
+def encode(params, batch, cfg: ModelConfig):
+    """The encoder stack (encdec family): ``batch["enc_embeds"]`` (B, Ls,
+    D_in), the stubbed modality frontend's frames, through ``prefix_proj``
+    and the non-causal encoder layers, then ``enc_final_norm``."""
+    enc_in = batch["enc_embeds"].to(cfg.dtype)
+    if cfg.prefix_embed_dim:
+        enc_in = enc_in @ params["prefix_proj"]
+    b, ls, _ = enc_in.shape
+    x, _, _ = _run_stack(params["enc_layers"], enc_in, cfg,
+                         positions=_positions(b, ls, enc_in.device),
+                         local_flags=(False,) * cfg.num_encoder_layers,
+                         caches=None, cache_pos=None, causal=False)
+    return L.rms_norm(params["enc_final_norm"], x, cfg.norm_eps)
+
+
 def forward(params, batch, cfg: ModelConfig):
-    """Full-sequence forward -> (logits, aux_loss); aux is 0 (no MoE)."""
-    _require_ported(cfg)
+    """Full-sequence forward -> (logits, aux_loss); aux is the MoE layers'
+    aux loss (0 without MoE). An encdec batch carries ``enc_embeds``."""
+    enc_out = encode(params, batch, cfg) if cfg.family == "encdec" else None
     x, positions = _inputs_to_embeds(params, batch, cfg)
-    x, _ = _run_stack(params["layers"], x, cfg, positions=positions,
-                      local_flags=cfg.is_local_flags, caches=None,
-                      cache_pos=None)
-    return _logits(params, x, cfg), torch.zeros((), device=x.device)
+    x, aux, _ = _run_stack(params["layers"], x, cfg, positions=positions,
+                           local_flags=cfg.is_local_flags, caches=None,
+                           cache_pos=None, enc_out=enc_out)
+    return _logits(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -264,8 +316,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     """Stacked per-layer zero cache on ``device`` (CUDA unless given): a
     ``KVCache`` of (n_layers, B, Hkv, S, Dh) tensors, an ``SSMCache`` of
     (n_layers, B, K-1, conv_dim) in the model dtype and (n_layers, B, H, N,
-    P) float32 (mamba), or both (hybrid)."""
-    _require_ported(cfg)
+    P) float32 (mamba), or both (hybrid). An encdec model's cache is its
+    decoder's KV cache."""
+    _check_family(cfg)
     device = resolve_device(device)
     n = cfg.num_layers
 
@@ -288,25 +341,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 def prefill(params, batch, cfg: ModelConfig, cache,
             valid_len: int | None = None):
     """Process the prompt, filling the cache in place from position 0.
-    Returns (last-position logits (B, 1, V), cache). ``valid_len``: the
-    prompt's positions from there on are padding, which the SSM state and
-    conv cache do not take in (see ``layers.mamba_mixer``)."""
-    _require_ported(cfg)
+    Returns (last-position logits (B, 1, V), cache). An encdec batch
+    carries ``enc_embeds``, which are encoded first (the caller encodes
+    them again for ``decode_step``, as with the JAX package).
+    ``valid_len``: the prompt's positions from there on are padding, which
+    the SSM state and conv cache do not take in (see
+    ``layers.mamba_mixer``)."""
+    enc_out = encode(params, batch, cfg) if cfg.family == "encdec" else None
     x, positions = _inputs_to_embeds(params, batch, cfg)
-    x, cache = _run_stack(params["layers"], x, cfg, positions=positions,
-                          local_flags=cfg.is_local_flags, caches=cache,
-                          cache_pos=0, valid_len=valid_len)
+    x, _, cache = _run_stack(params["layers"], x, cfg, positions=positions,
+                             local_flags=cfg.is_local_flags, caches=cache,
+                             cache_pos=0, enc_out=enc_out,
+                             valid_len=valid_len)
     return _logits(params, x[:, -1:], cfg), cache
 
 
-def decode_step(params, tokens, pos: int, cfg: ModelConfig, cache):
-    """One decode step. tokens: (B, 1); pos: the position of every row.
-    Returns (logits (B, 1, V), cache), the cache updated in place."""
-    _require_ported(cfg)
+def decode_step(params, tokens, pos: int, cfg: ModelConfig, cache,
+                enc_out=None):
+    """One decode step. tokens: (B, 1); pos: the position of every row;
+    ``enc_out``: the encoder's output (encdec). Returns (logits (B, 1, V),
+    cache), the cache updated in place."""
     x = L.embed(params["embed"], tokens, cfg)
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    x, cache = _run_stack(params["layers"], x, cfg, positions=positions,
-                          local_flags=cfg.is_local_flags, caches=cache,
-                          cache_pos=pos)
+    x, _, cache = _run_stack(params["layers"], x, cfg, positions=positions,
+                             local_flags=cfg.is_local_flags, caches=cache,
+                             cache_pos=pos, enc_out=enc_out)
     return _logits(params, x, cfg), cache

@@ -19,7 +19,10 @@ after the previous request's conv tail. The port zeroes the slot's SSM
 rows before the prefill and passes it the valid length ``plen - 1``: the
 state stops there and the conv tail ends there, so the decode at
 ``plen - 1`` takes the last prompt token in once, and the tokens are the
-model's greedy continuation. KV caches are admitted as before.
+model's greedy continuation. KV caches are admitted as before. An MoE
+model is admitted as the JAX package's: its pad tokens are routed too, and
+take expert capacity (``capacity_factor``) from the prompt's tokens. The
+encdec family is not served here, as in the JAX package.
 
 Caches are updated in place. Greedy (argmax) or temperature sampling
 from a seeded ``torch.Generator``, whose draws differ from
@@ -58,6 +61,10 @@ class Request:
 class ServingEngine:
     def __init__(self, params, cfg: M.ModelConfig, scfg: ServeConfig,
                  device=None, generator: torch.Generator | None = None):
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: the engine serves decoder-only "
+                             "models (the JAX package's too); an encdec model "
+                             "serves through encode and decode_step(enc_out=)")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -78,7 +85,7 @@ class ServingEngine:
         """Advance every slot one token (positions vary per slot)."""
         cfg, params = self.cfg, self.params
         x = L.embed(params["embed"], toks[:, None], cfg)
-        x, self.cache = M._run_stack(
+        x, _, self.cache = M._run_stack(
             params["layers"], x, cfg, positions=pos[:, None],
             local_flags=cfg.is_local_flags, caches=self.cache, cache_pos=pos)
         logits = M._logits(params, x[:, 0], cfg)

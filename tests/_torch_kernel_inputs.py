@@ -122,6 +122,18 @@ ATTN_CASES = [
     (2, 8, 4, 160, 224, 32, {"window": 96, "softcap": 30.0, "scale": 0.1}),
 ]
 
+#: cross-attention shapes (seamless-m4t's decoder over its encoder), which
+#: the sweep above (pinned equal to tests/test_kernels.py's) lacks:
+#: non-causal with Lq < Lk and Lq > Lk (a target prefill over source
+#: frames), and one query over a key count that is not a multiple of the
+#: split-K decode's 64-key tile
+CROSS_ATTN_CASES = [
+    (2, 4, 4, 48, 200, 64, {"causal": False}),
+    (1, 8, 8, 200, 72, 64, {"causal": False}),
+    (3, 4, 4, 1, 1000, 64, {"causal": False}),
+    (2, 16, 16, 1, 130, 64, {"causal": False}),
+]
+
 #: the repo's flash-attention tolerances (tests/test_kernels.py)
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}

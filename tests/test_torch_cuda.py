@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, PACK_HOPS,
-                                  SSD_CASES, SSD_RAGGED, SSD_TOL, attn_inputs,
+from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, CROSS_ATTN_CASES,
+                                  PACK_HOPS, SSD_CASES, SSD_RAGGED, SSD_TOL, attn_inputs,
                                   bucket_hop, chains, chase_edge_case,
                                   float_dist, ssd_inputs, ssd_training_inputs)
 from repro_torch.kernels import build
@@ -224,6 +224,26 @@ def test_flash_attention_cuda_matches_plain(cuda, case, dtype):
     b, hq, hkv, lq, lk, d, kw = ATTN_CASES[case]
     q, k, v = (t.to(cuda) for t in attn_inputs(b, hq, hkv, lq, lk, d,
                                                 seed=case, dtype=dtype))
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(),
+                               fa_ref.attention_ref(q, k, v, **kw).float(),
+                               **ATTN_TOL[dtype])
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(CROSS_ATTN_CASES)))
+def test_flash_attention_cuda_cross_shapes(cuda, case, dtype):
+    """seamless's cross-attention shapes: non-causal with Lq != Lk, and one
+    query over a key count that is not a multiple of the decode tile (bf16:
+    the split-K pair, whose last part runs past the keys)."""
+    b, hq, hkv, lq, lk, d, kw = CROSS_ATTN_CASES[case]
+    q, k, v = (t.to(cuda) for t in attn_inputs(b, hq, hkv, lq, lk, d,
+                                                seed=40 + case, dtype=dtype))
     before = fa_ops.LAUNCHES
     out = fa_ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -838,3 +858,32 @@ def test_hymba_engine_cuda_matches_the_cpu(cuda):
             assert fa_ops.LAUNCHES > before
     assert out["cpu"] == out[str(cuda)]
 
+
+
+@pytest.mark.torch_cuda
+def test_moe_forward_cuda_is_deterministic(cuda):
+    """granite-moe SMOKE (float32, kernels on, capacity factor 1 so
+    assignments drop) run twice on the card gives the same logits and aux
+    loss bit for bit: the dispatch's only repeated scatter index is the
+    sentinel, and the combine sums each token's k results in a fixed
+    order; and it agrees with the CPU's forward."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models.params import map_tree
+
+    cfg = configs.get_config("granite-moe-1b-a400m", smoke=True).with_(
+        use_kernels=True, capacity_factor=1.0)
+    params = M.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        2, cfg.vocab_size, (4, 96)).astype(np.int32))
+    want, aux_want = M.forward(params, {"tokens": toks}, cfg)
+    params = map_tree(lambda t: t.to(cuda), params)
+    before = fa_ops.LAUNCHES
+    runs = [M.forward(params, {"tokens": toks.to(cuda)}, cfg)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 2 * cfg.num_layers
+    (a, aux_a), (b, aux_b) = runs
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    torch.testing.assert_close(a.cpu(), want, atol=2e-3, rtol=1e-3)
+    torch.testing.assert_close(aux_a.cpu(), aux_want, atol=1e-5, rtol=1e-5)

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 import test_kernels
-from _torch_kernel_inputs import ATTN_CASES, ATTN_TOL, attn_inputs
+from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, CROSS_ATTN_CASES,
+                                  attn_inputs)
 from repro import configs as jax_configs
 from repro.kernels.flash_attention import ops as fa_ops_jax
 from repro.kernels.flash_attention import ref as fa_ref_jax
@@ -43,6 +44,28 @@ def test_plain_matches_pallas(case, dtype):
         kw.get("softcap"), kw.get("scale"), kw.get("q_offset", 0), True)
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(want, np.float32), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(CROSS_ATTN_CASES)))
+def test_plain_matches_pallas_at_cross_shapes(case, dtype):
+    """The cross-attention shapes against the Pallas kernel in interpret
+    mode; for one query also the split-K decomposition at the part length
+    the decode kernel takes on 132 SMs (its last part runs past Lk)."""
+    b, hq, hkv, lq, lk, d, kw = CROSS_ATTN_CASES[case]
+    q, k, v = attn_inputs(b, hq, hkv, lq, lk, d, seed=40 + case, dtype=dtype)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    want = fa_ops_jax.flash_attention(
+        _jax(q), _jax(k), _jax(v), False, None, None, None, 0, True)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32), **ATTN_TOL[dtype])
+    if lq == 1:
+        part = fa_ops.decode_part_len(lk, fa_ops.decode_splits(
+            b, hkv, hq // hkv, lk, 132))
+        assert lk % part
+        split = fa_ref.attention_split_ref(q, k, v, part_len=part, **kw)
+        torch.testing.assert_close(split.float(), out.float(),
+                                   **ATTN_TOL[dtype])
 
 
 @pytest.mark.parametrize("window,softcap", [(None, None), (24, 30.0)])

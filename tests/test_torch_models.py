@@ -1,10 +1,12 @@
-"""The port's dense decoder against the JAX package's: each layer with the
+"""The port's models against the JAX package's: each dense layer with the
 same parameters carried across through numpy, then forward, prefill and
-decode logits of the tinyllama, gemma2 and qwen2.5 SMOKE configs (float32,
-atol 1e-4), the parameter schema at full size (no allocation), the
-configs as data, the Mamba-2 schema and forward, and the families still
-to port. The Mamba-2 layers' parity is in test_torch_train.py, the SSM
-serving path's (mamba2-130m, hymba-1.5b) in test_torch_ssm_serve.py."""
+decode logits of the tinyllama, gemma2, qwen2.5, granite-moe, kimi-k2 and
+seamless-m4t SMOKE configs (float32, atol 1e-4), the parameter schema of
+every architecture at full size (no allocation), the configs as data, the
+Mamba-2 schema and forward, and an unknown family. The Mamba-2 layers'
+parity is in test_torch_train.py, the SSM serving path's (mamba2-130m,
+hymba-1.5b) in test_torch_ssm_serve.py, the MoE FFN's and the encoder's
+in test_torch_moe_encdec.py."""
 import dataclasses
 
 import jax
@@ -26,7 +28,6 @@ DENSE = ["tinyllama-1.1b", "gemma2-2b", "qwen2.5-14b", "phi4-mini-3.8b",
          "pixtral-12b"]
 #: the models that carry SSM state (mamba, hybrid)
 SSM = ["mamba2-130m", "hymba-1.5b"]
-NOT_PORTED = [a for a in configs.list_archs() if a not in DENSE + SSM]
 ATOL = 1e-4
 
 
@@ -158,8 +159,12 @@ def test_attention(arch, is_local):
 
 # ------------------------------------------------------------------- model
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-2b",
-                                  "qwen2.5-14b"])
+                                  "qwen2.5-14b", "granite-moe-1b-a400m",
+                                  "kimi-k2-1t-a32b", "seamless-m4t-medium"])
 def test_forward_prefill_decode_match_jax(arch):
+    """The MoE models at their own capacity factor, so the prefill and
+    forward drop assignments as the reference does; seamless with encoder
+    frames, each decode step cross-attending to the encoder's output."""
     cfg_j, cfg_t, params_j, params_t = _pair(arch, seed=1)
     if cfg_t.qkv_bias:  # zeros at init: make the biases count
         for name in ("bq", "bk", "bv"):
@@ -168,28 +173,41 @@ def test_forward_prefill_decode_match_jax(arch):
             params_t["layers"]["mixer"][name] = torch.from_numpy(a)
     b, seq, s = 2, 24, 32
     toks = RNG.integers(0, cfg_t.vocab_size, (b, seq)).astype(np.int32)
-    logits_t, aux = M.forward(params_t, {"tokens": torch.from_numpy(toks)},
-                              cfg_t)
-    logits_j, _ = jax.jit(lambda p, t: MJ.forward(p, {"tokens": t}, cfg_j))(
-        params_j, toks)
+    extra = {}
+    if cfg_t.family == "encdec":
+        extra["enc_embeds"] = _x(b, 20, cfg_t.prefix_embed_dim)
+
+    def batch_t(t):
+        return {"tokens": torch.from_numpy(t),
+                **{k: torch.from_numpy(v) for k, v in extra.items()}}
+
+    logits_t, aux = M.forward(params_t, batch_t(toks), cfg_t)
+    logits_j, aux_j = jax.jit(lambda p, t: MJ.forward(
+        p, {"tokens": t, **extra}, cfg_j))(params_j, toks)
     assert logits_t.shape == (b, seq, cfg_t.padded_vocab)
-    assert float(aux) == 0.0
+    np.testing.assert_allclose(float(aux), float(aux_j), rtol=1e-5)
+    assert (float(aux) > 0) == cfg_t.moe
     _close(logits_t, logits_j)
 
     half = seq // 2
     cache_t = M.init_cache(cfg_t, b, s, device="cpu")
-    lg_t, cache_t = M.prefill(params_t, {"tokens": torch.from_numpy(
-        toks[:, :half])}, cfg_t, cache_t)
+    lg_t, cache_t = M.prefill(params_t, batch_t(toks[:, :half]), cfg_t,
+                              cache_t)
     lg_j, cache_j = jax.jit(lambda p, t, c: MJ.prefill(
-        p, {"tokens": t}, cfg_j, c))(params_j, toks[:, :half],
-                                     MJ.init_cache(cfg_j, b, s))
+        p, {"tokens": t, **extra}, cfg_j, c))(params_j, toks[:, :half],
+                                              MJ.init_cache(cfg_j, b, s))
     _close(lg_t, lg_j)
-    decode_j = jax.jit(lambda p, t, pos, c: MJ.decode_step(p, t, pos, cfg_j,
-                                                          c))
+    enc_t = enc_j = None
+    if extra:
+        enc_t = M.encode(params_t, batch_t(toks), cfg_t)
+        enc_j = MJ.encode(params_j, extra, cfg_j)
+    decode_j = jax.jit(lambda p, t, pos, c, e: MJ.decode_step(
+        p, t, pos, cfg_j, c, enc_out=e))
     for t in range(half, half + 3):
         lg_t, cache_t = M.decode_step(params_t, torch.from_numpy(
-            toks[:, t:t + 1]), t, cfg_t, cache_t)
-        lg_j, cache_j = decode_j(params_j, toks[:, t:t + 1], t, cache_j)
+            toks[:, t:t + 1]), t, cfg_t, cache_t, enc_out=enc_t)
+        lg_j, cache_j = decode_j(params_j, toks[:, t:t + 1], t, cache_j,
+                                 enc_j)
         _close(lg_t, lg_j)
     for a, c in zip(cache_t, cache_j):
         _close(a, c, atol=1e-5)
@@ -223,7 +241,7 @@ def test_prefix_embeds_match_jax():
 
 
 # --------------------------------------------------- schema, configs, init
-@pytest.mark.parametrize("arch", DENSE + SSM)
+@pytest.mark.parametrize("arch", configs.list_archs())
 def test_full_size_param_shapes_match_jax(arch):
     """Shapes, dtypes and structure at full size, allocating nothing."""
     cfg_t = configs.get_config(arch)
@@ -245,12 +263,12 @@ def test_configs_match_jax(arch):
         assert got == want
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
-    cfg = configs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
+def test_unknown_family_raises():
+    cfg = configs.get_config("tinyllama-1.1b", smoke=True).with_(
+        family="retnet")
+    with pytest.raises(ValueError, match="unknown family"):
         M.param_specs(cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown family"):
         M.init_cache(cfg, 1, 8, device="cpu")
 
 

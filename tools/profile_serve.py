@@ -8,12 +8,19 @@ Run from the root of the repository, after or beside ``chip_smoke.py``:
 It builds the ``ServingEngine`` of ``chip_smoke.py`` phase 9 (full width,
 bfloat16, random weights from seed 0, 8 slots, 2048 positions, the
 ``flash_attention`` kernel on; ``--arch mamba2-130m`` or ``hymba-1.5b``
-for phase 17's models), fills every slot with a 512-token prompt, and
-profiles with torch.profiler:
+for phase 17's models, ``--arch granite-moe-1b-a400m`` for phase 18's),
+fills every slot with a 512-token prompt, and profiles with
+torch.profiler:
 
 - one prefill of a 1024-token bucket (``ServingEngine._prefill``, as an
   admission of a 1024-token prompt);
-- ``--ticks`` decode ticks with all slots active (``ServingEngine.step``).
+- ``--ticks`` decode ticks with all slots active (``ServingEngine.step``);
+- for an MoE model, one MoE FFN layer (``layers.moe_ffn`` on the first
+  layer's experts) at a tick's tokens (one a slot) and at a 1024-token
+  prefill's, on random normal inputs: its matrix products (the router and
+  the three batched expert products) against the rest, which is the
+  dispatch (top-k, the sort by expert, the capacity scatter, the gather
+  and combine) and the SwiGLU's elementwise work.
 
 From the first of up to four windows of each that caught every
 attention kernel the wrapper launched and as many device events as
@@ -89,7 +96,9 @@ def main() -> None:
         sys.exit("profile_serve: needs a CUDA device")
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
+    from repro_torch.models.params import map_tree
     from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
     dev = torch.device("cuda", 0)
@@ -159,6 +168,21 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"decode tick without the profiler: "
           f"{(time.perf_counter() - t0) * 1e3 / 4:.3f} ms")
+    if cfg.moe:
+        ffn = map_tree(lambda a: a[0], params["layers"]["ffn"])
+        gen = torch.Generator(dev).manual_seed(1)
+        for what, (b, l) in (("a tick's", (scfg.slots, 1)),
+                             ("a 1024-token prefill's", (1, 1024))):
+            h = torch.randn((b, l, cfg.d_model), generator=gen,
+                            device=dev).to(cfg.dtype)
+            L.moe_ffn(ffn, h, cfg)
+            _, events, wall = devtime.checked_window(
+                lambda: devtime.window(lambda: L.moe_ffn(ffn, h, cfg), torch),
+                devtime.repeat_check(
+                    lambda ev: None if ev else "no device events"),
+                windows=4)
+            report(f"one MoE FFN layer at {what} {b * l} tokens", events,
+                   wall, 1)
 
 
 if __name__ == "__main__":
