@@ -176,7 +176,24 @@ Phases, each fatal on failure:
    in float32 (TF32 off) at SMOKE width, granite-moe's, kimi-k2's and
    seamless's forward with kernels on against off (atol 2e-3, rtol
    1e-3), and granite-moe's engine tokens at capacity factor 8 (nothing
-   dropped) equal to the greedy continuation of its own ``forward``.
+   dropped) equal to the greedy continuation of its own ``forward``;
+19. the mesh context and the expert-parallel MoE (``moe_ffn_ep``): (a)
+   one granite-moe-1b MoE layer at full width (bf16, 8 x 1024 tokens, a
+   capacity factor at which no expert drops) under virtual ("data",
+   "model") meshes (1, 1), (4, 1) and (2, 2) against the dense dispatch
+   (bf16 tolerance 2e-2), with ms, device ms, aux, the transport's
+   collectives (2 ``psum`` a layer, and 2 ``all_to_all`` where the
+   expert axis has more than one PE) and bytes, and no
+   ``mailbox_pack`` launch (the reference's ``pallas_pack`` is off
+   here); (b) the same layer under a ``DistMesh`` (1, 1) over NCCL at
+   world size 1, bit-equal to (a)'s (1, 1), its collectives timed; (c)
+   ``launch/train.py --arch granite-moe-1b-a400m --use-kernels`` at full
+   width, 3 steps of 4 x 512 tokens under its (1, 1) mesh, ``moe_ffn_ep``
+   on every layer, finite losses, ms a step, tokens/s and peak memory,
+   beside the same steps without a context (the dense dispatch); (d)
+   float32 SMOKE under a (4, 1) mesh: ``moe_ffn_ep`` kernels on equal to
+   off and to itself bit for bit, the forward on against off within the
+   attention kernel's tolerance.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -312,7 +329,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-18 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-19 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -466,15 +483,14 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     out_k = mp_ops.mailbox_pack(cols, order, skey, s_hop, cap)
     out_p = mp_ref.mailbox_pack_sorted_ref(cols, order, skey, s_hop, cap)
     # the scatter formulation (the exchange's path without the kernel)
-    wire = [c.contiguous() for c in wf.columns(payload, valid)]
-    out_s = mp_ref.mailbox_pack_ref(wire, slots, n_rows)
+    stacked = wf.planes(payload, valid)
+    out_s = mp_ref.mailbox_pack_ref(stacked, slots, n_rows)
     torch.cuda.synchronize()
     if not torch.equal(out_k, out_p):
         fail("mailbox_pack differs from its plain version")
     if not torch.equal(out_k, out_s):
         fail("mailbox_pack differs from the slot scatter")
-    w = len(wire)
-    stacked = torch.stack(wire, 1)
+    w = stacked.shape[1]
     keep = (slots >= 0) & (slots < n_rows)
     lib_idx = (torch.arange(P_MAIN, device=dev)[:, None, None],
                torch.arange(w, device=dev)[None, :, None],
@@ -518,7 +534,7 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         "queued_ms": mp_queued,
         "bound_ms": mp_bound, "bound_by": mp_by, "library_ms": mp_lib})
     del valid, target, payload, order, row, col, fits, cols, out_k, out_p
-    del stacked, lib_buf, lib_idx, succ_l, dist0, skey, wire, out_s
+    del stacked, lib_buf, lib_idx, succ_l, dist0, skey, out_s
 
     # ---------------------------------------------------------- phase 3
     def solve(rank, cfg, mesh=mesh, **kw):
@@ -668,6 +684,15 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     results["moe_exact"] = moe_exactness_phase(dev)
     results["moe_phase_s"] = time.perf_counter() - t_phase
     log(f"phase 18: {results['moe_phase_s']:.1f} s")
+
+    # --------------------------------------------------------- phase 19
+    t_phase = time.perf_counter()
+    results["moe_ep"] = moe_ep_phase(dev)
+    for kern in kernels:
+        kern["launches_moe_ep_train"] = results["moe_ep"]["launches"][
+            kern["name"]]
+    results["moe_ep_phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {results['moe_ep_phase_s']:.1f} s")
 
     results["card"] = card
     results["kernels"] = kernels
@@ -2973,6 +2998,273 @@ def moe_exactness_phase(dev) -> dict:
              f"continuation {want}")
     del params, eng
     torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------- phase 19
+#: the expert-parallel layer's ("data", "model") meshes and its tokens
+EP_SHAPES, EP_TOKENS = ((1, 1), (4, 1), (2, 2)), (8, 1024)
+#: phase 19 (c): steps, batch, sequence length
+EP_TRAIN = (3, 4, 512)
+#: bfloat16 outputs whose sums run in two orders (the tensor axis's two
+#: partial sums), as ``flash_attention``'s bfloat16 tolerance
+EP_BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+EP_AXES = ("data", "model")
+
+
+def _ep_layer(dev, cfg):
+    """One MoE layer's weights of ``cfg`` and an input of ``EP_TOKENS``
+    (random from seed ``SEED``), and the capacity factor at which no
+    expert drops an assignment (the dense dispatch's, and each expert
+    shard's, since the batch and the experts split over one axis)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params
+    gen = torch.Generator(dev).manual_seed(SEED)
+    ffn = init_params(gen, L.moe_specs(cfg))
+    b, l = EP_TOKENS
+    x = torch.randn((b, l, cfg.d_model), generator=gen, device=dev).to(
+        cfg.dtype)
+    probs = torch.softmax(x.reshape(-1, cfg.d_model).float()
+                          @ ffn["router"].float(), dim=-1)
+    _, idx = L._top_k(probs, cfg.top_k)
+    top = int(torch.bincount(idx.reshape(-1), minlength=cfg.num_experts).max())
+    return ffn, x, (top + 1.5) * cfg.num_experts / (b * l * cfg.top_k)
+
+
+def _layer_ms(fn, torch):
+    """(ms by CUDA events, device ms of one call under the profiler, or
+    None when no window held device events twice alike)."""
+    from repro_torch import devtime
+    ms = time_ms(fn, torch, reps=5)
+    _, events, _ = devtime.checked_window(
+        lambda: devtime.window(fn, torch),
+        devtime.repeat_check(lambda ev: None if ev else "no device events"),
+        windows=4, log=log)
+    return ms, None if events is None else devtime.device_us(events) / 1e3
+
+
+def moe_ep_phase(dev) -> dict:
+    """Phase 19: the mesh context and the expert-parallel MoE
+    (``moe_ffn_ep``): (a) one full-width granite-moe-1b layer under virtual
+    meshes against the dense dispatch, (b) the same under a ``DistMesh``
+    over NCCL at world size 1, (c) ``launch/train.py`` under its (1, 1)
+    mesh against the same steps without a context, (d) float32 SMOKE
+    exactness. Returns the rows and the launches of (c)."""
+    import math
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.listrank import dist_mesh, sim_mesh
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import context
+    from repro_torch.train import steps as train_steps
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import ATTN_TOL
+
+    res: dict = {}
+    # (a) one layer at full width, bf16, under each virtual mesh
+    cfg = configs.get_config(MOE_ARCH)
+    ffn, x, cf = _ep_layer(dev, cfg)
+    cfg = cfg.with_(capacity_factor=cf)
+    want, aux_dense = L._moe_ffn_dense(ffn, x, cfg)
+    ms, dev_ms = _layer_ms(lambda: L._moe_ffn_dense(ffn, x, cfg), torch)
+    rows = {"dense": {"ms": ms, "device_ms": dev_ms,
+                      "aux": float(aux_dense)}}
+    log(f"phase 19 (a): {cfg.name} one MoE layer at full width (d_model "
+        f"{cfg.d_model}, {cfg.num_experts} experts, top {cfg.top_k}, "
+        f"d_ff {cfg.d_ff}, {str(cfg.dtype).removeprefix('torch.')}), "
+        f"{EP_TOKENS[0]} x {EP_TOKENS[1]} tokens, "
+        f"capacity factor {cf:.4f} (no expert drops): the dense dispatch "
+        f"{ms:.3f} ms, device {fmt_ms(dev_ms)}, aux {float(aux_dense):.6f}")
+    outs = {}
+    for shape in EP_SHAPES:
+        with context.use_mesh(sim_mesh(shape, EP_AXES)) as ctx:
+            tr = ctx.transport(dev)
+            lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
+            y, aux = L.moe_ffn(ffn, x, cfg)
+            torch.cuda.synchronize()
+            counts, nbytes = dict(tr.counts), dict(tr.nbytes)
+            launches = {"local_chase": lc_ops.LAUNCHES,
+                        "mailbox_pack": mp_ops.LAUNCHES}
+            ms, dev_ms = _layer_ms(lambda: L.moe_ffn(ffn, x, cfg), torch)
+        err = max_abs_err(y, want, torch)
+        outs[shape] = (y, aux)
+        rows[str(shape)] = {"ms": ms, "device_ms": dev_ms, "aux": float(aux),
+                            "max_abs_err": err, "equal": torch.equal(y, want),
+                            "collectives": counts,
+                            "bytes_per_pe": nbytes, "launches": launches}
+        log(f"phase 19 (a): moe_ffn_ep under a {shape} mesh: {ms:.3f} ms, "
+            f"device {fmt_ms(dev_ms)}; max |y - dense| {err:.3g} "
+            f"({'bit-equal' if torch.equal(y, want) else 'not bit-equal'}), "
+            f"aux {float(aux):.6f}; collectives {counts}, bytes a PE "
+            f"{nbytes}; launches {launches} (mailbox_pack is off on this "
+            "path, as the reference's pallas_pack)")
+        if not torch.allclose(y.float(), want.float(), **EP_BF16_TOL):
+            fail(f"phase 19 (a): moe_ffn_ep under {shape} differs from the "
+                 f"dense dispatch by {err}")
+        # a hop of one PE ships nothing (exchange.route_differentiable)
+        routes = {"all_to_all": 2} if shape[0] > 1 else {}
+        if counts != {**routes, "psum": 2} or any(launches.values()):
+            fail(f"phase 19 (a): collectives {counts}, launches {launches}")
+    res["layer"] = rows
+
+    # (b) the same layer over NCCL at world size 1
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(DIST_BACKENDS["a"],
+                                init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            with context.use_mesh(dist_mesh((1, 1), EP_AXES)) as ctx:
+                y_b, aux_b = L.moe_ffn(ffn, x, cfg)
+                torch.cuda.synchronize()
+                counts = dict(ctx.transport(dev).counts)
+                acc, undo = _timed_collectives(dist, torch, dev)
+                try:
+                    t = time.perf_counter()
+                    L.moe_ffn(ffn, x, cfg)
+                    torch.cuda.synchronize()
+                    wall_b = time.perf_counter() - t
+                finally:
+                    undo()
+        finally:
+            dist.destroy_process_group()
+    y_a, aux_a = outs[(1, 1)]
+    equal = torch.equal(y_b, y_a) and torch.equal(aux_b, aux_a)
+    res["nccl"] = {"equal": equal, "collectives": counts, "wall_s": wall_b,
+                   "collective_s": acc["s"], "collective_calls": acc["calls"]}
+    log(f"phase 19 (b): moe_ffn_ep under a DistMesh (1, 1) over NCCL at "
+        f"world size 1: bit-equal to (a)'s (1, 1): {equal}; collectives "
+        f"{counts}; a call {wall_b * 1e3:.3f} ms with each collective timed "
+        f"between syncs, {acc['calls']} calls {acc['s'] * 1e3:.3f} ms")
+    if not equal:
+        fail("phase 19 (b): the NCCL run differs from the virtual one")
+
+    # (c) launch/train.py under its (1, 1) mesh, then without a context
+    steps, batch, seq = EP_TRAIN
+    cfg = configs.get_config(MOE_ARCH).with_(use_kernels=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    calls, real = [], L.moe_ffn_ep
+
+    def counted(*args):
+        calls.append(args[3].mesh.axis_sizes)
+        return real(*args)
+    L.moe_ffn_ep = counted
+    fa_ops.LAUNCHES = lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
+    ssd_ops.LAUNCHES = 0
+    try:
+        history = train_launch.main([
+            "--arch", MOE_ARCH, "--use-kernels", "--batch", str(batch),
+            "--seq", str(seq), "--steps", str(steps), "--log-every", "1",
+            "--device", str(dev)])
+    finally:
+        L.moe_ffn_ep = real
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa_ops.LAUNCHES,
+                "local_chase": lc_ops.LAUNCHES,
+                "mailbox_pack": mp_ops.LAUNCHES, "ssd_scan": ssd_ops.LAUNCHES}
+    peak_ep = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in history]
+    ep_ms = [h["ms"] for h in history]
+    if len(history) != steps or not all(np.isfinite(losses)):
+        fail(f"phase 19 (c): losses {losses}")
+    if calls != [(1, 1)] * (cfg.num_layers * steps):
+        fail(f"phase 19 (c): moe_ffn_ep ran {len(calls)} times, not "
+             f"{cfg.num_layers} x {steps}")
+    if launches["flash_attention"] != cfg.num_layers * steps:
+        fail(f"phase 19 (c): launches {launches}")
+    tcfg = train_steps.TrainConfig(optimizer=adamw.AdamWConfig(lr=3e-3),
+                                   warmup_steps=max(steps // 10, 1),
+                                   total_steps=steps)
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=batch)
+    state, _ = train_launch.initial_state(cfg, tcfg, dev)
+    one_step = train_launch.step_fn(cfg, dcfg, tcfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dense_ms, dense_losses = [], []
+    for step in range(steps):
+        t = time.perf_counter()
+        state, metrics = one_step(state, step)
+        dense_losses.append(float(metrics["loss"]))  # waits for the step
+        dense_ms.append((time.perf_counter() - t) * 1e3)
+    peak_dense = torch.cuda.max_memory_allocated(dev)
+    del state
+    tokens = batch * seq
+    res["train"] = {
+        "steps": steps, "batch": batch, "seq": seq, "losses": losses,
+        "step_ms": ep_ms, "tokens_per_s": tokens * (steps - 1) / (
+            sum(ep_ms[1:]) / 1e3), "peak_memory_bytes": peak_ep,
+        "dense_losses": dense_losses, "dense_step_ms": dense_ms,
+        "dense_tokens_per_s": tokens * (steps - 1) / (sum(dense_ms[1:]) / 1e3),
+        "dense_peak_memory_bytes": peak_dense, "launches": launches}
+    log(f"phase 19 (c): launch/train.py --arch {MOE_ARCH} (full width, "
+        f"{str(cfg.dtype).removeprefix('torch.')}, "
+        f"kernels on) {steps} steps of {batch} x {seq} tokens under its "
+        f"(1, 1) mesh: moe_ffn_ep on all {cfg.num_layers} layers a step; "
+        f"losses {', '.join(f'{v:.4f}' for v in losses)}; step ms "
+        f"{', '.join(f'{v:.1f}' for v in ep_ms)} (host clock), "
+        f"{res['train']['tokens_per_s']:.1f} tokens/s after the first; peak "
+        f"{peak_ep / 2 ** 30:.2f} GiB; launches {launches}")
+    log(f"phase 19 (c): the same steps without a context (the dense "
+        f"dispatch): losses {', '.join(f'{v:.4f}' for v in dense_losses)}; "
+        f"step ms {', '.join(f'{v:.1f}' for v in dense_ms)}, "
+        f"{res['train']['dense_tokens_per_s']:.1f} tokens/s after the first; "
+        f"peak {peak_dense / 2 ** 30:.2f} GiB")
+    if not math.isclose(losses[0], dense_losses[0], rel_tol=1e-2):
+        fail(f"phase 19 (c): first loss {losses[0]} under the mesh, "
+             f"{dense_losses[0]} without")
+    torch.cuda.empty_cache()
+
+    # (d) float32 SMOKE: kernels on against off, and repeatability
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(MOE_ARCH, smoke=True)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    ffn = {k: v[0] for k, v in params["layers"]["ffn"].items()}
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.normal(size=(4, 64, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    tokens = {"tokens": torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (4, 96)).astype(np.int32)).to(dev)}
+    with context.use_mesh(sim_mesh((4, 1), EP_AXES)):
+        on = L.moe_ffn(ffn, x, cfg.with_(use_kernels=True))[0]
+        off = L.moe_ffn(ffn, x, cfg)[0]
+        again = L.moe_ffn(ffn, x, cfg)[0]
+        fa_ops.LAUNCHES = 0
+        lg_on, _ = M.forward(params, tokens, cfg.with_(use_kernels=True))
+        fa_launches = fa_ops.LAUNCHES
+        lg_off, _ = M.forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    d_model = max_abs_err(lg_on, lg_off, torch)
+    res["exact"] = {"layer_on_off_equal": torch.equal(on, off),
+                    "layer_repeat_equal": torch.equal(off, again),
+                    "forward_max_abs_diff": d_model,
+                    "flash_attention_launches": fa_launches}
+    log(f"phase 19 (d): {cfg.name} SMOKE float32 under a (4, 1) mesh: "
+        f"moe_ffn_ep kernels on = off bit for bit: {torch.equal(on, off)}, "
+        f"equal to itself across two calls: {torch.equal(off, again)}; the "
+        f"forward, kernels on against off: max |logits diff| {d_model:.3g} "
+        f"(flash_attention launches {fa_launches})")
+    if not (torch.equal(on, off) and torch.equal(off, again)):
+        fail("phase 19 (d): moe_ffn_ep is not bit-stable")
+    if fa_launches != cfg.num_layers or not torch.allclose(
+            lg_on, lg_off, **ATTN_TOL[torch.float32]):
+        fail(f"phase 19 (d): forward on against off {d_model}, launches "
+             f"{fa_launches}")
+    del params
+    torch.cuda.empty_cache()
+    res["launches"] = launches
     return res
 
 

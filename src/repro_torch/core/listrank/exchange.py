@@ -116,6 +116,11 @@ class MeshPlan:
         """Sum-reduce over every PE, result on every PE."""
         return self.transport.psum(x)
 
+    def psum_axes(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """Sum-reduce over the transport's mesh axes ``axes`` only (the
+        reference's ``lax.psum(x, axes)`` inside ``shard_map``)."""
+        return self.transport.psum_axes(x, axes)
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Tiled gather over every PE axis (allgather base case)."""
         return self.transport.all_gather(x)
@@ -190,8 +195,16 @@ class MeshPlan:
 # wire format
 # --------------------------------------------------------------------------
 
+#: 16-bit floats cross the wire as their bit patterns, one word each
+HALF_FLOATS = (torch.bfloat16, torch.float16)
+
+
 def to_wire_word(x: torch.Tensor) -> torch.Tensor:
-    """Reinterpret a 32-bit-or-narrower leaf as int32 words, exactly."""
+    """Reinterpret a 32-bit-or-narrower leaf as int32 words, exactly.
+
+    A bfloat16 or float16 leaf travels as its 16-bit pattern widened to
+    one word, as an int16 leaf does. The reference raises ``TypeError``
+    for them, so its expert-parallel MoE cannot run in bfloat16."""
     dt = x.dtype
     if dt == torch.int32:
         return x
@@ -199,6 +212,8 @@ def to_wire_word(x: torch.Tensor) -> torch.Tensor:
         return x.view(torch.int32)
     if dt == torch.bool:
         return x.to(torch.int32)
+    if dt in HALF_FLOATS:
+        return x.view(torch.int16).to(torch.int32)
     if dt in (torch.int8, torch.uint8, torch.int16):
         return x.to(torch.int32)
     raise TypeError(f"wire format does not support dtype {dt}")
@@ -212,6 +227,8 @@ def from_wire_word(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return w.view(torch.float32)
     if dtype == torch.bool:
         return w != 0
+    if dtype in HALF_FLOATS:
+        return w.to(torch.int16).view(dtype)
     return w.to(dtype)
 
 
@@ -265,10 +282,15 @@ class WireFormat:
             cols.extend(w[:, :, j] for j in range(w.shape[2]))
         return cols
 
-    def columns(self, payload: dict[str, torch.Tensor],
-                valid: torch.Tensor) -> list[torch.Tensor]:
-        """The ``width`` (p, Q) int32 word-planes of the wire matrix."""
-        return self.payload_columns(payload) + [valid.to(torch.int32)]
+    def planes(self, payload: dict[str, torch.Tensor],
+               valid: torch.Tensor) -> torch.Tensor:
+        """The wire matrix's ``width`` int32 word-planes, validity last,
+        stacked as (p, width, Q) in one copy per leaf (a message of
+        ``d_model`` words is ``d_model`` planes)."""
+        p, q = valid.shape
+        parts = [to_wire_word(payload[k]).reshape(p, q, -1).movedim(2, 1)
+                 for k in self.keys]
+        return torch.cat(parts + [valid.to(torch.int32)[:, None]], 1)
 
     def unpack_cols(self, cols: torch.Tensor
                     ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
@@ -357,15 +379,19 @@ def _sum32(x: torch.Tensor) -> torch.Tensor:
 
 def _route_impl(plan: MeshPlan, caps: Sequence[int],
                 payload: dict[str, torch.Tensor], dest: torch.Tensor,
-                valid: torch.Tensor, track_src: bool, queue_cap: int | None):
-    """Shared body of :func:`route` and :func:`route_compact`.
+                valid: torch.Tensor, track_src: bool, queue_cap: int | None,
+                keep_slots: bool = False):
+    """Shared body of :func:`route`, :func:`route_compact` and
+    :func:`route_differentiable`.
 
     With ``queue_cap`` set, per-hop leftovers are compacted into a single
     queue *by the bucket sort itself* (prefix-sum slots over the sorted
     order — no extra sort); otherwise they are returned as the per-hop
     fragment list. With ``plan.telemetry`` each hop's bucket sort also
     yields its occupancy sample, and ``stats["telemetry"]`` the wave's
-    record (``telemetry.route_wave``).
+    record (``telemetry.route_wave``). With ``keep_slots``,
+    ``stats["slots"]`` holds each hop's input-aligned mailbox slots
+    (:func:`_io_slots`): local indices, nothing more on the wire.
     """
     hops = plan.indirection.hops
     if len(caps) != len(hops):
@@ -419,6 +445,9 @@ def _route_impl(plan: MeshPlan, caps: Sequence[int],
             nleft = nleft + nl
         stats["sent"].append(_sum32(fits))
         stats["leftover"] = stats["leftover"] + nl
+        if keep_slots:
+            stats.setdefault("slots", []).append(
+                _io_slots(order, row, col, cap))
 
         # exchange: mailbox row b goes to the peer with coordinate b
         # along `hop`. The packed buffer is plane-major (word-planes
@@ -521,8 +550,8 @@ def _pack_scatter(plan: MeshPlan, wf: WireFormat, payload, valid, order,
         cols = [c.contiguous() for c in wf.payload_columns(payload)]
         buf = mp_ops.mailbox_pack(cols, order, skey, n_buckets, cap)
     else:
-        cols = [c.contiguous() for c in wf.columns(payload, valid)]
-        buf = mp_ref.mailbox_pack_ref(cols, _io_slots(order, row, col, cap),
+        buf = mp_ref.mailbox_pack_ref(wf.planes(payload, valid),
+                                      _io_slots(order, row, col, cap),
                                       n_buckets * cap)
     return buf.reshape(plan.p_local, wf.width, n_buckets, cap)
 
@@ -548,6 +577,97 @@ def route(plan: MeshPlan, caps: Sequence[int],
     """
     return _route_impl(plan, caps, payload, dest, valid, track_src,
                        queue_cap=None)
+
+
+class _DifferentiableRoute(torch.autograd.Function):
+    """One direct hop of :func:`route` whose float leaves carry
+    gradients: the forward is the route itself (the same wire); the
+    backward sends each float leaf's cotangent back along the delivery
+    map. A tiled all_to_all over one hop is its own inverse (row ``b``
+    of PE ``i`` lands in row ``coord(i)`` of the PE with coordinate
+    ``b``), so the cotangent's mailbox, sent through the same
+    ``all_to_all``, arrives at the senders laid out as their send
+    buffers, and each message reads its gradient at its own mailbox
+    slot (zero where it did not ship). Leaves of one dtype share one
+    collective.
+
+    A hop of one PE keeps every message on its PE: the mailbox is the
+    delivery, so each leaf is scattered to its slot in its own dtype, with
+    no pack, no collective and no unpack either way. The wire is exact and
+    its empty cells are zero words, so the result is the wire's bit for
+    bit."""
+
+    @staticmethod
+    def forward(ctx, plan, cap, keys, dest, valid, *leaves):
+        hop = plan.indirection.hops[0]
+        if plan.hop_size(hop) == 1:
+            coord = plan.hop_coord(dest.to(torch.int32), hop)
+            order, row, col, *_ = _bucket_indices(coord, valid, 1, cap)
+            slot = _io_slots(order, row, col, cap)
+            delivered = {k: _scatter_leaf(v, slot, cap)
+                         for k, v in zip(keys, leaves)}
+            dval = _scatter_leaf(valid, slot, cap)
+        else:
+            delivered, dval, _, stats = _route_impl(
+                plan, [cap], dict(zip(keys, leaves)), dest, valid,
+                track_src=False, queue_cap=None, keep_slots=True)
+            slot = stats["slots"][0]
+        ctx.plan, ctx.cap = plan, cap
+        ctx.floats = [v.is_floating_point() for v in leaves]
+        ctx.save_for_backward(slot)
+        outs = tuple(delivered[k] for k in keys)
+        ctx.mark_non_differentiable(
+            dval, *(o for o, f in zip(outs, ctx.floats) if not f))
+        return outs + (dval,)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        slot, = ctx.saved_tensors
+        plan, cap = ctx.plan, ctx.cap
+        hop = plan.indirection.hops[0]
+        s = plan.hop_size(hop)
+        p, q = slot.shape
+        grads: list = [None] * len(ctx.floats)
+        todo = [i for i, f in enumerate(ctx.floats)
+                if f and cts[i] is not None]
+        for dt in dict.fromkeys(cts[i].dtype for i in todo):
+            group = [i for i in todo if cts[i].dtype == dt]
+            trails = [tuple(cts[i].shape[2:]) for i in group]
+            flat = torch.cat([cts[i].reshape(p, s * cap, -1) for i in group],
+                             dim=2)
+            back = flat.reshape(p, s, cap, -1)
+            if s > 1:
+                back = plan.all_to_all(back, hop, 0)
+            back = torch.cat([back.reshape(p, s * cap, -1),
+                              back.new_zeros((p, 1, back.shape[-1]))], 1)
+            got = take(back, torch.clamp(slot, max=s * cap))
+            off = 0
+            for i, trail in zip(group, trails):
+                w = int(np.prod(trail, dtype=np.int64))
+                grads[i] = got[:, :, off:off + w].reshape((p, q) + trail)
+                off += w
+        return (None, None, None, None, None, *grads)
+
+
+def route_differentiable(plan: MeshPlan, cap: int,
+                         payload: dict[str, torch.Tensor],
+                         dest: torch.Tensor, valid: torch.Tensor):
+    """:func:`route` over a plan of one direct hop with mailbox capacity
+    ``cap``, differentiable in its float leaves (see
+    :class:`_DifferentiableRoute`); the wire is :func:`route`'s (a hop of
+    one PE delivers its result with no wire). Returns
+    ``(delivered, delivered_valid)``; the leftovers are not returned.
+
+    The reference's route bit-casts every leaf to int32 words, so no
+    gradient crosses it; this is the port's repair, for the
+    expert-parallel MoE's training."""
+    if plan.indirection.depth != 1:
+        raise ValueError("route_differentiable routes one hop; the plan "
+                         f"has {plan.indirection.depth}")
+    keys = tuple(payload)
+    out = _DifferentiableRoute.apply(plan, cap, keys, dest, valid,
+                                     *(payload[k] for k in keys))
+    return dict(zip(keys, out[:-1])), out[-1]
 
 
 def route_compact(plan: MeshPlan, caps: Sequence[int], frags, queue_cap: int):

@@ -13,7 +13,9 @@ PE axis:
   (mailbox row ``b`` of PE ``i`` lands in row ``coord_hop(i)`` of the PE
   whose hop coordinate is ``b`` and whose other coordinates are ``i``'s),
 - ``psum`` is a sum over the PE axis, broadcast back to every PE,
-- ``all_gather`` is a reshape and broadcast.
+- ``all_gather`` is a reshape and broadcast,
+- ``psum_axes`` (a sum over some mesh axes only, the reference's
+  ``lax.psum(x, axes)``) is a reshape to the axis grid and a sum.
 
 Because the PE axis is an ordinary batch dimension, the CUDA kernels take
 it as their batch axis and run under this transport unchanged.
@@ -36,14 +38,21 @@ collective is one ``torch.distributed`` call:
   (int32 sums wrap, as the reference's do; a float sum gathers every
   PE's value and sums in PE order, as the virtual transport does);
 - ``all_gather`` is one ``all_gather_into_tensor``, broadcast to the
-  ``k`` local PEs.
+  ``k`` local PEs;
+- ``psum_axes`` is one ``all_gather_into_tensor`` over the subgroup of
+  ranks that hold the PEs of the rank's reduction groups (built once per
+  axis set), then the virtual transport's sum in PE order; none when
+  those PEs all live on the rank (one card: a sum by index).
 
 Both transports also carry two *uncounted* host reads, which are not
 collectives of the algorithm (the reference reads a global array on the
 host, which is no collective in its program): :meth:`gather_pes` (every
 PE's rows on every rank: outputs, telemetry records) and
 :meth:`rank_sum` (a host-read total equal on every rank, so that every
-rank takes the same branch).
+rank takes the same branch). For training over the ranks,
+:meth:`gather_pes` passes gradients (a rank's rows of the cotangent),
+and :meth:`replicated` marks an input that every rank holds whole: its
+backward sums the cotangent over the ranks (uncounted as well).
 
 :class:`CountingTransport` wraps a transport and counts its calls and
 per-PE payload bytes per collective, so ``resume.run_staged`` can report
@@ -201,6 +210,19 @@ def _strides(sizes: Sequence[int]) -> list[int]:
     return out[::-1]
 
 
+def axes_sum(x: torch.Tensor, pe_axes: Sequence[str],
+             axis_sizes: Sequence[int], axes: Sequence[str]) -> torch.Tensor:
+    """(p, ...) -> (p, ...): every PE's ``x`` summed over the PEs that
+    differ from it only in ``axes`` (a reshape to the axis grid and one
+    sum), broadcast back to each of them; dtype kept."""
+    dims = tuple(tuple(pe_axes).index(a) for a in axes)
+    if not dims:
+        return x
+    grid = x.reshape(tuple(axis_sizes) + tuple(x.shape[1:]))
+    tot = grid.sum(dim=dims, keepdim=True, dtype=x.dtype)
+    return tot.expand_as(grid).reshape(x.shape)
+
+
 def hop_sources(pe_axes: Sequence[str], axis_sizes: Sequence[int],
                 hop: Sequence[str]):
     """Static maps of one hop over all ``p`` PEs: ``src[j, b]`` is the
@@ -280,6 +302,10 @@ class VirtualTransport:
         tot = x.sum(dim=0, keepdim=True, dtype=x.dtype)
         return tot.expand_as(x)
 
+    def psum_axes(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """Sum over the mesh axes ``axes`` only (:func:`axes_sum`)."""
+        return axes_sum(x, self.pe_axes, self.axis_sizes, axes)
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Tiled gather over every PE: (p, c, ...) -> (p, p*c, ...)."""
         flat = x.reshape((1, -1) + tuple(x.shape[2:]))
@@ -287,6 +313,11 @@ class VirtualTransport:
 
     def gather_pes(self, x: torch.Tensor) -> torch.Tensor:
         """Every PE's rows, (p, ...): ``x`` itself (uncounted)."""
+        return x
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, held whole by every rank, as an input of per-PE work:
+        ``x`` itself (one process)."""
         return x
 
     def rank_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -423,6 +454,82 @@ class DistTransport:
             dist.all_reduce(tot, group=self.group)
         return tot.expand_as(x)
 
+    def _axes_group(self, axes: tuple[str, ...]):
+        """(ranks, group) of a reduction over ``axes``: the ranks whose PEs
+        share a reduction group with this rank's, joined through shared
+        groups, and the process group over them (unused when they are
+        this rank alone). Every rank builds every such group once, in the same
+        order, as ``new_group`` needs."""
+        key = ("axes", axes)
+        if key in self._maps:
+            return self._maps[key]
+        import torch.distributed as dist
+        pe = np.arange(self.p)
+        strides = _strides(self.axis_sizes)
+        gid = np.zeros(self.p, np.int64)   # a PE's coordinates off `axes`
+        for i, a in enumerate(self.pe_axes):
+            if a not in axes:
+                gid = gid * self.axis_sizes[i] + (pe // strides[i]) \
+                    % self.axis_sizes[i]
+        comp = list(range(self.world))     # union-find over the ranks
+
+        def find(r):
+            while comp[r] != r:
+                r = comp[r]
+            return r
+        for g in np.unique(gid):
+            ranks = np.unique(pe[gid == g] // self.p_local)
+            for r in ranks[1:]:
+                comp[find(int(r))] = find(int(ranks[0]))
+        comps: dict = {}
+        for r in range(self.world):
+            comps.setdefault(find(r), []).append(r)
+        mine = None
+        for ranks in comps.values():
+            if len(ranks) == 1:
+                group = None
+            elif len(ranks) == self.world:
+                group = self.group
+            else:
+                group = dist.new_group([
+                    r if self.group is None else
+                    dist.get_global_rank(self.group, r) for r in ranks])
+            if self.rank in ranks:
+                mine = (tuple(ranks), group)
+        self._maps[key] = mine
+        return mine
+
+    def _psum_axes(self, x: torch.Tensor, axes: tuple[str, ...]):
+        """The rank's rows of :func:`axes_sum` over every PE: this
+        rank's block and the blocks gathered from the ranks of its
+        reduction groups (one all_gather), placed in a (p, ...) grid
+        with zeros elsewhere, so every sum runs in the virtual
+        transport's order."""
+        import torch.distributed as dist
+        ranks, group = self._axes_group(axes)
+        k, first = self.p_local, self.first_pe
+        full = x.new_zeros((self.p,) + tuple(x.shape[1:]))
+        if len(ranks) == 1:
+            full[first:first + k] = x
+        else:
+            wx = _wire(x)
+            got = wx.new_empty((len(ranks) * k,) + tuple(wx.shape[1:]))
+            dist.all_gather_into_tensor(got, wx, group=group)
+            if x.dtype == torch.bool:
+                got = got.view(torch.bool)
+            for i, r in enumerate(ranks):
+                full[r * k:(r + 1) * k] = got[i * k:(i + 1) * k]
+        return axes_sum(full, self.pe_axes, self.axis_sizes,
+                        axes)[first:first + k]
+
+    def psum_axes(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """Sum over the mesh axes ``axes`` only, broadcast back to the
+        rank's PEs: bit for bit the virtual transport's
+        :meth:`~VirtualTransport.psum_axes` on the same PEs' values. No
+        collective when every group of the rank's PEs lies on the rank;
+        differentiable (the sum is its own transpose)."""
+        return _PsumAxes.apply(self, tuple(axes), x)
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Tiled gather over every PE: (k, c, ...) -> (k, p*c, ...)."""
         flat = self._gather(x).reshape((1, -1) + tuple(x.shape[2:]))
@@ -431,8 +538,18 @@ class DistTransport:
     def gather_pes(self, x: torch.Tensor) -> torch.Tensor:
         """Every PE's rows on every rank, (p, ...): one all_gather that
         no counter sees (a host read, not a collective of the
-        algorithm)."""
-        return self._gather(x)
+        algorithm). Differentiable: every rank holds the same whole
+        result, so a rank's gradient is the cotangent's own rows."""
+        return _GatherPEs.apply(self, x)
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, held whole by every rank, as an input of the rank's
+        per-PE work: ``x`` itself, whose backward sums the cotangent over
+        the ranks (one uncounted all_reduce), since each rank's work
+        reads its own part of ``x``. With :meth:`gather_pes` on the way
+        out, every rank gets the whole gradient of its replicated
+        inputs, as a one-process run does."""
+        return x if self.world == 1 else _Replicated.apply(self, x)
 
     def rank_sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the ranks (one uncounted all_reduce): a
@@ -443,11 +560,53 @@ class DistTransport:
         return tot
 
 
+class _PsumAxes(torch.autograd.Function):
+    """:meth:`DistTransport.psum_axes` with its backward: the cotangent
+    summed over the same groups."""
+
+    @staticmethod
+    def forward(ctx, transport, axes, x):
+        ctx.transport, ctx.axes = transport, axes
+        return transport._psum_axes(x, axes)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, None, ctx.transport._psum_axes(ct, ctx.axes)
+
+
+class _GatherPEs(torch.autograd.Function):
+    """:meth:`DistTransport.gather_pes` with its backward."""
+
+    @staticmethod
+    def forward(ctx, transport, x):
+        ctx.rows = slice(transport.first_pe,
+                         transport.first_pe + transport.p_local)
+        return transport._gather(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, ct[ctx.rows]
+
+
+class _Replicated(torch.autograd.Function):
+    """:meth:`DistTransport.replicated` with its backward."""
+
+    @staticmethod
+    def forward(ctx, transport, x):
+        ctx.transport = transport
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, ctx.transport.rank_sum(ct.contiguous())
+
+
 class CountingTransport:
     """Wraps a transport; counts every collective call by name.
 
     ``counts`` is a ``collections.Counter`` over ``all_to_all``,
-    ``psum`` and ``all_gather`` (``axis_index`` is not a collective);
+    ``psum`` (``psum_axes`` counts as one) and ``all_gather``
+    (``axis_index`` is not a collective);
     ``nbytes`` the same over each call's payload bytes per PE, the
     input's ``numel() * element_size()`` over the PEs its leading axis
     holds (``p_local``: p on the virtual transport, the rank's PEs on the
@@ -492,12 +651,19 @@ class CountingTransport:
         self._count("psum", x)
         return self.inner.psum(x)
 
+    def psum_axes(self, x, axes):
+        self._count("psum", x)
+        return self.inner.psum_axes(x, axes)
+
     def all_gather(self, x):
         self._count("all_gather", x)
         return self.inner.all_gather(x)
 
     def gather_pes(self, x):
         return self.inner.gather_pes(x)
+
+    def replicated(self, x):
+        return self.inner.replicated(x)
 
     def rank_sum(self, x):
         return self.inner.rank_sum(x)

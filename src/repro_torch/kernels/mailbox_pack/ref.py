@@ -13,20 +13,21 @@ from __future__ import annotations
 import torch
 
 
-def mailbox_pack_ref(cols, slots: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """(p, Q) int32 word-planes ``cols`` and slots -> (p, W, n_rows).
+def mailbox_pack_ref(planes: torch.Tensor, slots: torch.Tensor,
+                     n_rows: int) -> torch.Tensor:
+    """(p, W, Q) int32 word-planes and slots -> (p, W, n_rows).
 
-    ``out[pe, w, slots[pe, i]] = cols[w][pe, i]`` where
+    ``out[pe, w, slots[pe, i]] = planes[pe, w, i]`` where
     ``0 <= slots[pe, i] < n_rows``, zero everywhere else. Shipping slots
     are unique per PE, so the scatter's write order does not matter.
     """
     p, q = slots.shape
-    w = len(cols)
+    w = planes.shape[1]
     keep = (slots >= 0) & (slots < n_rows)
     idx = torch.where(keep, slots, n_rows).long()
     out = torch.zeros((p, w, n_rows + 1), dtype=torch.int32,
                       device=slots.device)
-    out.scatter_(2, idx[:, None, :].expand(p, w, q), torch.stack(cols, 1))
+    out.scatter_(2, idx[:, None, :].expand(p, w, q), planes)
     return out[:, :, :n_rows].contiguous()
 
 

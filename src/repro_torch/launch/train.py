@@ -14,6 +14,13 @@ the latest checkpoint and replays (the batches regenerate from the
 step); SIGTERM/SIGINT write a checkpoint and stop. Without
 ``--ckpt-dir`` nothing is written and a failed step replays from step 0.
 
+Every step runs under the mesh context (``runtime.context.use_mesh``),
+as the reference's launcher runs it: the mesh of ``launch/mesh.py``'s
+``make_host_mesh()`` over the ranks when a process group is initialised,
+else a (1, 1) ``("data", "model")`` virtual mesh on the run's device
+(:func:`host_mesh`). So an MoE model trains through the expert-parallel
+``moe_ffn_ep`` even on one card; the other families read no context.
+
 Runs on the CUDA device unless ``--device`` says otherwise;
 ``--use-kernels`` sends attention through ``flash_attention`` and the
 Mamba-2 scan through ``ssd_scan`` (their plain versions on the CPU).
@@ -25,6 +32,7 @@ Prints a line per logged step and a final JSON summary.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import signal
 import time
@@ -32,13 +40,26 @@ import time
 import torch
 
 from repro_torch import configs
+from repro_torch.core.listrank.transport import sim_mesh
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as M
 from repro_torch.models.params import map_tree
 from repro_torch.optim import adamw
+from repro_torch.runtime import context as runtime_context
 from repro_torch.runtime.fault_tolerance import Supervisor, SupervisorConfig
 from repro_torch.train import steps as train_steps
+
+
+def host_mesh():
+    """The mesh the launcher's steps run under: ``make_host_mesh()``,
+    (world, 1) over the ranks, when a process group is initialised, else
+    a (1, 1) virtual mesh whose one PE is the run's device."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return mesh_lib.make_host_mesh()
+    return sim_mesh((1, 1), ("data", "model"))
 
 
 def initial_state(cfg, tcfg: train_steps.TrainConfig, device):
@@ -67,11 +88,11 @@ def enc_embeds(cfg, dcfg: pipeline.DataConfig, step: int, device):
 
 
 def step_fn(cfg, dcfg: pipeline.DataConfig, tcfg: train_steps.TrainConfig,
-            device):
+            device, mesh=None):
     """``one_step(state, step) -> (state, metrics)``: batch ``step`` and
-    one optimizer step; ``metrics["t0"]`` is the host clock
-    (``time.perf_counter``) at the step's start, ``metrics["batch_s"]``
-    the seconds its batch took."""
+    one optimizer step, under ``use_mesh(mesh)`` when ``mesh`` is given;
+    ``metrics["t0"]`` is the host clock (``time.perf_counter``) at the
+    step's start, ``metrics["batch_s"]`` the seconds its batch took."""
     def one_step(state, step):
         params, opt = state
         t0 = time.perf_counter()
@@ -79,8 +100,10 @@ def step_fn(cfg, dcfg: pipeline.DataConfig, tcfg: train_steps.TrainConfig,
         if cfg.family == "encdec":
             batch["enc_embeds"] = enc_embeds(cfg, dcfg, step, device)
         batch_s = time.perf_counter() - t0
-        params, opt, metrics = train_steps.train_step(params, opt, batch, cfg,
-                                                      tcfg)
+        with (runtime_context.use_mesh(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            params, opt, metrics = train_steps.train_step(params, opt, batch,
+                                                          cfg, tcfg)
         return (params, opt), {**metrics, "t0": t0, "batch_s": batch_s}
     return one_step
 
@@ -118,7 +141,7 @@ def main(argv=None):
                                       ckpt_every=args.ckpt_every),
                      lambda: initial_state(cfg, tcfg, device),
                      lambda: state_like(cfg, tcfg), device=device)
-    one_step = step_fn(cfg, dcfg, tcfg, device)
+    one_step = step_fn(cfg, dcfg, tcfg, device, mesh=host_mesh())
 
     records: dict[int, dict] = {}
 

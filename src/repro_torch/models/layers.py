@@ -11,22 +11,29 @@ otherwise. Both kernels are differentiable (backward through their plain
 versions). With a cache the mixer serves as the JAX package's does: the
 prefill through ``ssd_chunked_ref(return_state=True)``, the decode through
 the plain ``ssd_decode_step``. The MoE FFN is the JAX package's
-single-program sort-based dispatch (no kernel there either: its sort,
-scatter and combine are plain tensor code and its expert products batched
-matrix products).
+single-program sort-based dispatch, or under a mesh context
+(``runtime.context``) its expert-parallel dispatch over the port's
+transports (no kernel in either: their sort, scatter and combine are
+plain tensor code and their expert products batched matrix products).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.listrank.batched import arange, set_drop, take, unpermute
+from repro_torch.core.listrank.config import IndirectionSpec
+from repro_torch.core.listrank.exchange import MeshPlan, route_differentiable
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models.params import spec
+from repro_torch.runtime import context as runtime_context
 
 # ---------------------------------------------------------------------------
 # norms / rope / embedding
@@ -73,7 +80,10 @@ def embed(p, tokens, cfg):
 
 def unembed(p, x, cfg):
     """Logits in float32 (the product in x's dtype, as the JAX einsum),
-    soft-capped by ``cfg.final_softcap``."""
+    soft-capped by ``cfg.final_softcap``. Under a mesh context the
+    reference also pins the logits' sharding (batch over the data axes,
+    vocabulary over the tensor axis) for GSPMD; the port's mesh context
+    carries no sharding, so there is nothing to pin."""
     logits = (x @ p["embedding"].T).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
@@ -226,11 +236,20 @@ def _top_k(probs, k):
 
 
 def moe_ffn(p, x, cfg):
-    """The MoE FFN, (B, L, D) -> ((B, L, D), float32 aux loss): sort-based
-    top-k dispatch with per-expert capacity, as the JAX package's
-    ``_moe_ffn_dense``. The JAX package's ``moe_ffn`` takes its
-    expert-parallel ``moe_ffn_ep`` under a mesh context instead; the port
-    has no mesh context yet (ROADMAP queue 1: the expert-parallel MoE).
+    """The MoE FFN dispatcher, (B, L, D) -> ((B, L, D), float32 aux loss),
+    as the JAX package's: the expert-parallel :func:`moe_ffn_ep` under a
+    mesh context (``runtime.context.use_mesh``) whose expert axis divides
+    ``num_experts``, the single-program :func:`_moe_ffn_dense`
+    otherwise (serving, single-device tests, smoke configs)."""
+    ctx = runtime_context.current()
+    if ctx is not None and cfg.num_experts % ctx.mesh.shape[ctx.ep_axis] == 0:
+        return moe_ffn_ep(p, x, cfg, ctx)
+    return _moe_ffn_dense(p, x, cfg)
+
+
+def _moe_ffn_dense(p, x, cfg):
+    """The single-program MoE FFN: sort-based top-k dispatch with
+    per-expert capacity, as the JAX package's ``_moe_ffn_dense``.
 
     The router's float32 softmax picks ``top_k`` experts a token, their
     gates renormalised. The n * k assignments are sorted by expert (a
@@ -295,6 +314,204 @@ def moe_ffn(p, x, cfg):
     if cfg.num_shared_experts:
         y = y + swiglu(p["shared"], xf)
     return y.reshape(b, l, d), aux_loss
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel MoE
+# ---------------------------------------------------------------------------
+#
+# The reference runs this dispatch inside shard_map: tokens route to the
+# expert shards over the mesh's expert axis through the list-ranking
+# core's exchange.route (the paper's coalesced exchange, one collective a
+# hop), the (E_loc, C, D) batched products run with d_ff sharded over the
+# tensor axis, the results route back and the partial sums meet in one
+# psum. Here every per-PE tensor carries the transport's PEs on a leading
+# axis: all PEs of a SimMesh on one device, or a rank's PEs of a
+# DistMesh.
+
+
+def _pe_rows(t, mesh, axes, tr):
+    """``t``, whose leading dims are the mesh axes ``axes`` in that order,
+    laid out over the PEs (flattened row-major over the mesh's axes,
+    replicated over the others): the rows of the transport's PEs."""
+    names = tuple(mesh.axis_names)
+    n, rest = len(axes), tuple(t.shape[len(axes):])
+    order = sorted(range(n), key=lambda i: names.index(axes[i]))
+    t = t.permute(*order, *range(n, t.dim()))
+    t = t.reshape(tuple(mesh.shape[a] if a in axes else 1 for a in names)
+                  + rest).expand(tuple(mesh.axis_sizes) + rest)
+    t = t.reshape((-1,) + rest)
+    return t[tr.first_pe:tr.first_pe + tr.p_local]
+
+
+def _split(t, dim, n):
+    """``t`` with dim ``dim`` cut into ``n`` blocks, the block index
+    first."""
+    sh = tuple(t.shape)
+    return t.reshape(sh[:dim] + (n, sh[dim] // n) + sh[dim + 1:]).movedim(
+        dim, 0)
+
+
+def _blocks(w, ctx, tr, f_dim, experts=True):
+    """A weight as its per-PE blocks, (k, ...): dim ``f_dim`` (``d_ff``)
+    split over the tensor axis, if the mesh has one, and with
+    ``experts`` dim 0 split over the expert axis."""
+    mesh, t, axes = ctx.mesh, w, ()
+    if ctx.tp_axis is not None:
+        t, axes = _split(t, f_dim, mesh.shape[ctx.tp_axis]), (ctx.tp_axis,)
+    if experts:
+        t = _split(t, len(axes), mesh.shape[ctx.ep_axis])
+        axes = (ctx.ep_axis,) + axes
+    return _pe_rows(t, mesh, axes, tr)
+
+
+def moe_ffn_ep(p, x, cfg, ctx):
+    """The expert-parallel MoE FFN, as the JAX package's ``moe_ffn_ep``:
+    its ``shard_map`` body on every PE of ``ctx.mesh`` at once. x: (B, L,
+    D), the batch split over ``ctx.dp_axes`` -> ((B, L, D), float32 aux).
+
+    Each PE takes its tokens' router softmax, top-k and renormalised
+    gates; its Switch aux loss is averaged over ``dp_axes``. Its q = s * k
+    assignments (the token repeated k times, gates in x's dtype) route to
+    the PE of the expert's shard over the expert axis through
+    ``exchange.route`` with a mailbox of ``cap_send = min(q, int(q/p_ep +
+    5 sqrt(q/p_ep)) + 8)`` a peer (overflow dropped). There they are
+    grouped by local expert (a stable sort, ``searchsorted`` starts),
+    packed into an (E_loc, cap_e, D) buffer with ``cap_e = max(8,
+    int(capacity_factor * q / E_loc))`` (overflow dropped), and run
+    through the shard's experts, ``d_ff`` split over ``ctx.tp_axis``. The
+    results route back to their sources, are gate-weighted into their
+    (token, k) slots (each written once) and summed over k; the shared
+    experts add their part, and one sum over the tensor axis joins the
+    partial sums.
+
+    The route carries bfloat16 leaves (``exchange.to_wire_word``) and
+    passes gradients (``exchange.route_differentiable``), where the
+    reference raises and passes none. Under a DistMesh every rank passes
+    the whole x and weights and gets the whole output and the aux of
+    global PE 0 (``gather_pes``); the gradients of x and the weights are
+    summed over the ranks (``replicated``), so every rank holds the whole
+    gradient.
+    """
+    mesh, ep, tp = ctx.mesh, ctx.ep_axis, ctx.tp_axis
+    if ep == tp:
+        raise ValueError(f"the expert and tensor axes are both {ep!r}")
+    e_total, k = cfg.num_experts, cfg.top_k
+    p_ep = mesh.shape[ep]
+    if e_total % p_ep:
+        raise ValueError(f"{e_total} experts do not split over {p_ep} PEs")
+    e_loc = e_total // p_ep
+    dp = tuple(ctx.dp_axes)
+    dp_sizes = tuple(mesh.shape[a] for a in dp)
+    p_dp = math.prod(dp_sizes)
+    b, l, d = x.shape
+    if b % p_dp:
+        raise ValueError(f"batch {b} does not split over {p_dp} PEs")
+    tr = ctx.transport(x.device)
+    kp, dev = tr.p_local, x.device
+    plan = MeshPlan.from_mesh(mesh, (ep,), IndirectionSpec.direct((ep,)),
+                              transport=tr)
+    # every rank holds x and the weights whole and works on its PEs' part
+    x = tr.replicated(x)
+    p = {name: ({kk: tr.replicated(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else tr.replicated(v))
+         for name, v in p.items()}
+
+    xb = _pe_rows(x.reshape(dp_sizes + (b // p_dp, l, d)), mesh, dp, tr)
+    wg = _blocks(p["w_gate"], ctx, tr, 2)              # (k, E_loc, D, F_loc)
+    wu = _blocks(p["w_up"], ctx, tr, 2)
+    wd = _blocks(p["w_down"], ctx, tr, 1)              # (k, E_loc, F_loc, D)
+    s = xb.shape[1] * l
+    xf = xb.reshape(kp, s, d)
+    logits = xf.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)              # (k, s, E)
+    gate_vals, eidx = _top_k(probs, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    q = s * k
+    flat_e = eidx.reshape(kp, q).to(torch.int32)
+    # aux loss over the local shard, averaged over the batch axes. The
+    # counts are integer sums (exact in any order)
+    counts = torch.zeros((kp, e_total), dtype=torch.int32, device=dev)
+    counts.scatter_add_(1, flat_e.long(), torch.ones_like(flat_e))
+    aux = e_total * torch.sum(probs.mean(dim=1) * (counts.float() / q), -1)
+    aux = plan.psum_axes(aux, dp) / p_dp
+
+    # route each assignment to its expert's shard over the expert axis
+    stride = math.prod(mesh.axis_sizes[mesh.axis_names.index(ep) + 1:])
+    me_id = (tr.axis_index() // stride) % p_ep          # (k,) int32
+    m_dest = q / p_ep
+    cap_send = min(q, int(m_dest + 5.0 * m_dest ** 0.5) + 8)
+    payload = {"x": xf.repeat_interleave(k, dim=1),
+               "g": gate_vals.reshape(kp, q).to(x.dtype),
+               "slot": arange(q, kp, dev),
+               "src": me_id[:, None].expand(kp, q),
+               "e": flat_e}
+    delivered, dval = route_differentiable(
+        plan, cap_send, payload, flat_e // e_loc,
+        torch.ones((kp, q), dtype=torch.bool, device=dev))
+
+    # group by local expert with per-expert capacity
+    r = dval.shape[1]
+    le = torch.where(dval, delivered["e"] - me_id[:, None] * e_loc, e_loc)
+    sle, order = torch.sort(le, dim=1, stable=True)
+    starts = torch.searchsorted(
+        sle, torch.arange(e_loc + 1, dtype=sle.dtype,
+                          device=dev).expand(kp, -1).contiguous(),
+        out_int32=True)
+    pos = arange(r, kp, dev) - take(starts, torch.clamp(sle, max=e_loc))
+    cap_e = max(8, int(cfg.capacity_factor * q / e_loc))
+    fits = (sle < e_loc) & (pos < cap_e)
+    row = torch.where(fits, sle, e_loc).long()
+    col = torch.where(fits, pos, cap_e).long()
+    pe = torch.arange(kp, device=dev)[:, None].expand(kp, r)
+    # the sentinel row / column takes every dropped assignment (the only
+    # index written twice) and is sliced off
+    xbuf = x.new_zeros((kp, e_loc + 1, cap_e + 1, d)).index_put(
+        (pe, row, col), take(delivered["x"], order))[:, :e_loc, :cap_e]
+    xbuf = xbuf.reshape(kp * e_loc, cap_e, d)
+    h = torch.bmm(xbuf, wg.reshape((kp * e_loc,) + tuple(wg.shape[2:])))
+    u = torch.bmm(xbuf, wu.reshape((kp * e_loc,) + tuple(wu.shape[2:])))
+    yb = torch.bmm(F.silu(h) * u,
+                   wd.reshape((kp * e_loc,) + tuple(wd.shape[2:])))
+    # d_ff is split over the tensor axis, so yb holds partial sums; they
+    # meet after the combine, in one sum over (tokens, D)
+    yb = yb.reshape(kp, e_loc, cap_e, d)
+    gathered = yb[pe, torch.clamp(row, max=e_loc - 1),
+                  torch.clamp(col, max=cap_e - 1)]
+    gathered = torch.where(fits[..., None], gathered, 0)
+    # back in delivered order: ``order`` is a permutation
+    ydel = take(gathered, unpermute(order, arange(r, kp, dev)))
+
+    # route the results back to their source shards
+    back, bval = route_differentiable(
+        plan, cap_send, {"y": ydel, "slot": delivered["slot"],
+                         "g": delivered["g"]}, delivered["src"], dval)
+    contrib = torch.where(bval[..., None], back["y"] * back["g"][..., None],
+                          0)
+    # every (token, k) slot comes back at most once
+    y = set_drop(x.new_zeros((kp, q, d)), torch.where(bval, back["slot"], q),
+                 contrib)
+    y = y.reshape(kp, s, k, d).sum(dim=2)
+    if cfg.num_shared_experts:
+        sh = p["shared"]
+        hs = F.silu(xf @ _blocks(sh["w_gate"], ctx, tr, 1, False)) \
+            * (xf @ _blocks(sh["w_up"], ctx, tr, 1, False))
+        y = y + hs @ _blocks(sh["w_down"], ctx, tr, 0, False)  # partial
+    if tp is not None:
+        y = plan.psum_axes(y, (tp,))
+
+    # the batch back in (B, L, D): the PEs at coordinate 0 off dp_axes
+    y = tr.gather_pes(y.reshape(kp, b // p_dp, l, d))
+    names = tuple(mesh.axis_names)
+    grid = y.reshape(tuple(mesh.axis_sizes) + (b // p_dp, l, d))
+    grid = grid[tuple(slice(None) if a in dp else 0 for a in names)]
+    kept = [a for a in names if a in dp]
+    grid = grid.permute(*(kept.index(a) for a in dp),
+                        *range(len(dp), grid.dim()))
+    # the aux of global PE 0, as y is read from the PEs that hold it: one
+    # cotangent a mesh, not one a rank
+    return grid.reshape(b, l, d), tr.gather_pes(aux)[0]
 
 
 # ---------------------------------------------------------------------------

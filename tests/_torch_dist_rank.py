@@ -204,7 +204,8 @@ def _collectives(device, shape, axis_names, cases):
     """Each collective of ``DistTransport`` on this rank's block of the
     whole (p, ...) inputs: ``cases`` is a list of (op, args, x) with op
     one of ``all_to_all`` (args: hop, axis), ``psum``, ``all_gather``,
-    ``gather_pes``; returns this rank's outputs, and the counting
+    ``gather_pes``, ``psum_axes`` (args: axes); returns this rank's
+    outputs, and the counting
     wrapper's counts and bytes per PE."""
     import torch
     from repro_torch.core.listrank import transport as tl
@@ -218,7 +219,7 @@ def _collectives(device, shape, axis_names, cases):
         if op == "all_to_all":
             y = tr.all_to_all(xl, tuple(args[0]), args[1])
         else:
-            y = getattr(tr, op)(xl)
+            y = getattr(tr, op)(xl, *args)
         outs.append(y.cpu().numpy())
     return {"outs": outs, "ids": tr.axis_index().cpu().numpy(),
             "footprint": tr.footprint()}
@@ -254,5 +255,36 @@ def _tree_graph(device, parent, edges, n_nodes, shape, axis_names, cfg,
             "graph_span_backend": span.args.get("backend")}
 
 
+def _moe_ep(device, arch, ffn, x, shape, axis_names, capacity_factor):
+    """One SMOKE MoE layer (``ffn``: its parameters as numpy arrays) on
+    ``x`` under a mesh context over the process group: the output, the
+    aux loss, the gradients of ``sum(y * y) + aux`` on this rank, and
+    the transport's collectives."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import context
+    cfg = configs.get_config(arch, smoke=True).with_(
+        capacity_factor=capacity_factor)
+
+    def tensors(t):
+        return ({k: tensors(v) for k, v in t.items()} if isinstance(t, dict)
+                else torch.from_numpy(t).to(device).requires_grad_())
+    p = tensors(ffn)
+    xt = torch.from_numpy(x).to(device).requires_grad_()
+    with context.use_mesh(_mesh(shape, axis_names)) as ctx:
+        y, aux = L.moe_ffn(p, xt, cfg)
+        counts = dict(ctx.transport(device).counts)
+        leaves = {"x": xt, **{k: v for k, v in p.items()
+                              if not isinstance(v, dict)},
+                  **{f"shared.{k}": v for k, v in p.get("shared", {}).items()}}
+        grads = torch.autograd.grad((y * y).sum() + aux,
+                                    list(leaves.values()))
+    return {"y": y.detach().cpu().numpy(), "aux": float(aux.detach()),
+            "grads": {k: g.cpu().numpy() for k, g in zip(leaves, grads)},
+            "counts": counts}
+
+
 JOBS = {"ready": _ready, "solve": _solve, "refusals": _refusals,
-        "collectives": _collectives, "tree_graph": _tree_graph}
+        "collectives": _collectives, "tree_graph": _tree_graph,
+        "moe_ep": _moe_ep}

@@ -1,20 +1,24 @@
-"""The JAX package's tree and graph front doors and its supervised
-solves, run in a child process for the port's parity tests
-(``tests/test_torch_treealg.py``, ``tests/test_torch_graphalg.py``,
-``tests/test_torch_faultinject.py``, ``tests/test_torch_obs.py``,
-``tests/test_torch_telemetry.py``).
+"""The JAX package's tree and graph front doors, its supervised
+solves and its expert-parallel MoE, run in a child process for the
+port's parity tests (``tests/test_torch_treealg.py``,
+``tests/test_torch_graphalg.py``, ``tests/test_torch_faultinject.py``,
+``tests/test_torch_obs.py``, ``tests/test_torch_telemetry.py``,
+``tests/test_torch_moe_ep.py``).
 
 Each of these calls compiles large simshard programs, and many such
 compiles in one pytest worker have crashed XLA's CPU compiler in a later
 test file of the same worker; a child process per test file keeps them
-out of the worker. :func:`run_reference` runs a batch of named jobs in
-one child and returns their results as numpy arrays, dicts and ints.
+out of the worker. :func:`run_reference` runs a batch of named jobs in a
+few child processes at once (a ``spawn`` pool; each takes the next job
+when it finishes one) and returns their results as numpy arrays, dicts
+and ints.
 
-    python tests/_torch_reference_child.py JOBS.pkl OUT.pkl
+The children of one test run share a JAX persistent compilation cache
+in a directory under the run's common base temporary directory (never
+one that outlives the run), so a program that two children compile,
+such as a solve at the same shapes, is compiled once.
 """
 import os
-import pickle
-import subprocess
 import sys
 
 import numpy as np
@@ -27,17 +31,64 @@ GRAPH_ARRAYS = ("components", "parent", "depth", "subtree_size", "preorder",
                 "postorder")
 
 
-def run_reference(jobs: dict, tmp_dir) -> dict:
-    """Run ``jobs`` ({key: (job name, args)}) in one child process and
-    return {key: result}."""
-    inp = os.path.join(str(tmp_dir), "jobs.pkl")
-    out = os.path.join(str(tmp_dir), "out.pkl")
-    with open(inp, "wb") as f:
-        pickle.dump(jobs, f)
-    subprocess.run([sys.executable, os.path.abspath(__file__), inp, out],
-                   check=True, timeout=900)
-    with open(out, "rb") as f:
-        return pickle.load(f)
+#: seconds a child may take over one job
+CHILD_TIMEOUT_S = 900
+
+
+def _cache_dir(tmp_dir) -> str:
+    """The run's shared compilation cache: beside the per-worker base
+    temporary directories under pytest-xdist, else in the base one."""
+    base = os.path.dirname(os.path.abspath(str(tmp_dir)))
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = os.path.dirname(base)
+    return os.path.join(base, "jax_compilation_cache")
+
+
+def _start_child():
+    """A child's set-up, before its first job: jax on the CPU."""
+    sys.path.insert(0, os.path.join(HERE, "..", "src"))
+    import jax
+    jax.config.update("jax_platform_name", "cpu")
+
+
+def _run_job(item):
+    key, (name, args) = item
+    return key, JOBS[name](*args)
+
+
+def run_reference(jobs: dict, tmp_dir, devices: int = 1,
+                  procs: int = 1) -> dict:
+    """Run ``jobs`` ({key: (job name, args)}) in ``procs`` child processes
+    that take the next job as they finish one (so independent jobs only;
+    list the longest first), and return {key: result}. Each child's jax
+    sees ``devices`` CPU devices (``XLA_FLAGS``, set before jax is
+    imported)."""
+    import multiprocessing as mp
+    env = {"JAX_COMPILATION_CACHE_DIR": _cache_dir(tmp_dir),
+           "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS": "0",
+           "JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES": "0"}
+    if devices > 1:
+        env["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_"
+                            f"host_platform_device_count={devices}").strip()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)  # the children copy it as they start
+    try:
+        pool = mp.get_context("spawn").Pool(min(procs, len(jobs)),
+                                            initializer=_start_child)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    try:
+        done = pool.imap_unordered(_run_job, list(jobs.items()))
+        results = dict(done.next(timeout=CHILD_TIMEOUT_S) for _ in jobs)
+        pool.close()
+        pool.join()
+    finally:
+        pool.terminate()
+    return results
 
 
 # --------------------------------------------------------------------------
@@ -246,20 +297,102 @@ def graph_telemetry(mode, edges, n):
             "telemetry": stats["telemetry"], "trace": span_tree(tr)}
 
 
+def _moe_layer_setup(arch, ffn, x):
+    import jax.numpy as jnp
+    from repro import configs
+    return (configs.get_config(arch, smoke=True),
+            {k: ({kk: jnp.asarray(vv) for kk, vv in v.items()}
+                 if isinstance(v, dict) else jnp.asarray(v))
+             for k, v in ffn.items()}, jnp.asarray(x))
+
+
+def _mesh_ctx(shape):
+    from repro import compat
+    from repro.runtime import context
+    return context.use_mesh(compat.make_mesh(shape, ("data", "model")))
+
+
+def moe_layer_ep(arch, ffn, x, shape, factors):
+    """``moe_ffn`` of ``arch``'s SMOKE config with the MoE weights ``ffn``
+    on ``x`` under a ("data", "model") mesh context of ``shape`` (its
+    ``moe_ffn_ep``), at each capacity factor: {factor: (y, aux)}, all
+    factors in one compiled program."""
+    import jax
+    from repro.models import layers as L
+    cfg, p, x = _moe_layer_setup(arch, ffn, x)
+    with _mesh_ctx(shape):
+        outs = jax.jit(lambda p, x: [
+            L.moe_ffn(p, x, cfg.with_(capacity_factor=cf))
+            for cf in factors])(p, x)
+    return {cf: (np.asarray(y), float(aux))
+            for cf, (y, aux) in zip(factors, outs)}
+
+
+def moe_layer_dense(arch, ffn, x, factors, grad_shape):
+    """``_moe_ffn_dense`` at each capacity factor ({factor: (y, aux)});
+    the gradients of ``sum(y * y)`` in the weights and ``x`` through the
+    dense dispatch and through ``moe_ffn_ep`` under a mesh of
+    ``grad_shape``, at the last factor; and the error ``moe_ffn_ep``
+    raises in bfloat16 (None if none)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import layers as L
+    cfg0, p, x = _moe_layer_setup(arch, ffn, x)
+    out = {"dense": {cf: tuple(np.asarray(v) for v in jax.jit(
+        lambda p, x, cf=cf: L._moe_ffn_dense(
+            p, x, cfg0.with_(capacity_factor=cf)))(p, x)) for cf in factors}}
+    cfg = cfg0.with_(capacity_factor=factors[-1])
+
+    def grads(fn):
+        g = jax.jit(jax.grad(lambda p, x: jnp.sum(fn(p, x)[0] ** 2),
+                             argnums=(0, 1)))(p, x)
+        return jax.tree.map(np.asarray, g)
+    out["grad_dense"] = grads(lambda p, x: L._moe_ffn_dense(p, x, cfg))
+    with _mesh_ctx(grad_shape):
+        out["grad_ep"] = grads(lambda p, x: L.moe_ffn(p, x, cfg))
+    bf16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), p)
+    bf16["router"] = p["router"]
+    try:  # raised while tracing
+        with _mesh_ctx((1, 1)):
+            jax.eval_shape(lambda p, x: L.moe_ffn(p, x, cfg0), bf16,
+                           x.astype(jnp.bfloat16))
+        out["bf16_error"] = None
+    except TypeError as exc:
+        out["bf16_error"] = str(exc)
+    return out
+
+
+def moe_train_step(arch, batch, mesh):
+    """One ``train_step`` of ``arch``'s SMOKE model from
+    ``M.init(PRNGKey(0))`` on ``batch``, under a (1, 1) mesh context when
+    ``mesh``: the initial parameters, the updated ones and the
+    metrics."""
+    import functools
+    import jax
+    from repro import configs
+    from repro.models import model as M
+    from repro.optim import adamw
+    from repro.train import steps
+    cfg = configs.get_config(arch, smoke=True)
+    params = jax.jit(M.init, static_argnums=1)(jax.random.PRNGKey(0), cfg)
+    tcfg = steps.TrainConfig()
+    step = jax.jit(functools.partial(steps.train_step, cfg=cfg, tcfg=tcfg))
+    opt = adamw.init(params, tcfg.optimizer)
+    if mesh:  # the context is read while tracing
+        with _mesh_ctx((1, 1)):
+            new, _, metrics = step(params, opt, batch)
+    else:
+        new, _, metrics = step(params, opt, batch)
+    return {"params": jax.tree.map(np.asarray, params),
+            "new": jax.tree.map(np.asarray, new),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
 JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 graph_stats, connected_components,
                                 spanning_forest, fingerprints,
                                 preempted_solve, resumed_solve,
                                 telemetry_solve, tree_telemetry,
-                                graph_telemetry)}
+                                graph_telemetry, moe_layer_ep,
+                                moe_layer_dense, moe_train_step)}
 
-
-if __name__ == "__main__":
-    sys.path.insert(0, os.path.join(HERE, "..", "src"))
-    import jax
-    jax.config.update("jax_platform_name", "cpu")
-    with open(sys.argv[1], "rb") as f:
-        jobs = pickle.load(f)
-    results = {key: JOBS[name](*args) for key, (name, args) in jobs.items()}
-    with open(sys.argv[2], "wb") as f:
-        pickle.dump(results, f)

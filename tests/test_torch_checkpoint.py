@@ -23,6 +23,8 @@ from repro_torch.core.listrank.store import Store
 from repro_torch.launch import train as train_launch
 from repro_torch.runtime.fault_tolerance import Supervisor, SupervisorConfig
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _state(val=0.0):
     return {"params": {"w": torch.full((8,), val, dtype=torch.float32),

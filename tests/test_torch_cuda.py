@@ -147,7 +147,8 @@ def _pack_on_card(cols, order, skey, valid, slots, n_buckets, cap, cuda):
     assert torch.equal(out, mp_ref.mailbox_pack_sorted_ref(
         cols, order, skey, n_buckets, cap))
     want = mp_ref.mailbox_pack_ref(
-        cols + [valid.to(cuda, torch.int32)], slots.to(cuda), n_buckets * cap)
+        torch.stack(cols + [valid.to(cuda, torch.int32)], 1), slots.to(cuda),
+        n_buckets * cap)
     assert torch.equal(out, want)
 
 
@@ -887,3 +888,84 @@ def test_moe_forward_cuda_is_deterministic(cuda):
     assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
     torch.testing.assert_close(a.cpu(), want, atol=2e-3, rtol=1e-3)
     torch.testing.assert_close(aux_a.cpu(), aux_want, atol=1e-5, rtol=1e-5)
+
+
+def _ep_run(ffn, x, cfg, shape, grad=False):
+    """moe_ffn under a ("data", "model") mesh context of ``shape``:
+    (y, aux[, the gradients of sum(y * y) in x and the weights])."""
+    from repro_torch.core.listrank import sim_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import context
+    leaves = [x] + [v for v in ffn.values() if not isinstance(v, dict)]
+    if grad:
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        x, ffn = leaves[0], dict(zip([k for k, v in ffn.items()
+                                      if not isinstance(v, dict)],
+                                     leaves[1:]))
+    with context.use_mesh(sim_mesh(shape, ("data", "model"))):
+        y, aux = L.moe_ffn(ffn, x, cfg)
+    if not grad:
+        return y, aux
+    return y, aux, torch.autograd.grad((y.float() ** 2).sum(), leaves)
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("shape", [(1, 1), (4, 1), (2, 2)])
+def test_moe_ep_cuda_is_deterministic(cuda, shape):
+    """granite-moe SMOKE's expert-parallel layer (float32, capacity factor
+    1 so assignments drop) run twice on the card: the same output, aux
+    and gradients bit for bit (every scatter writes each slot once, the
+    sentinel aside, and the routes are permutations), and the CPU's
+    within float32 tolerance."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    cfg = configs.get_config("granite-moe-1b-a400m", smoke=True).with_(
+        capacity_factor=1.0)
+    params = M.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    ffn = {k: v[0] for k, v in params["layers"]["ffn"].items()}
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(4, 32, cfg.d_model)).astype(np.float32))
+    y_cpu, aux_cpu, g_cpu = _ep_run(ffn, x, cfg, shape, grad=True)
+    ffn_c = {k: v.to(cuda) for k, v in ffn.items()}
+    runs = [_ep_run(ffn_c, x.to(cuda), cfg, shape, grad=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (a, aux_a, g_a), (b, aux_b, g_b) = runs
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    assert all(torch.equal(u, v) for u, v in zip(g_a, g_b))
+    torch.testing.assert_close(a.cpu(), y_cpu, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux_a.cpu(), aux_cpu, atol=1e-6, rtol=1e-6)
+    for u, v in zip(g_a, g_cpu):
+        torch.testing.assert_close(u.cpu(), v, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.torch_cuda
+def test_moe_ep_full_width_bf16_layer_cuda(cuda):
+    """One granite-moe-1b MoE layer at full width in bfloat16 (8 x 1024
+    tokens, a capacity factor at which no expert drops) under a (2, 2)
+    mesh, which splits d_ff over the tensor axis: within bfloat16's
+    tolerance of the dense dispatch, and no mailbox_pack launch (the
+    reference's pallas_pack is off on this path)."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params
+
+    cfg = configs.get_config("granite-moe-1b-a400m")
+    gen = torch.Generator(cuda).manual_seed(0)
+    ffn = init_params(gen, L.moe_specs(cfg))
+    x = torch.randn((8, 1024, cfg.d_model), generator=gen,
+                    device=cuda).to(cfg.dtype)
+    probs = torch.softmax(x.reshape(-1, cfg.d_model).float()
+                          @ ffn["router"], dim=-1)
+    top = int(torch.bincount(L._top_k(probs, cfg.top_k)[1].reshape(-1),
+                             minlength=cfg.num_experts).max())
+    cfg = cfg.with_(capacity_factor=(top + 1.5) * cfg.num_experts
+                    / (x.shape[0] * x.shape[1] * cfg.top_k))
+    want, _ = L._moe_ffn_dense(ffn, x, cfg)
+    before = mp_ops.LAUNCHES
+    y, aux = _ep_run(ffn, x, cfg, (2, 2))
+    torch.cuda.synchronize()
+    assert mp_ops.LAUNCHES == before
+    assert y.dtype == torch.bfloat16 and torch.isfinite(aux)
+    torch.testing.assert_close(y.float(), want.float(), atol=2e-2, rtol=2e-2)

@@ -16,7 +16,12 @@ as numpy arrays.
 - each collective equals the virtual transport's on the same whole
   input: hops within a rank and across ranks, unequal and empty split
   sizes, on 8 flat PEs and a (2, 4) grid (both hops in turn), bool,
-  float and trailing-dim payloads, int32 ``psum`` that wraps;
+  float and trailing-dim payloads, int32 ``psum`` that wraps, and
+  ``psum_axes`` over each hop's axes (in a rank, across ranks, over a
+  subgroup of them);
+- the expert-parallel MoE layer under a ``DistMesh`` (2, 1) context
+  equals the virtual transport's (2, 1) run bit for bit, with the same
+  collectives, and every rank's gradients equal the virtual run's;
 - per stage the collectives and their bytes per PE, the telemetry
   records and the headroom report equal the virtual transport's;
 - a two-hop grid solve, ``tree_stats`` and ``graph_stats`` equal the
@@ -34,6 +39,7 @@ import pytest
 import _simshard_cases as cases_lib
 from _torch_dist_rank import RankPool
 from _torch_reference_perms import ReferencePerms
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.core import graphalg, treealg
 from repro_torch.core.listrank import (DistMesh, IndirectionSpec,
                                        ListRankConfig, instances,
@@ -113,6 +119,12 @@ def _cases(p, hops, rng):
         out.append(("all_to_all", (hop, 0),
                     rng.standard_normal((p, s, 4, 2)).astype(np.float32)))
         out.append(("all_to_all", (hop, 0), rng.random((p, s, 3)) < 0.5))
+        # a sum over the hop's axes only: within a rank, across ranks, and
+        # over a subgroup of the ranks
+        out.append(("psum_axes", (hop,),
+                    rng.standard_normal((p, 3, 2)).astype(np.float32)))
+        out.append(("psum_axes", (hop,),
+                    rng.integers(-2**31, 2**31, (p, 2), dtype=np.int32)))
     big = np.full((p, 3), 2**31 - 7, np.int32)   # the sum wraps
     big[:, 1] = rng.integers(-2**31, 2**31, p, dtype=np.int32)
     out += [("psum", (), big),
@@ -141,8 +153,7 @@ def test_collectives_equal_the_virtual_transport(pools, world, mesh):
     want = []
     for op, args, x in cases:
         xt = torch.from_numpy(x)
-        y = (virt.all_to_all(xt, *args) if op == "all_to_all"
-             else getattr(virt, op)(xt))
+        y = getattr(virt, op)(xt, *args)
         want.append(y.numpy())
     k = p // world
     outs = pools(world).run("collectives", shape, axes, cases,
@@ -279,3 +290,47 @@ def test_supervisor_inject_refused_and_launch_meshes(pools):
         assert out["meshes"] == {"listrank": ((("pe",), (2,)), 1),
                                  "listrank_k4": ((("pe",), (8,)), 4),
                                  "host": ((("data", "model"), (2, 1)), 1)}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
+def test_moe_ep_equals_the_virtual_transport(pools, arch):
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.runtime import context
+    cfg = configs.get_config(arch, smoke=True)
+    params = M.init(cfg, torch.Generator().manual_seed(0), CPU)
+
+    def first(t):
+        return ({k: first(v) for k, v in t.items()} if isinstance(t, dict)
+                else t[0].numpy())
+    ffn = first(params["layers"]["ffn"])
+    x = np.random.default_rng(3).normal(
+        size=(4, 16, cfg.d_model)).astype(np.float32)
+    shape, axes = (2, 1), ("data", "model")
+    outs = pools(2).run("moe_ep", arch, ffn, x, shape, axes,
+                        cfg.capacity_factor, timeout=SOLVE_S)
+    want = L.moe_ffn  # the same dispatcher, on the virtual transport
+    p = {k: ({kk: torch.from_numpy(vv).requires_grad_()
+              for kk, vv in v.items()} if isinstance(v, dict)
+             else torch.from_numpy(v).requires_grad_())
+         for k, v in ffn.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    with context.use_mesh(sim_mesh(shape, axes)) as ctx:
+        y, aux = want(p, xt, cfg)
+        counts = dict(ctx.transport(CPU).counts)
+        leaves = {"x": xt, **{k: v for k, v in p.items()
+                              if not isinstance(v, dict)},
+                  **{f"shared.{k}": v for k, v in p.get("shared", {}).items()}}
+        # the aux term too: each rank's loss seeds it once a mesh
+        grads = torch.autograd.grad((y * y).sum() + aux,
+                                    list(leaves.values()))
+    for out in outs:
+        np.testing.assert_array_equal(out["y"], y.detach().numpy())
+        assert out["aux"] == float(aux.detach())
+        assert out["counts"] == counts
+    for out in outs:  # every rank holds the whole gradient
+        for name, g in zip(leaves, grads):
+            np.testing.assert_allclose(out["grads"][name], g.numpy(),
+                                       atol=2e-5, rtol=1e-4, err_msg=name)

@@ -21,6 +21,8 @@ from repro_torch.core.listrank import exchange as ex
 from repro_torch.core.listrank import transport as tr
 from repro_torch.core.listrank.config import IndirectionSpec
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 GRIDS = {
     "direct8": ((8,), ("pe",), False),
     "grid2x4": ((2, 4), ("row", "col"), True),
@@ -241,13 +243,17 @@ def test_wire_roundtrip_exact():
     pl = {k: _t(v) for k, v in payload.items()}
     wf = ex.WireFormat.from_payload(pl)
     assert wf.width == 4
-    cols = torch.stack(wf.columns(pl, _t(valid)), 1)
-    out, v2 = wf.unpack_cols(cols)
+    out, v2 = wf.unpack_cols(wf.planes(pl, _t(valid)))
     assert torch.equal(v2, _t(valid))
     for k in pl:
         assert out[k].numpy().tobytes() == pl[k].numpy().tobytes()
+    # 16-bit floats travel as their bit patterns (the reference raises
+    # for them); a 64-bit leaf still does not fit a word
+    half = torch.tensor([[1.5, -0.0, float("nan")]], dtype=torch.float16)
+    back = ex.from_wire_word(ex.to_wire_word(half), torch.float16)
+    assert back.numpy().tobytes() == half.numpy().tobytes()
     with pytest.raises(TypeError):
-        ex.to_wire_word(torch.zeros(2, 3, dtype=torch.float16))
+        ex.to_wire_word(torch.zeros(2, 3, dtype=torch.float64))
 
 
 def test_all_to_all_is_the_mesh_permutation():

@@ -11,7 +11,7 @@ byte, counters included. Beyond the reference's matrix:
   written by the port resumes in the reference, each to golden results;
 - no stage writes into a committed boundary state.
 
-The reference's solves run in a child process
+The reference's solves run in child processes
 (``tests/_torch_reference_child.py``), under the legacy PRNG the goldens
 were made with.
 """
@@ -27,6 +27,7 @@ import torch
 from _simshard_cases import SHAPE, case_record, golden_cases, load_golden
 from _torch_reference_child import run_reference
 from _torch_reference_perms import ReferencePerms
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.checkpoint import Checkpointer, CheckpointWriteError
 from repro_torch.checkpoint.checkpointer import flatten
 from repro_torch.core.listrank import (FaultSpec, ListRankConfig,
@@ -350,7 +351,7 @@ def cross(tmp_path_factory):
                                         "descend", 0)),
         "resume_port": ("resumed_solve", ("list-g1-s1",
                                           str(root / "port_for_ref")))},
-        root)
+        root, procs=3)
     return port_dir, ref_dir, out
 
 

@@ -17,6 +17,7 @@ import torch
 import test_kernels
 from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, CROSS_ATTN_CASES,
                                   attn_inputs)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro import configs as jax_configs
 from repro.kernels.flash_attention import ops as fa_ops_jax
 from repro.kernels.flash_attention import ref as fa_ref_jax

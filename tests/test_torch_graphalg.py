@@ -1,7 +1,7 @@
 """The port's graphalg against the JAX package's, on the CPU at p = 8.
 
-The reference runs on its simshard backend in one child process per
-file (``_torch_reference_child.py``), the port on its virtual-PE
+The reference runs on its simshard backend in child processes, three
+jobs at once (``_torch_reference_child.py``), the port on its virtual-PE
 transport with ``device="cpu"``; both from the same seeded
 edge lists (``instances.gen_graph_edges``), kernel flags off. Every
 output is integer and compared exactly:
@@ -29,6 +29,7 @@ from _graph_oracles import check_spanning_forest
 from _torch_reference_child import run_reference
 from _torch_reference_perms import ReferencePerms
 from _tree_oracles import dfs_stats
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import obs
 from repro_torch.core import graphalg
 from repro_torch.core.listrank import (ListRankConfig, api, instances,
@@ -87,8 +88,8 @@ DEGENERATE_CASES = ["empty", "singleton", "single_edge",
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """Every reference result this file compares with, from one child
-    process."""
+    """Every reference result this file compares with, from three
+    child processes at once."""
     jobs = {("graph_stats", name): ("graph_stats", family_edges(name))
             for name in STATS_CASES}
     jobs[("graph_stats", "isolated_nodes")] = (
@@ -98,7 +99,7 @@ def ref(tmp_path_factory):
     for name, *_ in FAMILIES:
         jobs[("cc", name)] = ("connected_components", family_edges(name))
     jobs["forest"] = ("spanning_forest", family_edges("gnm_multi"))
-    return run_reference(jobs, tmp_path_factory.mktemp("ref"))
+    return run_reference(jobs, tmp_path_factory.mktemp("ref"), procs=3)
 
 
 # --------------------------------------------------------------------------

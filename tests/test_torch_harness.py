@@ -5,6 +5,8 @@ import pytest
 
 from repro_torch import devtime
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 DECODE = devtime.EXPECT["flash_attention_decode_bf16"]
 
 

@@ -22,6 +22,8 @@ from repro.core.listrank import tuner as ref_tuner
 from repro_torch.core.listrank import analysis, api, config, instances
 from repro_torch.core.listrank import exchange, sequential, transport, tuner
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

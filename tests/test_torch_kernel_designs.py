@@ -18,6 +18,7 @@ import torch
 from repro.kernels.mailbox_pack import kernel as mp_kernel_jax
 from _torch_kernel_inputs import (PACK_HOPS, bucket_hop, chains,
                                   chase_edge_case, float_dist)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.core.listrank import exchange, instances, local
 from repro_torch.kernels.local_chase import ops as lc_ops, ref as lc_ref
 from repro_torch.kernels.mailbox_pack import ops as mp_ops, ref as mp_ref
@@ -109,8 +110,9 @@ def test_sorted_pack_equals_slot_scatter(hop):
     cols, valid, order, skey, slots = bucket_hop(p, q, n_buckets, cap,
                                                  seed=hop)
     got = mp_ops.mailbox_pack(cols, order, skey, n_buckets, cap)
-    want = mp_ref.mailbox_pack_ref(cols + [valid.to(torch.int32)], slots,
-                                   n_buckets * cap)
+    want = mp_ref.mailbox_pack_ref(
+        torch.stack(cols + [valid.to(torch.int32)], 1), slots,
+        n_buckets * cap)
     assert got.shape == (p, len(cols) + 1, n_buckets * cap)
     assert got.dtype == torch.int32 and _same_bits(got, want)
     if q:

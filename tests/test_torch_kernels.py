@@ -12,6 +12,7 @@ from repro.kernels.local_chase import ref as lc_ref_jax
 from repro.kernels.mailbox_pack import kernel as mp_kernel_jax
 from repro.kernels.mailbox_pack import ref as mp_ref_jax
 from _torch_kernel_inputs import chains, float_dist, pack_inputs
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.kernels.local_chase import ops as lc_ops, ref as lc_ref
 from repro_torch.kernels.mailbox_pack import ops as mp_ops, ref as mp_ref
 
@@ -53,7 +54,7 @@ def test_local_chase_plain_matches_sequential(dtype):
 @pytest.mark.parametrize("dtype", ["int32", "float32"])
 def test_mailbox_pack_plain_matches_pallas(p, q, n_rows, dtype):
     cols, slots = pack_inputs(p, q, n_rows, seed=p * q + n_rows, dtype=dtype)
-    out = mp_ref.mailbox_pack_ref([torch.from_numpy(c) for c in cols],
+    out = mp_ref.mailbox_pack_ref(torch.from_numpy(np.stack(cols, 1)),
                                   torch.from_numpy(slots), n_rows)
     assert out.shape == (p, len(cols), n_rows) and out.dtype == torch.int32
     for pe in range(p):

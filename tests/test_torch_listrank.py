@@ -17,6 +17,7 @@ import torch
 
 import _simshard_cases as cases_lib
 from _torch_reference_perms import ReferencePerms
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import obs
 from repro_torch.core.listrank import (FaultSpec, IndirectionSpec,
                                        ListRankConfig, instances,

@@ -11,6 +11,8 @@ from repro_torch.core.listrank import exchange, local, store, transport
 from repro_torch.core.listrank.doubling import allgather_solve, doubling_solve
 from repro_torch.core.listrank.sequential import rank_list_seq
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.mark.parametrize("gamma", [0.0, 0.3, 1.0])
 @pytest.mark.parametrize("dtype", ["int32", "float32"])

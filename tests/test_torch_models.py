@@ -24,6 +24,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import params as P
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 DENSE = ["tinyllama-1.1b", "gemma2-2b", "qwen2.5-14b", "phi4-mini-3.8b",
          "pixtral-12b"]
 #: the models that carry SSM state (mamba, hybrid)

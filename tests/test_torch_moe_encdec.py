@@ -28,6 +28,8 @@ from repro_torch.models import params as P
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 from repro_torch.train import steps
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 MOE = ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"]
 RNG = np.random.default_rng(0)
 #: float32 forward parity, as tests/test_torch_models.py

@@ -6,7 +6,7 @@ own outputs where they can be compared):
   nested under their stage, retries under the same stage span, the
   checkpoint spans of a supervised solve (the span tree of a faulted,
   supervised golden solve is held to the reference's in
-  ``tests/test_torch_telemetry.py``, whose reference child process runs
+  ``tests/test_torch_telemetry.py``, whose reference child processes run
   the same programs);
 - no perturbation: with a tracer the goldens are reproduced and the
   per-stage collective counts are unchanged; with tracing off no Span is
@@ -28,6 +28,7 @@ import torch
 
 from _simshard_cases import SHAPE, case_record, golden_cases, load_golden
 from _torch_reference_perms import ReferencePerms
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import obs
 from repro_torch.core import graphalg, treealg
 from repro_torch.core.listrank import (FaultSpec, ListRankConfig,
@@ -60,17 +61,6 @@ def small_case():
 def ints(stats):
     return {k: v for k, v in stats.items() if isinstance(v, int)}
 
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file's small solves: beside the
-    suite's other workers and the reference's child process, torch's
-    thread pool only oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 # --------------------------------------------------------------------------
 # span-tree well-formedness

@@ -20,6 +20,9 @@ from repro_torch.models import model as M
 from repro_torch.models import params as P
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
@@ -113,7 +116,7 @@ def test_entry_points_default_to_the_card():
 
 
 def test_serve_cli_on_the_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = one_thread_env(PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
          "--device", "cpu"],

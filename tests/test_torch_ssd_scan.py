@@ -16,6 +16,7 @@ import torch
 import test_kernels
 from _torch_kernel_inputs import (SSD_CASES, SSD_RAGGED, SSD_TOL,
                                   ssd_inputs, ssd_training_inputs)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.kernels.ssd_scan import ops as ssd_ops_jax
 from repro.kernels.ssd_scan import ref as ssd_ref_jax
 from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref

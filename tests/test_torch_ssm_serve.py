@@ -32,6 +32,9 @@ from repro_torch.models import model as M
 from repro_torch.models import params as P
 from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
 
+from _torch_threads import one_thread_env
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SSM = ["mamba2-130m", "hymba-1.5b"]
 RNG = np.random.default_rng(0)
@@ -325,7 +328,7 @@ def test_from_reference_carries_a_bfloat16_hymba_tree():
 
 
 def test_serve_cli_serves_hymba_on_the_cpu():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = one_thread_env(PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "hymba-1.5b", "--smoke", "--device", "cpu"],

@@ -16,7 +16,7 @@
    reference's JSON exactly, and so does the span tree (names,
    categories, nesting, fault instants) of a golden solve with a sub
    overflow, a lost PE and a corrupted plane, supervised and traced
-   (the reference's solves run in the child process of
+   (the reference's solves run in the child processes of
    ``tests/_torch_reference_child.py``);
 3. **the host half** (merge, aggregate, headroom, DKW back-test, skew
    rows) is exact on synthetic input and equal to the reference's on
@@ -34,6 +34,7 @@ from _graph_oracles import union_find_labels
 from _simshard_cases import SHAPE, case_record, golden_cases, load_golden
 from _torch_reference_child import run_reference
 from _torch_reference_perms import ReferencePerms
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch import obs
 from repro_torch.core import graphalg, treealg
 from repro_torch.core.listrank import (FaultSpec, ListRankConfig, instances,
@@ -85,21 +86,10 @@ def ints(stats):
     return {k: v for k, v in stats.items() if isinstance(v, int)}
 
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file's small solves: beside the
-    suite's other workers and the reference's child process, torch's
-    thread pool only oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """Every reference record this file compares with, from one child
-    process."""
+    """Every reference record this file compares with, from three
+    child processes at once."""
     jobs = {name: ("telemetry_solve", (name,)) for name in RECORD_CASES}
     jobs["tree"] = ("tree_telemetry", (TREE,))
     jobs["cc"] = ("graph_telemetry", ("cc",) + GRAPH)
@@ -107,7 +97,7 @@ def ref(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ref")
     jobs["faulted"] = ("telemetry_solve", ("list-g1-s1", str(tmp / "ckpt"),
                                            faults_for(RefFaultSpec)))
-    return run_reference(jobs, tmp)
+    return run_reference(jobs, tmp, procs=3)
 
 
 # --------------------------------------------------------------------------

@@ -33,6 +33,8 @@ from repro_torch.models import params as P
 from repro_torch.optim import adamw, schedule as sched
 from repro_torch.train import steps
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 RNG = np.random.default_rng(0)
 #: float32 forward parity, as tests/test_torch_models.py
 ATOL = 1e-4

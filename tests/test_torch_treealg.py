@@ -1,8 +1,8 @@
 """The port's treealg against the JAX package's, on the CPU at p = 8.
 
 The reference runs on its simshard backend
-(``repro.core.listrank.sim_mesh(8)``) in one child process per file
-(``_torch_reference_child.py``), the port on its virtual-PE
+(``repro.core.listrank.sim_mesh(8)``) in child processes, three jobs
+at once (``_torch_reference_child.py``), the port on its virtual-PE
 transport with ``device="cpu"``; both from the same seeded parent
 arrays, kernel flags off. Every output is integer and compared exactly:
 
@@ -30,6 +30,7 @@ import torch
 from _torch_reference_child import run_reference
 from _torch_reference_perms import ReferencePerms
 from _tree_oracles import dfs_stats
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.core.treealg import batch as batch_j
 from repro_torch import obs
 from repro_torch.core import treealg
@@ -95,8 +96,8 @@ FOREST = [instances.gen_tree_parents(n, seed=n) for n in (5, 16, 41, 64)]
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """Every reference result this file compares with, from one child
-    process."""
+    """Every reference result this file compares with, from three
+    child processes at once."""
     jobs = {("build",) + case: ("build", (tour_parent(*case[:3]),
                                           case[3], case[4]))
             for case in TOUR_CASES}
@@ -105,7 +106,7 @@ def ref(tmp_path_factory):
             instances.gen_tree_parents(n, seed=seed, **kw),))
     jobs["root_tree"] = ("root_tree", ROOT_TREE)
     jobs["solve_forest"] = ("solve_forest", (FOREST,))
-    return run_reference(jobs, tmp_path_factory.mktemp("ref"))
+    return run_reference(jobs, tmp_path_factory.mktemp("ref"), procs=3)
 
 
 # --------------------------------------------------------------------------
