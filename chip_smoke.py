@@ -33,12 +33,11 @@ Phases, each fatal on failure:
    against a host oracle (the numpy ``oracle_tour``, ``rank_list_seq`` of
    both weightings, the closed forms of ``treealg/ops.py``), both kernels
    launched (counts reset just before), a warm rerun with per-stage
-   wall, peak memory, the two kernels' device time over the call against
-   their summed bounds and the device's idle share under the profiler
-   (``devtime.kernel_times_over``: read only from a window that holds
-   every launch the wrappers counted and as many device events as
-   another such window, else "not measured"); then kernels off
-   (identical outputs and counters); ``root_tree`` and ``solve_forest``
+   wall and peak memory (the kernels' device time over a call and the
+   device's idle share are ``tools/profile_port.py --path tree``'s:
+   their profiler windows would cost this script about a minute); then
+   kernels off (identical outputs and counters); ``root_tree`` and
+   ``solve_forest``
    (64 trees of 2^14 nodes) once each, exact against the oracle;
 7. the graph path: ``graphalg.graph_stats`` on ``gen_graph_edges(2^20,
    2^22, seed=0, num_components=4)`` (GNM, average degree 8) over 16
@@ -46,7 +45,8 @@ Phases, each fatal on failure:
    against ``scipy.sparse.csgraph.connected_components`` (min-id labels),
    the forest's edges, roots and span checked, its statistics against
    the tree oracle on the emitted parent array; the same measurements as
-   phase 6, the hooking and shortcut rounds, then kernels off;
+   phase 6 (device time: ``tools/profile_port.py --path graph``), the
+   hooking and shortcut rounds, then kernels off;
 8. the ``flash_attention`` kernel against its plain version on the card:
    the kernel sweep of ``tests/test_kernels.py`` in float32 (atol 2e-5,
    rtol 1e-4) and bfloat16 (2e-2), then the serving path's shapes in
@@ -74,15 +74,17 @@ Phases, each fatal on failure:
    ``ssd_chunked_ref`` and ``ssd_ref`` times and the kernel's bound;
 12. the training path: ``launch.train`` trains mamba2-130m at full width
    and depth (24 layers, d_model 768, bfloat16) with kernels on, batch 8
-   x 1024 tokens from ``pipeline.global_batch``, 5 AdamW steps — finite
-   losses and gradient norms, the last loss below the first, 24
-   ``ssd_scan`` launches per forward (counts reset just before); ms per
-   step, tokens/s and peak memory;
+   x 1024 tokens from ``pipeline.global_batch``, 2 AdamW steps — finite
+   losses and gradient norms, the last loss below the first, 48
+   ``ssd_scan`` launches a step (each layer's forward and its remat
+   recompute; counts reset just before); ms per step, tokens/s and peak
+   memory;
 13. kernels on against off in training: mamba2-130m at full width in
    float32 (TF32 off), the loss of one batch with ``ssd_scan`` against
    ``ssd_chunked_ref`` (1e-4 relative); tinyllama-1.1b at full width and
    2 layers, one train step with ``flash_attention`` on in bfloat16
-   (finite loss and gradients, one launch per layer) and, in float32,
+   (finite loss and gradients, two launches per layer: the forward and
+   the remat recompute) and, in float32,
    gradients within atol 2e-3, rtol 1e-3 of the plain path's;
 14. recovery: phase 3's solve under a ``SolveSupervisor`` checkpointing
    every level boundary into a fresh temporary directory (its free space
@@ -114,7 +116,7 @@ Phases, each fatal on failure:
    at phase 7's configuration, traced with telemetry on: outputs equal
    phases 6 and 7, graph-family records present, the graph call's
    escalations as ``escalate:`` instants and in the headroom rows; (e)
-   the cost: (a)'s warm wall against phase 3's (3 each, alternating;
+   the cost: (a)'s warm wall against phase 3's (2 each, alternating;
    median and spread), the device time of one solve of List(2^20) with
    telemetry on and off (``devtime.kernel_times_over``) and the device
    events added;
@@ -189,11 +191,37 @@ Phases, each fatal on failure:
    world size 1, bit-equal to (a)'s (1, 1), its collectives timed; (c)
    ``launch/train.py --arch granite-moe-1b-a400m --use-kernels`` at full
    width, 3 steps of 4 x 512 tokens under its (1, 1) mesh, ``moe_ffn_ep``
-   on every layer, finite losses, ms a step, tokens/s and peak memory,
-   beside the same steps without a context (the dense dispatch); (d)
-   float32 SMOKE under a (4, 1) mesh: ``moe_ffn_ep`` kernels on equal to
-   off and to itself bit for bit, the forward on against off within the
-   attention kernel's tolerance.
+   on every layer and again in its remat recompute, finite losses, ms a
+   step, tokens/s and peak memory, beside the same steps without a
+   context (the dense dispatch); (d) float32 SMOKE under a (4, 1) mesh:
+   ``moe_ffn_ep`` kernels on equal to off and to itself bit for bit, the
+   forward on against off within the attention kernel's tolerance;
+20. per-rank recovery, the int8 runtime and remat (alone:
+   ``tools/recovery_dist_phase.py``): (a) gloo with CUDA tensors, 2
+   spawned ranks of 8 PEs on the card (p = 16), List(2^22, gamma=1),
+   kernels on: an unsupervised solve cold and warm, then supervised
+   (every boundary kept), preempted on rank 1 alone after descend@0 and
+   resumed, a PE of rank 1 lost before base@2, a plane of a PE of rank 1
+   corrupted after descend@0, and resumed from the virtual transport's
+   checkpoint; every case's outputs and counters equal to the virtual
+   transport's solve of the same list, the supervised run's boundary
+   checkpoints equal to the virtual transport's byte for byte, the
+   virtual transport resuming the ranks' preempted checkpoint; bytes,
+   snapshot and write seconds per boundary, walls and launches per rank;
+   (b) ``compressed_psum`` on the card equal to the CPU's bit for bit on
+   the same inputs, then ``examples/dp_compression.py``'s loop over a
+   virtual transport of 8 PEs (final loss against the exact all-reduce's
+   and the CPU run's), and one granite-moe-1b step at full width with
+   int8 AdamW state (its bytes against float32 state's); (c)
+   granite-moe-1b through ``launch/train.py`` at full width, 3 steps of 4
+   x 512 tokens under its (1, 1) mesh with remat on and off, and
+   hymba-1.5b at full width with remat and int8 state, 2 steps of 2 x 128
+   tokens: ms a step, tokens/s, peak memory (the counter reset once the
+   weights and the optimizer state are allocated), launches, and
+   granite's peak over one forward and backward alone; (d) float32
+   SMOKE, kernels on: the losses and every gradient of one step bit-equal
+   with remat on and off for mamba2, hymba, granite-moe under a (4, 1)
+   mesh and seamless-m4t.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -203,6 +231,7 @@ no verdict.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pathlib
@@ -329,7 +358,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-19 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-20 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -652,9 +681,9 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         dev, card, succ_np, rank_np, (s_on, r_on, ints_on), cfg_on,
         launches, st_w["stage_collectives"], wall_warm)
     for kern in kernels:
-        for part in ("nccl", "gloo"):  # the LM kernels are not on it: 0
+        for part in ("nccl", "gloo"):
             kern[f"launches_dist_{part}"] = results["dist"][part][
-                "launches"].get(kern["name"], 0)
+                "launches"][kern["name"]]
 
     # --------------------------------------------------------- phase 17
     t_phase = time.perf_counter()
@@ -693,6 +722,19 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
             kern["name"]]
     results["moe_ep_phase_s"] = time.perf_counter() - t_phase
     log(f"phase 19: {results['moe_ep_phase_s']:.1f} s")
+
+    # --------------------------------------------------------- phase 20
+    t_phase = time.perf_counter()
+    results["recovery_dist"] = recovery_dist_phase(
+        dev, card, granite_remat=results["moe_ep"]["remat_row"])
+    for kern in kernels:
+        kern["launches_recovery_dist_rank"] = results["recovery_dist"][
+            "launches"][kern["name"]]
+        for arch, row in results["recovery_dist"]["remat"].items():
+            kern[f"launches_remat_train_{arch}"] = row["launches"][
+                kern["name"]]
+    results["recovery_dist_phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 20: {results['recovery_dist_phase_s']:.1f} s")
 
     results["card"] = card
     results["kernels"] = kernels
@@ -749,22 +791,6 @@ def check_tree_stats(what, got, parent):
                  f"{int(np.flatnonzero(a != b)[0])}")
 
 
-def log_kernel_times(phase, kt) -> None:
-    dm, bd = kt["device_ms"], kt["bound_ms"]
-    if dm is None:
-        log(f"phase {phase}: kernels' device time over the call not measured"
-            f"; summed bounds mailbox_pack {bd['mailbox_pack']:.4f} ms, "
-            f"local_chase {bd['local_chase']:.4f} ms")
-        return
-    log(f"phase {phase}: over one call (torch.profiler, launches counted "
-        f"{kt['launches']}): mailbox_pack {dm['mailbox_pack']:.4f} ms of "
-        f"device time against {bd['mailbox_pack']:.4f} ms of summed bounds, "
-        f"local_chase {dm['local_chase']:.4f} against "
-        f"{bd['local_chase']:.4f}; device busy {kt['busy_ms']:.1f} ms of "
-        f"{kt['profiled_wall_s']:.3f} s under the profiler (idle "
-        f"{100 * kt['idle_share']:.1f} %)")
-
-
 def run_path(phase, call, torch, dev) -> tuple:
     """Cold call with both kernels' counts reset just before, then a warm
     timed call with peak memory. Returns (cold output, warm output,
@@ -798,11 +824,21 @@ def int_counters(stats) -> dict:
     return {k: v for k, v in stats.items() if isinstance(v, int)}
 
 
+def kernel_ops() -> dict:
+    """Every kernel's ``ops`` module by name: its ``LAUNCHES`` counts the
+    wrapper's launches (the spawned ranks read theirs through it)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"flash_attention": fa_ops, "local_chase": lc_ops,
+            "mailbox_pack": mp_ops, "ssd_scan": ssd_ops}
+
+
 def tree_phase(dev, n_tree: int, cfg_on, cfg_off) -> tuple:
     """Phase 6: tree statistics at ``n_tree`` nodes, kernels on and off.
     Returns (results, the kernels-on TreeStats)."""
     import torch
-    from repro_torch import devtime
     from repro_torch.core import treealg
     from repro_torch.core.listrank import instances, sim_mesh
 
@@ -832,9 +868,6 @@ def tree_phase(dev, n_tree: int, cfg_on, cfg_off) -> tuple:
         f"{res['warm_wall_s']:.3f} s; solve stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in st["stage_wall_s"])
         + f"; peak memory {res['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
-    res["kernel_times"] = kt = devtime.kernel_times_over(
-        call, torch, log=log)[0]
-    log_kernel_times(6, kt)
 
     off = call(cfg_off)
     for k in ("depth", "subtree_size", "preorder", "postorder", "root_of"):
@@ -899,7 +932,6 @@ def graph_phase(dev, n_graph: int, cfg_on, cfg_off) -> tuple:
     import scipy.sparse
     import scipy.sparse.csgraph
     import torch
-    from repro_torch import devtime
     from repro_torch.core import graphalg
     from repro_torch.core.listrank import instances, sim_mesh
 
@@ -953,9 +985,6 @@ def graph_phase(dev, n_graph: int, cfg_on, cfg_off) -> tuple:
         f"{res['shortcut_iterations']} shortcut iterations; collectives per "
         f"hooking round {fp['cc:hook']}, per shortcut iteration "
         f"{list(jumps)}, tour {fp['tour']}, finalize {fp['finalize']}")
-    res["kernel_times"] = kt = devtime.kernel_times_over(
-        call, torch, log=log)[0]
-    log_kernel_times(7, kt)
 
     off = call(cfg_off)
     for k in ("components", "parent", "depth", "subtree_size", "preorder",
@@ -1300,7 +1329,7 @@ def kernels_on_off_phase(dev) -> dict:
 TRAIN_ARCH = "mamba2-130m"
 #: mamba2-130m's training shape: (Bt, L, H, G, N, P, chunk)
 SSD_MAIN = (8, 1024, 24, 1, 128, 64, 256)
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 2
 
 
 def ssd_bound(bt, l, h, g, n, p, chunk, elem_bytes, skip=True,
@@ -1458,9 +1487,10 @@ def train_phase(dev) -> dict:
         fail(f"training: losses {losses}, gradient norms {gnorms}")
     if not losses[-1] < losses[0]:
         fail(f"training: the loss did not fall: {losses}")
-    if launches != cfg.num_layers * TRAIN_STEPS:
+    # each layer's forward and its remat recompute (cfg.remat)
+    if launches != 2 * cfg.num_layers * TRAIN_STEPS:
         fail(f"training: ssd_scan launched {launches} times for "
-             f"{TRAIN_STEPS} forwards of {cfg.num_layers} layers")
+             f"{TRAIN_STEPS} remat'd steps of {cfg.num_layers} layers")
     ms = [h["ms"] for h in history]
     warm = ms[1:]
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1589,7 +1619,8 @@ def train_on_off_phase(dev) -> dict:
         flat_on = leaves(g_on)
         finite = bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(g).all()) for g in flat_on)
-        if not finite or launches != cfg.num_layers:
+        # each layer's forward and its remat recompute (cfg.remat)
+        if not finite or launches != 2 * cfg.num_layers:
             fail(f"tinyllama {name} train step with flash_attention: loss "
                  f"{float(loss)}, finite {finite}, launches {launches}")
         row = {"loss": float(loss), "launches": launches}
@@ -1742,9 +1773,8 @@ def recovery_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
         log(f"phase 14: the instance fingerprint (both arrays to the host, "
             f"sha256) {res['fingerprint_s']:.3f} s [{card}]")
 
-        # (a) straight through, cold then warm, each on a fresh directory
-        supervised("a_cold", "a_cold")
-        shutil.rmtree(root / "a_cold")
+        # (a) straight through on a fresh directory (phases 3 and 4 ran
+        # the same solve: it is warm)
         sup, st = supervised("a", "a")
         if st["recovery"]["checkpoints"] != 6 or st["stage_log"] != (
                 "prep", "descend@0", "descend@1", "base@2", "ascend@1",
@@ -1992,13 +2022,13 @@ def obs_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
 
     # (e) the cost: warm walls alternating, device time on and off
     walls = {"plain": [], "obs": []}
-    for _ in range(3):
+    for _ in range(2):
         walls["plain"].append(solve(cfg_on)[3])
         walls["obs"].append(solve(cfg_tele, tracer=obs.Tracer(),
                                   stage_counters=True)[3])
     res["walls_s"] = walls
     med = {k: statistics.median(v) for k, v in walls.items()}
-    log(f"phase 15 (e): warm wall, 3 each alternating: plain median "
+    log(f"phase 15 (e): warm wall, 2 each alternating: plain median "
         f"{med['plain']:.4f} s (spread {min(walls['plain']):.4f}-"
         f"{max(walls['plain']):.4f}), telemetry + tracer + counters median "
         f"{med['obs']:.4f} s (spread {min(walls['obs']):.4f}-"
@@ -2125,13 +2155,12 @@ def _dist_rank_work(dev, work: str, sizes: tuple, torch, dist) -> dict:
     from repro_torch.core import graphalg, treealg
     from repro_torch.core.listrank import (ListRankConfig, dist_mesh,
                                            instances, rank_list_with_stats)
-    from repro_torch.kernels.local_chase import ops as lc_ops
-    from repro_torch.kernels.mailbox_pack import ops as mp_ops
     work = pathlib.Path(work)
     succ = np.load(work / "succ.npy")
     rank_in = np.load(work / "rank.npy")
     cfg = ListRankConfig(use_pallas=True, use_pallas_pack=True)
     mesh = dist_mesh(P_MAIN)
+    ops = kernel_ops()
     out = {"pes": list(range(dist.get_rank() * mesh.pes_per_rank,
                              (dist.get_rank() + 1) * mesh.pes_per_rank))}
 
@@ -2144,10 +2173,10 @@ def _dist_rank_work(dev, work: str, sizes: tuple, torch, dist) -> dict:
         _synchronize(torch, dev)
         return s, r, st, time.perf_counter() - t
 
-    lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
+    for mod in ops.values():
+        mod.LAUNCHES = 0
     s, r, st, cold = solve(stage_counters=True)
-    out["launches"] = {"local_chase": lc_ops.LAUNCHES,
-                       "mailbox_pack": mp_ops.LAUNCHES}
+    out["launches"] = {name: mod.LAUNCHES for name, mod in ops.items()}
     out.update(cold_wall_s=cold, digest=_digest(s.cpu().numpy(),
                                                 r.cpu().numpy()),
                counters=int_counters(st),
@@ -2187,15 +2216,16 @@ def _dist_rank_work(dev, work: str, sizes: tuple, torch, dist) -> dict:
 
 
 def _run_ranks(world: int, work: pathlib.Path, device: str, sizes: tuple,
-               timeout_s: float) -> list:
-    """Spawn ``world`` ranks of :func:`_dist_rank`, join them with a
-    timeout; every rank's result in rank order, or the phase fails."""
+               timeout_s: float, target=None, phase: str = "16 (b)") -> list:
+    """Spawn ``world`` ranks of ``target`` (:func:`_dist_rank` unless
+    given), join them with a timeout; every rank's result in rank order,
+    or phase ``phase`` fails."""
     import multiprocessing as mp
     import queue as queue_lib
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     init = f"file://{work / 'store'}"
-    procs = [ctx.Process(target=_dist_rank,
+    procs = [ctx.Process(target=target or _dist_rank,
                          args=(r, world, init, str(work), device, sizes,
                                results))
              for r in range(world)]
@@ -2211,14 +2241,14 @@ def _run_ranks(world: int, work: pathlib.Path, device: str, sizes: tuple,
                 dead = {r: pr.exitcode for r, pr in enumerate(procs)
                         if pr.exitcode not in (None, 0)}
                 if dead:
-                    fail(f"phase 16 (b): ranks exited {dead}")
+                    fail(f"phase {phase}: ranks exited {dead}")
                 if time.monotonic() > deadline:
                     missing = sorted(set(range(world)) - set(got))
-                    fail(f"phase 16 (b): ranks {missing} gave no result "
+                    fail(f"phase {phase}: ranks {missing} gave no result "
                          f"within {timeout_s} s")
                 continue
             if not ok:
-                fail(f"phase 16 (b): rank {rank} failed:\n{out}")
+                fail(f"phase {phase}: rank {rank} failed:\n{out}")
             got[rank] = out
     finally:
         for pr in procs:
@@ -2242,10 +2272,11 @@ def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
     from repro_torch.core.listrank import (dist_mesh, instances,
                                            rank_list_with_stats, sim_mesh)
     from repro_torch.core.listrank import transport as transport_lib
-    from repro_torch.kernels.local_chase import ops as lc_ops
-    from repro_torch.kernels.mailbox_pack import ops as mp_ops
 
     s_plain, r_plain, ints_plain = plain
+    ops = kernel_ops()
+    # phase 3's list path; the LM kernels are not on it
+    want_launches = {**plain_launches, "flash_attention": 0, "ssd_scan": 0}
     res: dict = {}
     t_phase = time.perf_counter()
 
@@ -2266,10 +2297,10 @@ def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
                 torch.cuda.synchronize()
                 return s, r, st, time.perf_counter() - t
 
-            lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
+            for mod in ops.values():
+                mod.LAUNCHES = 0
             s_a, r_a, st_a, cold = solve(stage_counters=True)
-            launches = {"local_chase": lc_ops.LAUNCHES,
-                        "mailbox_pack": mp_ops.LAUNCHES}
+            launches = {name: mod.LAUNCHES for name, mod in ops.items()}
             if not (torch.equal(s_a, s_plain) and torch.equal(r_a, r_plain)):
                 fail("phase 16 (a): outputs differ from phase 3's")
             if int_counters(st_a) != ints_plain:
@@ -2279,9 +2310,9 @@ def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
                 fail(f"phase 16 (a): stage collectives "
                      f"{st_a['stage_collectives']} differ from phase 3's "
                      f"{plain_collectives}")
-            if launches != plain_launches:
+            if launches != want_launches:
                 fail(f"phase 16 (a): launches {launches}, phase 3's "
-                     f"{plain_launches}")
+                     f"{want_launches}")
             warm = [solve()[3] for _ in range(2)]
             acc, undo = _timed_collectives(dist, torch, dev)
             try:
@@ -2362,9 +2393,9 @@ def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
         if out["stage_collectives"] != plain_collectives:
             fail(f"phase 16 (b): rank {r}'s stage collectives differ from "
                  f"phase 3's")
-        if out["launches"] != plain_launches:
+        if out["launches"] != want_launches:
             fail(f"phase 16 (b): rank {r} launched {out['launches']}, "
-                 f"phase 3's path {plain_launches}")
+                 f"phase 3's path {want_launches}")
         if out["tree_digest"] != tree_digest:
             fail(f"phase 16 (c): rank {r}'s tree_stats differ from the "
                  f"virtual transport's")
@@ -3061,7 +3092,6 @@ def moe_ep_phase(dev) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.local_chase import ops as lc_ops
     from repro_torch.kernels.mailbox_pack import ops as mp_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch import train as train_launch
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
@@ -3152,36 +3182,26 @@ def moe_ep_phase(dev) -> dict:
     # (c) launch/train.py under its (1, 1) mesh, then without a context
     steps, batch, seq = EP_TRAIN
     cfg = configs.get_config(MOE_ARCH).with_(use_kernels=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
     calls, real = [], L.moe_ffn_ep
 
     def counted(*args):
         calls.append(args[3].mesh.axis_sizes)
         return real(*args)
     L.moe_ffn_ep = counted
-    fa_ops.LAUNCHES = lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
-    ssd_ops.LAUNCHES = 0
     try:
-        history = train_launch.main([
-            "--arch", MOE_ARCH, "--use-kernels", "--batch", str(batch),
-            "--seq", str(seq), "--steps", str(steps), "--log-every", "1",
-            "--device", str(dev)])
+        row = _launcher_steps(dev, MOE_ARCH, steps, batch, seq)
     finally:
         L.moe_ffn_ep = real
-    torch.cuda.synchronize()
-    launches = {"flash_attention": fa_ops.LAUNCHES,
-                "local_chase": lc_ops.LAUNCHES,
-                "mailbox_pack": mp_ops.LAUNCHES, "ssd_scan": ssd_ops.LAUNCHES}
-    peak_ep = torch.cuda.max_memory_allocated(dev)
-    losses = [h["loss"] for h in history]
-    ep_ms = [h["ms"] for h in history]
-    if len(history) != steps or not all(np.isfinite(losses)):
+    launches, peak_ep = row["launches"], row["peak_memory_bytes"]
+    losses, ep_ms = row["losses"], row["step_ms"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
         fail(f"phase 19 (c): losses {losses}")
-    if calls != [(1, 1)] * (cfg.num_layers * steps):
+    # each layer's forward and its remat recompute (cfg.remat, policy
+    # "nothing": the recompute runs the MoE again)
+    if calls != [(1, 1)] * (2 * cfg.num_layers * steps):
         fail(f"phase 19 (c): moe_ffn_ep ran {len(calls)} times, not "
-             f"{cfg.num_layers} x {steps}")
-    if launches["flash_attention"] != cfg.num_layers * steps:
+             f"2 x {cfg.num_layers} x {steps}")
+    if launches["flash_attention"] != 2 * cfg.num_layers * steps:
         fail(f"phase 19 (c): launches {launches}")
     tcfg = train_steps.TrainConfig(optimizer=adamw.AdamWConfig(lr=3e-3),
                                    warmup_steps=max(steps // 10, 1),
@@ -3203,9 +3223,8 @@ def moe_ep_phase(dev) -> dict:
     tokens = batch * seq
     res["train"] = {
         "steps": steps, "batch": batch, "seq": seq, "losses": losses,
-        "step_ms": ep_ms, "tokens_per_s": tokens * (steps - 1) / (
-            sum(ep_ms[1:]) / 1e3), "peak_memory_bytes": peak_ep,
-        "dense_losses": dense_losses, "dense_step_ms": dense_ms,
+        "step_ms": ep_ms, "tokens_per_s": row["tokens_per_s"],
+        "peak_memory_bytes": peak_ep, "dense_losses": dense_losses, "dense_step_ms": dense_ms,
         "dense_tokens_per_s": tokens * (steps - 1) / (sum(dense_ms[1:]) / 1e3),
         "dense_peak_memory_bytes": peak_dense, "launches": launches}
     log(f"phase 19 (c): launch/train.py --arch {MOE_ARCH} (full width, "
@@ -3215,7 +3234,8 @@ def moe_ep_phase(dev) -> dict:
         f"losses {', '.join(f'{v:.4f}' for v in losses)}; step ms "
         f"{', '.join(f'{v:.1f}' for v in ep_ms)} (host clock), "
         f"{res['train']['tokens_per_s']:.1f} tokens/s after the first; peak "
-        f"{peak_ep / 2 ** 30:.2f} GiB; launches {launches}")
+        f"{peak_ep / 2 ** 30:.2f} GiB (the counter reset with the weights "
+        f"and optimizer state allocated, as below); launches {launches}")
     log(f"phase 19 (c): the same steps without a context (the dense "
         f"dispatch): losses {', '.join(f'{v:.4f}' for v in dense_losses)}; "
         f"step ms {', '.join(f'{v:.1f}' for v in dense_ms)}, "
@@ -3265,6 +3285,675 @@ def moe_ep_phase(dev) -> dict:
     del params
     torch.cuda.empty_cache()
     res["launches"] = launches
+    res["remat_row"] = row  # phase 20 (c)'s remat-on row: the same steps
+    return res
+
+
+
+# --------------------------------------------------------------- phase 20
+#: (a)'s list length, ranks and PEs (8 a rank); a PE of rank 1
+RECOV_N, RECOV_WORLD, RECOV_P, RECOV_PE = 1 << 22, 2, 16, 12
+#: seconds the parent waits for (a)'s ranks, start-up included
+RECOV_TIMEOUT_S = 400
+#: free space (a) needs: two directories of every boundary (about 0.4 GB
+#: each at 2^22), four of three, and copies
+RECOV_FREE_BYTES = 4 << 30
+RECOV_LABELS = ("prep", "descend@0", "descend@1", "base@2", "ascend@1",
+                "ascend@0", "post")
+#: (b): examples/dp_compression.py's loop: PEs, dim, rows a PE, lr, steps
+DPC = (8, 512, 64, 0.05, 150)
+#: (b)'s final-loss gates, relative: against the exact all-reduce's loss
+#: (the example's claim) and against the CPU's run of the same loop (a
+#: gradient perturbed by 1e-7 relative moves the final loss by about
+#: 6e-6 relative, and the card's matrix products sum in another order)
+DPC_REL = 1e-4
+#: (c): granite-moe-1b steps, batch, seq; hymba-1.5b steps, batch, seq
+REMAT_GRANITE, REMAT_HYMBA = (3, 4, 512), (2, 2, 128)
+#: (d): each arch and the ("data", "model") mesh its step runs under
+REMAT_EXACT = (("mamba2-130m", None), ("hymba-1.5b", None),
+               (MOE_ARCH, (4, 1)), (ENCDEC_ARCH, None))
+
+
+def _recov_rank(rank: int, world: int, init: str, work: str, device: str,
+                sizes: tuple, queue) -> None:
+    """One process of phase 20 (a): gloo over tensors on ``device``;
+    puts its result (or its traceback) on ``queue``."""
+    import datetime
+    import traceback
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            "gloo", init_method=init, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=RECOV_TIMEOUT_S))
+        try:
+            queue.put((rank, True, _recov_rank_work(dev, work, torch,
+                                                    dist)))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # the parent fails the phase with this traceback
+        queue.put((rank, False, traceback.format_exc()))
+
+
+def _recov_rank_work(dev, work: str, torch, dist) -> dict:
+    """Phase 20 (a)'s cases on one rank; each case's wall, launches,
+    output digest, counters, stage log and recovery record."""
+    import shutil
+    from repro_torch.core.listrank import (FaultSpec, ListRankConfig,
+                                           dist_mesh, rank_list_with_stats)
+    from repro_torch.runtime.fault_tolerance import (Preempted,
+                                                     SolveSupervisor,
+                                                     SolveSupervisorConfig)
+    ops = kernel_ops()
+    work = pathlib.Path(work)
+    succ = np.load(work / "succ.npy")
+    rank_in = np.load(work / "rank.npy")
+    cfg = ListRankConfig(use_pallas=True, use_pallas_pack=True)
+    mesh = dist_mesh(RECOV_P)
+    me = dist.get_rank()
+    out = {"pes": [me * mesh.pes_per_rank, (me + 1) * mesh.pes_per_rank - 1],
+           "cases": {}}
+
+    def solve(case, directory=None, inject=None, keep=3):
+        sup = (SolveSupervisor(SolveSupervisorConfig(
+            ckpt_dir=str(work / directory), keep=keep))
+            if directory else None)
+        dist.barrier()
+        for mod in ops.values():
+            mod.LAUNCHES = 0
+        _synchronize(torch, dev)
+        t = time.perf_counter()
+        row = {}
+        try:
+            s, r, st = rank_list_with_stats(succ, rank_in, mesh, cfg=cfg,
+                                            seed=SEED, device=dev,
+                                            supervisor=sup, inject=inject)
+        except Preempted:
+            _synchronize(torch, dev)
+            row["preempted_at"] = sup.ckpt.latest_step()
+        else:
+            _synchronize(torch, dev)
+            row.update(digest=_digest(s.cpu().numpy(), r.cpu().numpy()),
+                       counters=int_counters(st),
+                       stage_log=list(st["stage_log"]),
+                       stages_s=sum(dt for _, dt in st["stage_wall_s"]),
+                       recovery={k: (list(v) if isinstance(v, tuple) else v)
+                                 for k, v in st["recovery"].items()})
+        row["wall_s"] = time.perf_counter() - t
+        row["launches"] = {name: mod.LAUNCHES for name, mod in ops.items()}
+        if sup is not None:
+            row["records"] = {str(k): v for k, v in
+                              sup.ckpt.records.items()}
+            row["restore"] = sup.ckpt.last_restore
+        out["cases"][case] = row
+
+    solve("plain_cold")
+    solve("plain")
+    solve("a", "dist", keep=len(RECOV_LABELS) - 1)
+    solve("b_preempted", "pre", inject=[FaultSpec(
+        "preempt", stage="descend", level=0)] if me == 1 else None)
+    if me == 0:  # for the virtual transport to resume, in the parent
+        shutil.copytree(work / "pre", work / "pre_for_virtual")
+    solve("b", "pre")
+    solve("c", "loss", inject=FaultSpec("pe_loss", stage="base",
+                                        pe=RECOV_PE))
+    solve("d", "corrupt", inject=FaultSpec("corrupt", stage="descend",
+                                           level=0, pe=RECOV_PE))
+    solve("e", "virtual_pre")
+    return out
+
+
+def _same_checkpoints(a: pathlib.Path, b: pathlib.Path) -> list:
+    """The step directories of ``a``, each checked equal to ``b``'s in
+    keys, manifest meta and every array's bytes."""
+    steps = sorted(d.name for d in a.glob("step_*"))
+    if steps != sorted(d.name for d in b.glob("step_*")):
+        fail(f"phase 20 (a): step directories {steps} against "
+             f"{sorted(d.name for d in b.glob('step_*'))}")
+    for step in steps:
+        ma = json.loads((a / step / "manifest.json").read_text())
+        mb = json.loads((b / step / "manifest.json").read_text())
+        if ma["keys"] != mb["keys"] or ma["meta"] != mb["meta"]:
+            fail(f"phase 20 (a): {step}'s manifest differs")
+        with np.load(a / step / "state.npz") as x, \
+                np.load(b / step / "state.npz") as y:
+            for k in x.files:
+                if x[k].dtype != y[k].dtype or x[k].tobytes() != \
+                        y[k].tobytes():
+                    fail(f"phase 20 (a): {step} {k} differs")
+    return steps
+
+
+def _recovery_dist(dev, card: str, n: int) -> dict:
+    """Phase 20 (a)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core.listrank import (FaultSpec, ListRankConfig,
+                                           instances, rank_list_seq,
+                                           rank_list_with_stats, sim_mesh)
+    from repro_torch.runtime.fault_tolerance import (Preempted,
+                                                     SolveSupervisor,
+                                                     SolveSupervisorConfig)
+    cfg = ListRankConfig(use_pallas=True, use_pallas_pack=True)
+    succ, rank = instances.gen_list(n, gamma=1.0, seed=1)
+    s_ref, r_ref = rank_list_seq(succ, rank)
+    mesh = sim_mesh(RECOV_P)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_recovery_dist_"))
+    res: dict = {"n": n, "p": RECOV_P, "world": RECOV_WORLD}
+    try:
+        free = shutil.disk_usage(root).free
+        if free < RECOV_FREE_BYTES:
+            fail(f"phase 20 (a): {free} bytes free under {root}, "
+                 f"{RECOV_FREE_BYTES} needed")
+
+        def virtual(directory=None, inject=None, keep=3):
+            sup = (SolveSupervisor(SolveSupervisorConfig(
+                ckpt_dir=str(root / directory), keep=keep))
+                if directory else None)
+            _synchronize(torch, dev)
+            t = time.perf_counter()
+            s, r, st = rank_list_with_stats(succ, rank, mesh, cfg=cfg,
+                                            seed=SEED, device=dev,
+                                            supervisor=sup, inject=inject)
+            _synchronize(torch, dev)
+            return s, r, st, time.perf_counter() - t
+
+        s, r, st, wall = virtual()
+        if not (np.array_equal(s.cpu().numpy(), s_ref)
+                and r.cpu().numpy().tobytes() == r_ref.tobytes()):
+            fail("phase 20 (a): the virtual solve differs from the oracle")
+        digest = _digest(s.cpu().numpy(), r.cpu().numpy())
+        ints = int_counters(st)
+        res["virtual_s"] = wall
+        *_, res["virtual_supervised_s"] = virtual(
+            "virtual", keep=len(RECOV_LABELS) - 1)
+        try:
+            virtual("virtual_pre", FaultSpec("preempt", stage="descend",
+                                             level=0))
+            fail("phase 20 (a): the virtual solve was not preempted")
+        except Preempted:
+            pass
+        np.save(root / "succ.npy", succ)
+        np.save(root / "rank.npy", rank)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        outs = _run_ranks(RECOV_WORLD, root, str(dev), (), RECOV_TIMEOUT_S,
+                          target=_recov_rank, phase="20 (a)")
+        res["ranks_s"] = time.perf_counter() - t
+
+        interior = RECOV_LABELS[:-1]
+        for rk, out in enumerate(outs):
+            cases = out["cases"]
+            for name, row in cases.items():
+                if name == "b_preempted":
+                    if row["preempted_at"] != 2:
+                        fail(f"phase 20 (a): rank {rk} stopped at "
+                             f"{row['preempted_at']}, not 2")
+                    continue
+                if row["digest"] != digest or row["counters"] != ints:
+                    fail(f"phase 20 (a) ({name}): rank {rk}'s outputs or "
+                         f"counters differ from the virtual solve's")
+                log_ = row["stage_log"]
+                preps = executed(log_, "prep")
+                others = sum(executed(log_, k) for k in
+                             ("descend", "base", "ascend", "post"))
+                lm = row["launches"]["flash_attention"] + row[
+                    "launches"]["ssd_scan"]
+                if row["launches"]["local_chase"] != preps or \
+                        row["launches"]["mailbox_pack"] < others or lm:
+                    fail(f"phase 20 (a) ({name}): rank {rk} launched "
+                         f"{row['launches']} for {log_}")
+            rec = {k: cases[k]["recovery"] for k in "abcde"}
+            if cases["a"]["stage_log"] != list(RECOV_LABELS) or \
+                    rec["a"]["checkpoints"] != len(interior):
+                fail(f"phase 20 (a) (a): rank {rk}: {rec['a']}")
+            for case, frm, log_ in (
+                    ("b", 2, list(RECOV_LABELS[2:])),
+                    ("e", 2, list(RECOV_LABELS[2:]))):
+                if rec[case]["resumed_from"] != frm or \
+                        cases[case]["stage_log"] != log_:
+                    fail(f"phase 20 (a) ({case}): rank {rk}: {rec[case]}, "
+                         f"{cases[case]['stage_log']}")
+            c_log, d_log = cases["c"]["stage_log"], cases["d"]["stage_log"]
+            if rec["c"]["resumed_from"] != 3 or c_log.count(
+                    "base@2!InjectedFault") != 1 or c_log.count(
+                    "descend@0") != 1:
+                fail(f"phase 20 (a) (c): rank {rk}: {rec['c']}, {c_log}")
+            if rec["d"]["resumed_from"] != 1 or d_log.count(
+                    "descend@0!CorruptedState") != 1 or d_log.count(
+                    "prep") != 1:
+                fail(f"phase 20 (a) (d): rank {rk}: {rec['d']}, {d_log}")
+        res["steps_compared"] = _same_checkpoints(root / "dist",
+                                                  root / "virtual")
+        # the reverse: the virtual transport resumes the ranks' checkpoint
+        s, r, st, res["virtual_resume_s"] = virtual("pre_for_virtual")
+        if _digest(s.cpu().numpy(), r.cpu().numpy()) != digest or \
+                st["recovery"]["resumed_from"] != 2:
+            fail(f"phase 20 (a): the virtual transport's resume of the "
+                 f"ranks' checkpoint: {st['recovery']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["ranks"] = outs
+    res["launches"] = outs[0]["cases"]["a"]["launches"]
+    a0 = outs[0]["cases"]["a"]
+    res["checkpoints"] = {f"{k} ({RECOV_LABELS[int(k) - 1]})": v
+                          for k, v in sorted(a0["records"].items(),
+                                             key=lambda kv: int(kv[0]))}
+    log(f"phase 20 (a): List({n}, gamma=1), p={RECOV_P} over "
+        f"{RECOV_WORLD} gloo ranks on the card, kernels on; the virtual "
+        f"transport's solve: {res['virtual_s']:.3f} s, then supervised "
+        f"{res['virtual_supervised_s']:.3f} s; every case on every rank "
+        f"equal to it (outputs and counters); boundary checkpoints "
+        f"{res['steps_compared']} equal byte for byte; the virtual "
+        f"transport resumed the ranks' preempted checkpoint in "
+        f"{res['virtual_resume_s']:.3f} s; the ranks took "
+        f"{res['ranks_s']:.1f} s with start-up [{card}]")
+    for name, rec in res["checkpoints"].items():
+        log(f"phase 20 (a): boundary {name}: {rec['bytes']} bytes, snapshot "
+            f"(device to host, rank 0) {rec['snapshot_s']:.3f} s, write "
+            f"{rec['write_s']:.3f} s [{card}]")
+    for rk, out in enumerate(outs):
+        c = out["cases"]
+        log(f"phase 20 (a): rank {rk} (PEs {out['pes'][0]}..{out['pes'][1]}"
+            f"): unsupervised cold {c['plain_cold']['wall_s']:.3f} s, warm "
+            f"{c['plain']['wall_s']:.3f} s; supervised "
+            f"{c['a']['wall_s']:.3f} s; preempted on rank 1 "
+            f"{c['b_preempted']['wall_s']:.3f} s, resumed "
+            f"{c['b']['wall_s']:.3f} s; PE {RECOV_PE} lost "
+            f"{c['c']['wall_s']:.3f} s; corrupted {c['d']['wall_s']:.3f} s; "
+            f"the virtual checkpoint resumed {c['e']['wall_s']:.3f} s; "
+            f"launches supervised {c['a']['launches']} [{card}]")
+    return res
+
+
+def _dp_losses(device, compressed: bool) -> list:
+    """``examples/dp_compression.py``'s loop over a virtual transport of
+    ``DPC[0]`` PEs on ``device``: float32 least squares, each PE's
+    gradient of its rows reduced by ``compressed_psum`` (error fed back)
+    or by the exact ``psum``, then averaged; the loss after every step."""
+    import torch
+    from repro_torch.core.listrank import transport as tl
+    from repro_torch.runtime import compression
+    p, dim, rows, lr, steps = DPC
+    rng = np.random.default_rng(0)
+    w_true = rng.normal(size=(dim,)).astype(np.float32)
+    x_all = rng.normal(size=(p * rows, dim)).astype(np.float32)
+    x = torch.from_numpy(x_all).to(device)
+    y = torch.from_numpy(x_all @ w_true).to(device)
+    tr = tl.VirtualTransport(("data",), (p,), torch.device(device))
+    w = torch.zeros(dim, dtype=torch.float32, device=device)
+    err = torch.zeros((p, dim), dtype=torch.float32, device=device)
+    xs, ys = x.reshape(p, rows, dim), y.reshape(p, rows)
+    losses = []
+    for _ in range(steps):
+        pred = torch.einsum("prd,d->pr", xs, w)
+        g = 2 * torch.einsum("prd,pr->pd", xs, pred - ys) / rows
+        if compressed:
+            g, err = compression.compressed_psum(g, tr, err)
+        else:
+            g = tr.psum(g)
+        w = w - lr * (g[0] / p)
+        losses.append(float(torch.mean((x @ w - y) ** 2)))
+    return losses
+
+
+def _state_bytes(tree) -> int:
+    from repro_torch.checkpoint.checkpointer import flatten
+    return sum(x.numel() * x.element_size() for x in flatten(tree)[1])
+
+
+def _int8_runtime(dev, card: str) -> dict:
+    """Phase 20 (b)."""
+    import math
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.listrank import sim_mesh
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as train_launch
+    from repro_torch.optim import adamw
+    from repro_torch.core.listrank import transport as tl
+    from repro_torch.runtime import compression
+    from repro_torch.train import steps as train_steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res: dict = {}
+    # compressed_psum on the card against the CPU on the same inputs
+    rng = np.random.default_rng(20)
+    p, dim = DPC[0], DPC[1]
+    x = rng.normal(size=(p, 3, dim)).astype(np.float32)
+    x[2] = 0.0
+    e = (rng.normal(size=(p, 3, dim)) * 1e-3).astype(np.float32)
+    outs = {}
+    for where in ("cpu", str(dev)):
+        tr = tl.VirtualTransport(("data",), (p,), torch.device(where))
+        red, new = compression.compressed_psum(
+            torch.from_numpy(x).to(where), tr, torch.from_numpy(e).to(where))
+        outs[where] = (red.cpu().numpy(), new.cpu().numpy())
+    bits = outs["cpu"][1].tobytes() == outs[str(dev)][1].tobytes()
+    sum_rel = float(np.abs(outs["cpu"][0] - outs[str(dev)][0]).max()
+                    / np.abs(outs["cpu"][0]).max())
+    if not bits or sum_rel > 1e-6:
+        fail(f"phase 20 (b): compressed_psum on the card: new error "
+             f"bit-equal {bits}, sum {sum_rel:.3g} relative from the CPU's")
+    t = time.perf_counter()
+    comp = _dp_losses(dev, True)
+    res["dp_s"] = time.perf_counter() - t
+    exact = _dp_losses(dev, False)
+    cpu = _dp_losses("cpu", True)
+    rel_exact = abs(comp[-1] - exact[-1]) / exact[-1]
+    rel_cpu = abs(comp[-1] - cpu[-1]) / cpu[-1]
+    res["dp"] = {"final_loss": comp[-1], "exact_final_loss": exact[-1],
+                 "cpu_final_loss": cpu[-1], "rel_exact": rel_exact,
+                 "rel_cpu": rel_cpu, "first_loss": comp[0],
+                 "new_error_bit_equal": bits, "sum_rel_cpu": sum_rel}
+    log(f"phase 20 (b): compressed_psum on the card, {p} PEs x 3 x {dim}: "
+        f"new error bit-equal to the CPU's, the sum {sum_rel:.3g} relative "
+        f"from it; examples/dp_compression.py's loop ({DPC[4]} steps, "
+        f"{res['dp_s']:.2f} s): loss {comp[0]:.6g} -> {comp[-1]:.9g}, the "
+        f"exact all-reduce's {exact[-1]:.9g} ({rel_exact:.3g} relative), "
+        f"the CPU's {cpu[-1]:.9g} ({rel_cpu:.3g} relative) [{card}]")
+    if not (math.isfinite(comp[-1]) and comp[-1] < comp[0]
+            and rel_exact <= DPC_REL and rel_cpu <= DPC_REL):
+        fail(f"phase 20 (b): the compressed loop's loss {comp[-1]}, exact "
+             f"{exact[-1]}, CPU {cpu[-1]}")
+
+    # one granite-moe-1b step at full width with int8 AdamW state
+    cfg = configs.get_config(MOE_ARCH).with_(use_kernels=True)
+    tcfg = train_steps.TrainConfig(optimizer=adamw.AdamWConfig(
+        lr=3e-3, state_dtype="int8"), warmup_steps=1, total_steps=1)
+    steps, batch, seq = REMAT_GRANITE
+    dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                               global_batch=batch)
+    state, _ = train_launch.initial_state(cfg, tcfg, dev)
+    params, opt = state
+    f32 = _state_bytes(adamw.init(
+        train_launch.state_like(cfg, train_steps.TrainConfig())[0],
+        adamw.AdamWConfig()))
+    int8 = _state_bytes(opt)
+    one = train_launch.step_fn(cfg, dcfg, tcfg, dev,
+                               mesh=sim_mesh((1, 1), ("data", "model")))
+    t = time.perf_counter()
+    state, metrics = one(state, 0)
+    loss = float(metrics["loss"])
+    wall = time.perf_counter() - t
+    if not math.isfinite(loss):
+        fail(f"phase 20 (b): granite's int8-state step: loss {loss}")
+    res["granite_int8"] = {"loss": loss, "step_s": wall,
+                           "state_bytes_int8": int8,
+                           "state_bytes_float32": f32}
+    log(f"phase 20 (b): {cfg.name} one step at full width with int8 AdamW "
+        f"state ({batch} x {seq} tokens, remat on): loss {loss:.4f}, "
+        f"{wall * 1e3:.1f} ms (the first step); optimizer state "
+        f"{int8 / 2 ** 30:.2f} GiB against {f32 / 2 ** 30:.2f} GiB with "
+        f"float32 moments (both with the float32 master copy) [{card}]")
+    del state, params, opt, one
+    torch.cuda.empty_cache()
+    return res
+
+
+def _launcher_steps(dev, arch: str, steps_n: int, batch: int, seq: int,
+                    cfg_fn=None, tcfg=None) -> dict:
+    """``steps_n`` steps of ``arch`` at full width through
+    ``launch/train.py`` (``main`` when ``tcfg`` is None; else its
+    ``initial_state`` and ``step_fn`` with ``tcfg``), under its (1, 1)
+    mesh, kernels on, ``cfg_fn`` applied to the config; the peak-memory
+    counter reset once the weights and the optimizer state exist. Its
+    losses, ms a step (host clock, each step ended by reading its loss),
+    peak memory and LM-kernel launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.listrank import sim_mesh
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import train as train_launch
+    mods = {"flash_attention": fa_ops, "local_chase": lc_ops,
+            "mailbox_pack": mp_ops, "ssd_scan": ssd_ops}
+    real_get, real_init = configs.get_config, train_launch.initial_state
+
+    def get_config(name, smoke=False):
+        cfg = real_get(name, smoke=smoke)
+        return cfg_fn(cfg) if cfg_fn is not None else cfg
+
+    def initial_state(*a, **kw):
+        out = real_init(*a, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return out
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    train_launch.configs.get_config = get_config
+    train_launch.initial_state = initial_state
+    try:
+        if tcfg is None:
+            history = train_launch.main([
+                "--arch", arch, "--use-kernels", "--batch", str(batch),
+                "--seq", str(seq), "--steps", str(steps_n), "--log-every",
+                "1", "--device", str(dev)])
+            losses = [h["loss"] for h in history]
+            ms = [h["ms"] for h in history]
+        else:
+            cfg = get_config(arch).with_(use_kernels=True)
+            dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=seq, global_batch=batch)
+            state, _ = train_launch.initial_state(cfg, tcfg, dev)
+            one = train_launch.step_fn(cfg, dcfg, tcfg, dev, mesh=sim_mesh(
+                (1, 1), ("data", "model")))
+            losses, ms = [], []
+            for step in range(steps_n):
+                t = time.perf_counter()
+                state, metrics = one(state, step)
+                losses.append(float(metrics["loss"]))
+                ms.append((time.perf_counter() - t) * 1e3)
+            del state, one
+    finally:
+        train_launch.configs.get_config = real_get
+        train_launch.initial_state = real_init
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    torch.cuda.empty_cache()
+    tokens = batch * seq
+    warm = ms[1:] or ms
+    return {"losses": losses, "step_ms": ms, "peak_memory_bytes": peak,
+            "tokens_per_s": tokens * len(warm) / (sum(warm) / 1e3),
+            "launches": launches, "steps": steps_n, "batch": batch,
+            "seq": seq}
+
+
+def _grad_peak(dev, cfg, batch: int, seq: int) -> int:
+    """The peak memory of one forward and backward (``value_and_grad``)
+    of ``cfg`` under a (1, 1) mesh, the counter reset once the weights
+    exist: what the activations (or remat's recompute) add."""
+    import torch
+    from repro_torch.core.listrank import sim_mesh
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as M
+    from repro_torch.runtime import context
+    from repro_torch.train import steps as train_steps
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    data = pipeline.device_batch(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch), 0, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with context.use_mesh(sim_mesh((1, 1), ("data", "model"))):
+        out = train_steps.value_and_grad(params, data, cfg,
+                                         train_steps.TrainConfig())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del params, out
+    torch.cuda.empty_cache()
+    return peak
+
+
+def _remat_full_width(dev, card: str, granite_remat=None) -> dict:
+    """Phase 20 (c). ``granite_remat``: phase 19 (c)'s row, the same
+    granite-moe-1b steps through ``launch/train.py`` with remat on (run
+    here when None)."""
+    from repro_torch import configs
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as train_steps
+    res: dict = {}
+    steps_n, batch, seq = REMAT_GRANITE
+    granite = configs.get_config(MOE_ARCH).with_(use_kernels=True)
+    layers = granite.num_layers
+    res["granite_grad_peak"] = {
+        "remat": _grad_peak(dev, granite, batch, seq),
+        "no_remat": _grad_peak(dev, granite.with_(remat=False), batch, seq)}
+    log(f"phase 20 (c): {MOE_ARCH} one forward and backward of {batch} x "
+        f"{seq} tokens under its (1, 1) mesh: peak above the weights "
+        f"{res['granite_grad_peak']['remat'] / 2 ** 30:.2f} GiB with remat, "
+        f"{res['granite_grad_peak']['no_remat'] / 2 ** 30:.2f} GiB without "
+        f"[{card}]")
+    for name, fn in (("granite_remat", None),
+                     ("granite_no_remat", lambda c: c.with_(remat=False))):
+        if fn is None and granite_remat is not None:
+            row = granite_remat
+        else:
+            row = _launcher_steps(dev, MOE_ARCH, steps_n, batch, seq, fn)
+        per = 2 if fn is None else 1  # the remat recompute launches again
+        if not all(np.isfinite(row["losses"])) or \
+                row["launches"]["flash_attention"] != per * layers * steps_n:
+            fail(f"phase 20 (c) {name}: losses {row['losses']}, launches "
+                 f"{row['launches']}")
+        res[name] = row
+        log(f"phase 20 (c): {MOE_ARCH} via launch/train.py, {steps_n} steps "
+            f"of {batch} x {seq} tokens under its (1, 1) mesh, "
+            f"{'remat on' if fn is None else 'remat off'}"
+            f"{' (phase 19 (c), reused)' if row is granite_remat else ''}: "
+            f"losses "
+            f"{', '.join(f'{v:.4f}' for v in row['losses'])}; step ms "
+            f"{', '.join(f'{v:.1f}' for v in row['step_ms'])}, "
+            f"{row['tokens_per_s']:.1f} tokens/s after the first; peak "
+            f"{row['peak_memory_bytes'] / 2 ** 30:.2f} GiB (the counter "
+            f"reset with the weights and optimizer state allocated); "
+            f"launches {row['launches']} [{card}]")
+    steps_n, batch, seq = REMAT_HYMBA
+    hy = configs.get_config("hymba-1.5b")
+    tcfg = train_steps.TrainConfig(optimizer=adamw.AdamWConfig(
+        lr=3e-3, state_dtype="int8"), warmup_steps=1, total_steps=steps_n)
+    row = _launcher_steps(dev, "hymba-1.5b", steps_n, batch, seq, tcfg=tcfg)
+    want = 2 * hy.num_layers * steps_n
+    if not all(np.isfinite(row["losses"])) or \
+            row["launches"]["flash_attention"] != want or \
+            row["launches"]["ssd_scan"] != want:
+        fail(f"phase 20 (c) hymba: losses {row['losses']}, launches "
+             f"{row['launches']}")
+    res["hymba"] = row
+    log(f"phase 20 (c): hymba-1.5b at full width ({hy.num_layers} layers, "
+        f"d_model {hy.d_model}, bf16, kernels on, remat, int8 AdamW "
+        f"state), {steps_n} steps of {batch} x {seq} tokens: losses "
+        f"{', '.join(f'{v:.4f}' for v in row['losses'])}; step ms "
+        f"{', '.join(f'{v:.1f}' for v in row['step_ms'])}; peak "
+        f"{row['peak_memory_bytes'] / 2 ** 30:.2f} GiB (the counter reset "
+        f"with the weights and optimizer state allocated); launches "
+        f"{row['launches']} [{card}]")
+    return res
+
+
+def _remat_exactness(dev) -> dict:
+    """Phase 20 (d): each model's step twice without remat (it must
+    repeat bit for bit) and once with, equal to it bit for bit."""
+    import warnings
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # deterministic kernels where torch has them (an embedding's backward
+    # accumulates with atomics otherwise): a step must repeat bit for bit
+    # before remat's recompute can be held to the forward's bits
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return _remat_steps_equal(dev)
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+
+
+def _remat_steps_equal(dev) -> dict:
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.listrank import sim_mesh
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves
+    from repro_torch.runtime import context
+    from repro_torch.train import steps as train_steps
+    res = {}
+    for arch, mesh in REMAT_EXACT:
+        base = configs.get_config(arch, smoke=True).with_(
+            dtype=torch.float32, use_kernels=True)
+        params = M.init(base, torch.Generator(dev).manual_seed(SEED), dev)
+        batch = pipeline.device_batch(pipeline.DataConfig(
+            vocab_size=base.vocab_size, seq_len=64, global_batch=4), 0, dev)
+        if base.family == "encdec":
+            batch["enc_embeds"] = torch.randn(
+                (4, 64, base.prefix_embed_dim), device=dev,
+                generator=torch.Generator(dev).manual_seed(SEED))
+        got = []
+        for remat in (True, False, False):
+            cfg = base.with_(remat=remat)
+            with (context.use_mesh(sim_mesh(mesh, ("data", "model")))
+                  if mesh else contextlib.nullcontext()):
+                (loss, _), grads = train_steps.value_and_grad(
+                    params, batch, cfg, train_steps.TrainConfig())
+            got.append((loss, leaves(grads)))
+
+        def same(x, y):
+            return torch.equal(x[0], y[0]) and all(
+                torch.equal(a, b) for a, b in zip(x[1], y[1]))
+        repeat, equal = same(got[1], got[2]), same(got[0], got[1])
+        res[arch] = {"equal": equal, "no_remat_repeats": repeat,
+                     "loss": float(got[0][0]), "leaves": len(got[0][1])}
+        if not (repeat and equal):
+            diff = max(max_abs_err(a, b, torch)
+                       for a, b in zip(got[0][1], got[1][1]))
+            fail(f"phase 20 (d): {arch}: the step without remat repeats "
+                 f"bit for bit: {repeat}; remat on against off: losses "
+                 f"{float(got[0][0])} / {float(got[1][0])}, gradients "
+                 f"{diff}")
+        del params, got
+        torch.cuda.empty_cache()
+    log(f"phase 20 (d): float32 SMOKE, kernels on, deterministic torch "
+        f"kernels, one step each: the loss and every gradient bit-equal "
+        f"with remat on and off, and without remat twice, for "
+        + ", ".join(a + (f" under {m}" if m else "")
+                    for a, m in REMAT_EXACT))
+    return res
+
+
+def recovery_dist_phase(dev, card: str = "", n: int = RECOV_N,
+                        granite_remat=None) -> dict:
+    """Phase 20: (a) supervised and fault-injected solves over 2 gloo
+    ranks on the card against the virtual transport, (b) the int8
+    runtime, (c) remat at full width (``granite_remat``: phase 19 (c)'s
+    row, when it ran), (d) recompute determinism. Returns the rows, (a)'s
+    launches per rank and (c)'s launches per model."""
+    t0 = time.perf_counter()
+    res = _recovery_dist(dev, card, n)
+    res["a_s"] = time.perf_counter() - t0
+    res["int8"] = _int8_runtime(dev, card)
+    res["b_s"] = time.perf_counter() - t0 - res["a_s"]
+    rows = _remat_full_width(dev, card, granite_remat)
+    res["remat"] = {MOE_ARCH: rows["granite_remat"],
+                    "hymba-1.5b": rows["hymba"]}
+    res["no_remat"] = {MOE_ARCH: rows["granite_no_remat"]}
+    res["grad_peak"] = rows["granite_grad_peak"]
+    res["c_s"] = time.perf_counter() - t0 - res["a_s"] - res["b_s"]
+    res["exact"] = _remat_exactness(dev)
+    d_s = time.perf_counter() - t0 - res["a_s"] - res["b_s"] - res["c_s"]
+    log(f"phase 20: (a) {res['a_s']:.1f} s, (b) {res['b_s']:.1f} s, (c) "
+        f"{res['c_s']:.1f} s, (d) {d_s:.1f} s")
     return res
 
 

@@ -8,10 +8,21 @@ leaf, under its tree path) and ``manifest.json`` (``step``, ``keys``,
 
 Tree paths are the JAX package's: dict keys sorted, sequence indices,
 and a dataclass's array fields as ``.name`` in declaration order (its
-other fields are static, as a registered pytree's meta fields are);
-``None`` holds no leaf. bfloat16 leaves, which numpy cannot hold, are
-stored as their int16 bits and listed under the manifest's
-``bfloat16``.
+other fields are static, as a registered pytree's meta fields are, and
+so is a field declared with ``metadata={"static": True}``, such as
+``QInt8.shape``); ``None`` holds no leaf. bfloat16 leaves, which numpy
+cannot hold, are stored as their int16 bits and listed under the
+manifest's ``bfloat16``.
+
+Under a process group (``ranks=``, the transport of its ranks) the
+checkpoints are the group's: rank 0 alone serialises, publishes and
+garbage-collects, the latest step is rank 0's and broadcast, and
+:meth:`Checkpointer.wait`, with which every rank's save begins, ends with
+a barrier that also carries rank 0's write failure to every rank, so no
+rank reads a step still being written and a failed write raises on every
+rank.
+Every rank reads a restored step itself, so the directory must be one
+that every rank sees (one host, or a shared file system).
 """
 from __future__ import annotations
 
@@ -50,7 +61,8 @@ def flatten(tree):
             return lambda it: kind([f(it) for f in subs])
         if dataclasses.is_dataclass(node) and not isinstance(node, type):
             names = [f.name for f in dataclasses.fields(node)
-                     if _is_node(getattr(node, f.name))]
+                     if not f.metadata.get("static")
+                     and _is_node(getattr(node, f.name))]
             subs = [walk(getattr(node, k), path + ("." + k,)) for k in names]
             return lambda it: dataclasses.replace(
                 node, **{k: f(it) for k, f in zip(names, subs)})
@@ -59,6 +71,9 @@ def flatten(tree):
         return lambda it: next(it)
 
     build = walk(tree, ())
+    # walk's closure holds walk itself: drop it, or the cycle keeps every
+    # leaf alive until the garbage collector's next full pass
+    walk = None
     return keys, leaves, lambda new: build(iter(new))
 
 
@@ -79,6 +94,16 @@ def _torch_dtype(leaf) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.asarray(leaf).dtype)).dtype
 
 
+def _ran(fn, *args) -> futures.Future:
+    """``fn(*args)``, run now, as a finished future of its outcome."""
+    done = futures.Future()
+    try:
+        done.set_result(fn(*args))
+    except Exception as e:
+        done.set_exception(e)
+    return done
+
+
 class CheckpointWriteError(RuntimeError):
     """A background checkpoint write failed; carries the failing step."""
 
@@ -91,10 +116,15 @@ class CheckpointWriteError(RuntimeError):
 
 
 class Checkpointer:
-    def __init__(self, directory, keep: int = 3, async_save: bool = True):
+    def __init__(self, directory, keep: int = 3, async_save: bool = True,
+                 ranks=None):
+        """``ranks``: the transport of the process group whose checkpoints
+        these are (``world``, ``rank``, ``from_rank0``; see the module
+        doc), or None for one process."""
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.ranks = ranks
         self._pool = futures.ThreadPoolExecutor(1) if async_save else None
         self._pending: futures.Future | None = None
         self._pending_step: int | None = None
@@ -106,6 +136,16 @@ class Checkpointer:
         #: placing every leaf)
         self.last_restore: dict | None = None
 
+    @property
+    def _shared(self) -> bool:
+        return self.ranks is not None and self.ranks.world > 1
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes: rank 0 of the group, or the one
+        process."""
+        return not self._shared or self.ranks.rank == 0
+
     # ------------------------------------------------------------- save
     def save(self, step: int, state, blocking: bool = False, meta=None):
         """Snapshot ``state`` at ``step``. The device->host copy happens
@@ -113,31 +153,62 @@ class Checkpointer:
         background thread unless blocking. ``meta`` (a JSON-able dict) is
         stored in the step's manifest. A failure of the *previous*
         background write surfaces here (or at :meth:`wait`) as
-        :class:`CheckpointWriteError` naming the failed step."""
-        t0 = time.perf_counter()
-        keys, leaves, _ = flatten(state)
-        host = [_to_host(x) for x in leaves]
-        bf16 = [k for k, x in zip(keys, leaves)
-                if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16]
-        self.records[step] = {"bytes": sum(a.nbytes for a in host),
-                              "snapshot_s": time.perf_counter() - t0,
-                              "write_s": None}
-        self.wait()  # one in flight at a time; surfaces prior failures
-        if self._pool is not None and not blocking:
-            self._pending_step = step
-            self._pending = self._pool.submit(self._write, step, keys, host,
-                                              meta, bf16)
-        else:
-            self._write(step, keys, host, meta, bf16)
+        :class:`CheckpointWriteError` naming the failed step. Under a
+        process group every rank calls it at the same step: the write in
+        flight is waited for first (:meth:`wait`, so its failure is raised
+        on every rank), then rank 0 alone snapshots and writes (the other
+        ranks may pass ``state=None``), and a blocking save waits again."""
+        sync = blocking or self._pool is None
+        if self._shared:
+            self.wait()
+        if self.writes:
+            t0 = time.perf_counter()
+            keys, leaves, _ = flatten(state)
+            host = [_to_host(x) for x in leaves]
+            bf16 = [k for k, x in zip(keys, leaves) if isinstance(
+                x, torch.Tensor) and x.dtype == torch.bfloat16]
+            self.records[step] = {"bytes": sum(a.nbytes for a in host),
+                                  "snapshot_s": time.perf_counter() - t0,
+                                  "write_s": None}
+            err = self._drain()  # one in flight at a time
+            if err is not None:
+                raise err
+            args = (step, keys, host, meta, bf16)
+            if sync and not self._shared:
+                self._write(*args)
+            else:  # a shared write's outcome reaches every rank at wait
+                self._pending_step = step
+                self._pending = (_ran(self._write, *args) if sync else
+                                 self._pool.submit(self._write, *args))
+        if self._shared and sync:
+            self.wait()
+
+    def _drain(self) -> CheckpointWriteError | None:
+        """Wait for the write in flight; its failure, if it failed."""
+        if self._pending is None:
+            return None
+        pending, step = self._pending, self._pending_step
+        self._pending, self._pending_step = None, None
+        try:
+            pending.result()
+        except Exception as e:
+            return CheckpointWriteError(step, e)
+        return None
 
     def wait(self):
-        if self._pending is not None:
-            pending, step = self._pending, self._pending_step
-            self._pending, self._pending_step = None, None
-            try:
-                pending.result()
-            except Exception as e:
-                raise CheckpointWriteError(step, e) from e
+        """Wait for the write in flight and raise its failure. Under a
+        process group every rank calls it: rank 0 drains its write, then
+        a barrier carries the outcome, so every rank returns once the
+        step is published, or raises ``CheckpointWriteError``."""
+        err = self._drain()
+        if self._shared:
+            failed = self.ranks.from_rank0(0 if err is None else
+                                           err.step + 1)
+            if failed and err is None:
+                raise CheckpointWriteError(failed - 1, RuntimeError(
+                    "rank 0's checkpoint write failed"))
+        if err is not None:
+            raise err
 
     def _write(self, step, keys, host, meta=None, bf16=()):
         t0 = time.perf_counter()
@@ -168,8 +239,16 @@ class Checkpointer:
 
     # ---------------------------------------------------------- restore
     def latest_step(self) -> int | None:
-        ckpts = sorted(self.dir.glob("step_*"))
-        return int(ckpts[-1].name.split("_")[1]) if ckpts else None
+        """The newest published step, or None; under a process group rank
+        0's, on every rank (every rank calls it)."""
+        step = None
+        if self.writes:
+            ckpts = sorted(self.dir.glob("step_*"))
+            step = int(ckpts[-1].name.split("_")[1]) if ckpts else None
+        if self._shared:
+            got = self.ranks.from_rank0(-1 if step is None else step)
+            step = None if got < 0 else got
+        return step
 
     def manifest(self, step: int | None = None) -> dict:
         """The manifest dict of ``step`` (latest when None) — includes

@@ -344,7 +344,12 @@ def rank_list_with_stats(succ, rank, mesh, pe_axes: Sequence[str] | None = None,
     restart, in the JAX package's checkpoint format; ``inject``
     (:class:`repro_torch.core.listrank.faults.FaultSpec` or a sequence)
     drives deterministic fault injection; ``stats["recovery"]`` carries
-    their accounting.
+    their accounting. On a DistMesh both work as on one process: every
+    rank passes a supervisor on the same directory (one every rank sees),
+    or none; rank 0 writes the checkpoints, every decision is agreed over
+    the ranks, and a rank's ``inject`` may differ from the others' (a
+    preemption on one rank stops every rank at the same boundary), but
+    without a supervisor every rank passes an injector or none.
 
     ``tracer`` (a :class:`repro_torch.obs.Tracer`) records the flight-
     recorder span tree for the whole solve — the root ``solve`` span,

@@ -27,6 +27,15 @@ Injection taxonomy (DESIGN.md §11):
 
 Each spec fires exactly once (the first time its filter matches) and is
 then retired, so the recovery re-run of the same stage proceeds clean.
+
+Under the ``torch.distributed`` transport every rank consults its own
+injector at the same (stage, level) boundaries, and the stage loop
+agrees what fired over the ranks: a ``pe_loss`` or ``corrupt`` acts on
+the rank that owns ``spec.pe`` (the PE is lost there, the plane is
+scribbled there), an ``overflow`` or ``preempt`` on any rank that fires
+it, and every rank then recovers alike. So a fault at a PE of another
+rank, or a preemption on one rank only, recovers as it does on one
+process.
 """
 from __future__ import annotations
 
@@ -99,12 +108,11 @@ class FaultInjector:
     def pending(self) -> tuple[FaultSpec, ...]:
         return tuple(self._pending)
 
-    def crash_before(self, stage: str, level: int) -> None:
-        """Raise :class:`InjectedFault` if a ``pe_loss`` matches."""
-        f = self._take("pe_loss", stage, level)
-        if f is not None:
-            raise InjectedFault(
-                f"injected PE loss before stage {stage}@L{level}")
+    def pe_loss_before(self, stage: str, level: int) -> FaultSpec | None:
+        """The ``pe_loss`` that matches, if any: the stage loop raises
+        :class:`InjectedFault` for it before the stage runs (on every
+        rank, once the rank that owns ``spec.pe`` has lost it)."""
+        return self._take("pe_loss", stage, level)
 
     def overflow_after(self, stage: str, level: int) -> str | None:
         """The capacity family to treat as fatally overflowed, if any."""

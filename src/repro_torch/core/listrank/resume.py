@@ -30,11 +30,20 @@ What the explicit boundary state buys besides level resume:
   continues from the boundary. Checkpoints hold *global* (PE-major)
   arrays plus a manifest meta in the JAX package's format, so a
   checkpoint written by either package resumes in the other, on any
-  device, bit for bit.
+  device, bit for bit. Under the ``torch.distributed`` transport the
+  boundary is gathered to rank 0 (one uncounted gather), which writes
+  it, and a restore gives every rank its own PEs' rows of the global
+  planes: the checkpoints are the virtual transport's, byte for byte, so
+  either transport resumes the other's.
 - **deterministic fault injection** (:mod:`.faults`): PE loss,
   corrupted state planes, forced overflows and preemption fire at named
   stage boundaries. Validation and corruption run only when an injector
-  is given: the plain path gains no host synchronisation.
+  is given: the plain path gains no host synchronisation. Under the
+  ``torch.distributed`` transport every decision that changes the
+  schedule (a lost PE, a corrupted plane, a forced overflow, a
+  preemption, a retry) is agreed over the ranks with one uncounted
+  reduction, so every rank takes the same path; a fault located at a PE
+  (``pe_loss``, ``corrupt``) fires on the rank that owns it.
 - **the flight recorder** (:mod:`repro_torch.obs`): a ``tracer`` gets one
   ``stage`` span per schedule slot with one ``stage-attempt`` span per
   execution, closed after the stage's device synchronisation and
@@ -395,6 +404,38 @@ def boundary_template(sched, idx: int, cfg: ListRankConfig, specs, m: int,
     return state
 
 
+def _boundary_to_write(state, plan):
+    """The checkpoint layout (:func:`global_layout`) of a boundary state
+    over every PE: on one process the state's own; under the distributed
+    transport every leaf's rows gathered in one uncounted gather (the
+    leaves' bytes side by side), laid out on rank 0 and None on the other
+    ranks, which write nothing."""
+    if plan.p_local == plan.p:
+        return global_layout(state)
+    _, leaves, rebuild = flatten(state)
+    k = plan.p_local
+    parts = [x.reshape(k, x.numel() // k).contiguous().view(torch.uint8)
+             for x in leaves]
+    whole = plan.transport.gather_pes(torch.cat(parts, dim=1))
+    if plan.transport.rank != 0:
+        return None
+    out, at = [], 0
+    for x, part in zip(leaves, parts):
+        width = part.shape[1]
+        piece = whole[:, at:at + width].contiguous().view(x.dtype)
+        out.append(piece.reshape((plan.p,) + tuple(x.shape[1:])))
+        at += width
+    return global_layout(rebuild(out))
+
+
+def _rank_rows(state, plan):
+    """A restored (p, ...) boundary state's rows of this rank's PEs, on
+    the plan's device."""
+    _, leaves, rebuild = flatten(state)
+    return rebuild([plan.transport.local_rows(x).to(plan.device)
+                    for x in leaves])
+
+
 def global_layout(state):
     """The checkpoint layout of a boundary state (or template): every
     (p, cap) plane as one PE-major (p * cap,) array, as the JAX package
@@ -415,6 +456,19 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.ascontiguousarray(x)
+
+
+def _whole_instance(succ_d, rank_d, plan):
+    """(succ, rank) of every PE, (p, m): the rank's blocks gathered in
+    one uncounted gather under the distributed transport (both planes
+    side by side as int32 words), the blocks themselves on one
+    process."""
+    if plan.p_local == plan.p:
+        return succ_d, rank_d
+    m = succ_d.shape[1]
+    both = plan.transport.gather_pes(torch.cat(
+        [succ_d, rank_d.view(torch.int32)], dim=1))
+    return both[:, :m], both[:, m:].contiguous().view(rank_d.dtype)
 
 
 def solve_fingerprint(succ, rank, n: int, p: int, seed: int,
@@ -466,14 +520,27 @@ def validate_state(state, n: int, plan=None) -> None:
                 f"{k} (n={n})")
 
 
+def _local_row(plan, pe: int) -> int | None:
+    """The row of global PE ``pe`` (mod p) on this process, or None when
+    another rank holds it. ``plan``: a ``MeshPlan``, or any object with
+    ``p`` for p PEs all on this process."""
+    pes = getattr(plan, "local_pes", range(max(plan.p, 1)))
+    pe %= max(plan.p, 1)
+    return pe - pes.start if pe in pes else None
+
+
 def _apply_corruption(state, spec: faults_lib.FaultSpec, plan):
     """Scribble the corrupt sentinel over PE ``spec.pe``'s row of the
-    bottom store's ``spec.plane`` — a lost/garbled mailbox plane. Writes
+    bottom store's ``spec.plane`` — a lost/garbled mailbox plane — on the
+    process that holds that PE (the state unchanged elsewhere). Writes
     into a copy: the stage's output shares tensors with the committed
     boundary, which a recovery re-runs from."""
+    row = _local_row(plan, spec.pe)
+    if row is None:
+        return state
     st = state["stores"][0]
     leaf = getattr(st, spec.plane).clone()
-    leaf[spec.pe % max(plan.p, 1)] = faults_lib.CORRUPT_SENTINEL
+    leaf[row] = faults_lib.CORRUPT_SENTINEL
     out = dict(state)
     out["stores"] = (st.replace(**{spec.plane: leaf}),) + state["stores"][1:]
     return out
@@ -545,12 +612,7 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
     headroom report.
     """
     p = plan.p
-    if plan.p_local != p and (supervisor is not None or inject is not None):
-        raise NotImplementedError(
-            "supervisor= and inject= run on the virtual-PE transport only: "
-            "checkpoints of per-rank shards under the torch.distributed "
-            "transport are a later slice (ROADMAP queue 1: checkpoints of "
-            "per-rank shards under the distributed transport)")
+    ranks = plan.p_local != p   # the PEs live on several ranks
     wdt = rank_d.dtype
     sched = schedule_for(cfg)
     n_levels = cfg.srs_rounds + 1
@@ -559,6 +621,10 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
     if injector is not None and not isinstance(injector,
                                                faults_lib.FaultInjector):
         injector = faults_lib.FaultInjector(injector)
+    if ranks and supervisor is not None and injector is None:
+        # every supervised rank takes the same agreement steps, whether
+        # or not it was given faults (a preemption on one rank only)
+        injector = faults_lib.FaultInjector(())
 
     level_scales = tuner.normalize_level_scales(
         initial_scales if initial_scales is not None
@@ -573,9 +639,11 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
     crashes = 0
     if supervisor is not None:
         supervisor.tracer = tr
+        supervisor.bind(plan.transport)
     # the fingerprint reads the instance back to the host: only a
     # supervised solve, which checkpoints, pays for it
-    fp = (solve_fingerprint(succ_d, rank_d, n, p, seed, cfg)
+    fp = (solve_fingerprint(*_whole_instance(succ_d, rank_d, plan), n, p,
+                            seed, cfg)
           if supervisor is not None else None)
 
     # one stage span per schedule slot stays open across its overflow
@@ -615,8 +683,12 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
         specs = build_level_specs(level_scales)
         like = boundary_template(sched, meta["idx"], cfg, specs, m, p,
                                  getattr(torch, meta["weight_dtype"]))
-        flat, _ = supervisor.restore(global_layout(like), plan.device)
-        state = per_pe_layout(flat, like)
+        if ranks:  # every rank reads the step, keeps its PEs' rows
+            flat, _ = supervisor.restore(global_layout(like), "cpu")
+            state = _rank_rows(per_pe_layout(flat, like), plan)
+        else:
+            flat, _ = supervisor.restore(global_layout(like), plan.device)
+            state = per_pe_layout(flat, like)
         supervisor.stats["resumed_from"] = int(meta["idx"])
         return state, int(meta["idx"]), _fatal_totals(state["stats"], plan)
 
@@ -628,10 +700,11 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
 
     while idx < len(sched):
         stage = sched[idx]
-        if supervisor is not None and supervisor.preempted:
+        if supervisor is not None and supervisor.preempt_agreed():
             if state is not None:
-                supervisor.boundary(idx, global_layout(state),
-                                    make_meta(idx), blocking=True)
+                supervisor.boundary(
+                    idx, lambda: _boundary_to_write(state, plan),
+                    make_meta(idx), blocking=True)
             supervisor.stats["preempted"] += 1
             raise Preempted(
                 f"preempted at stage boundary {idx}/{len(sched)}")
@@ -652,7 +725,13 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
             plan.transport.clear()
         try:
             if injector is not None:
-                injector.crash_before(stage.kind, stage.level)
+                lost = injector.pe_loss_before(stage.kind, stage.level)
+                here = lost is not None and _local_row(plan, lost.pe) \
+                    is not None
+                if plan.transport.agree([int(here)])[0]:
+                    raise faults_lib.InjectedFault(
+                        f"injected PE loss before stage "
+                        f"{stage.kind}@L{stage.level}")
             _sync(plan.device)
             t0 = time.perf_counter()
             out = _run_stage(stage, state, succ_d, rank_d, perm_fn,
@@ -698,8 +777,12 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
             att.annotate(**attempt_prediction(plan, cfg.machine))
         fatal = _fatal_totals(fatal_src, plan)
         delta = {k: fatal[k] - prev_fatal[k] for k in FATAL_KEYS}
-        fam = (injector.overflow_after(stage.kind, stage.level)
-               if injector is not None else None)
+        fam = None
+        if injector is not None:
+            fired = injector.overflow_after(stage.kind, stage.level)
+            agreed = plan.transport.agree(
+                [int(fired == f) for f in FAMILY_STAT])
+            fam = next((f for f, a in zip(FAMILY_STAT, agreed) if a), None)
         if fam is not None:
             injected_log.append(f"overflow:{fam}:{stage.label}")
             tr.instant(f"overflow:{fam}:{stage.label}", cat="fault",
@@ -779,9 +862,10 @@ def run_staged(succ_d, rank_d, *, plan, cfg: ListRankConfig, m: int, n: int,
         idx += 1
         if supervisor is not None:
             supervisor.note_stage_time(dt)
-            supervisor.boundary(idx, global_layout(state), make_meta(idx))
-        if injector is not None and injector.preempt_after(stage.kind,
-                                                           stage.level):
+            supervisor.boundary(idx, lambda: _boundary_to_write(state, plan),
+                                make_meta(idx))
+        if injector is not None and plan.transport.agree([int(
+                injector.preempt_after(stage.kind, stage.level))])[0]:
             injected_log.append(f"preempt:{stage.label}")
             tr.instant(f"preempt:{stage.label}", cat="fault",
                        stage=stage.label)

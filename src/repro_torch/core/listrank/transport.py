@@ -44,12 +44,17 @@ collective is one ``torch.distributed`` call:
   axis set), then the virtual transport's sum in PE order; none when
   those PEs all live on the rank (one card: a sum by index).
 
-Both transports also carry two *uncounted* host reads, which are not
+Both transports also carry *uncounted* host reads, which are not
 collectives of the algorithm (the reference reads a global array on the
 host, which is no collective in its program): :meth:`gather_pes` (every
-PE's rows on every rank: outputs, telemetry records) and
-:meth:`rank_sum` (a host-read total equal on every rank, so that every
-rank takes the same branch). For training over the ranks,
+PE's rows on every rank: outputs, telemetry records, a checkpoint's
+boundary state), :meth:`rank_sum` (a host-read total equal on every
+rank), :meth:`agree` (small integers summed over the ranks, read on the
+host: the flags every rank acts on, so that every rank takes the same
+branch) and :meth:`from_rank0` (rank 0's small integer on every rank,
+and a barrier: the step to restore, a retry decision). :meth:`local_rows` is no collective: the
+rank's PEs' rows of a whole (p, ...) tensor, as a restored checkpoint
+holds them. For training over the ranks,
 :meth:`gather_pes` passes gradients (a rank's rows of the cotangent),
 and :meth:`replicated` marks an input that every rank holds whole: its
 backward sums the cotangent over the ranks (uncounted as well).
@@ -270,6 +275,9 @@ class VirtualTransport:
     #: every PE is local: the leading axis of every tensor has size p
     p_local = p
     first_pe = 0
+    #: one process: rank 0 of a world of one
+    world = 1
+    rank = 0
 
     def axis_index(self) -> torch.Tensor:
         """(p,) int32: every PE's own flat id."""
@@ -322,6 +330,20 @@ class VirtualTransport:
 
     def rank_sum(self, x: torch.Tensor) -> torch.Tensor:
         """A host-read total over the ranks: ``x`` itself (uncounted)."""
+        return x
+
+    def agree(self, flags) -> list[int]:
+        """``flags`` (ints) summed over the ranks: ``flags`` itself (one
+        process)."""
+        return [int(f) for f in flags]
+
+    def from_rank0(self, value: int) -> int:
+        """Rank 0's ``value``: ``value`` itself (one process)."""
+        return int(value)
+
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of this process's PEs of a whole (p, ...) tensor:
+        ``x`` itself."""
         return x
 
 
@@ -559,6 +581,27 @@ class DistTransport:
         dist.all_reduce(tot, group=self.group)
         return tot
 
+    def agree(self, flags) -> list[int]:
+        """``flags`` (ints) summed over the ranks, read on the host: one
+        uncounted all_reduce, none on one rank. Every rank calls it at
+        the same point and acts on the same sums."""
+        if self.world == 1:
+            return [int(f) for f in flags]
+        return self.rank_sum(torch.tensor(
+            [int(f) for f in flags], dtype=torch.int64,
+            device=self.device)).tolist()
+
+    def from_rank0(self, value: int) -> int:
+        """Rank 0's ``value`` on every rank (:meth:`agree` of it and
+        zeros). Over several ranks it is a barrier as well, since no
+        rank's sum is complete before every rank has called it."""
+        return self.agree([value if self.rank == 0 else 0])[0]
+
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's PEs' rows ``[first_pe, first_pe + p_local)`` of a
+        whole (p, ...) tensor (no collective)."""
+        return x[self.first_pe:self.first_pe + self.p_local]
+
 
 class _PsumAxes(torch.autograd.Function):
     """:meth:`DistTransport.psum_axes` with its backward: the cotangent
@@ -613,7 +656,8 @@ class CountingTransport:
     distributed one), so a stage's bytes per PE are the same on both.
     Both read tensor metadata only: no device work, no synchronisation.
     ``resume.run_staged`` clears them per stage. The uncounted host
-    reads (``gather_pes``, ``rank_sum``) pass through."""
+    reads (``gather_pes``, ``rank_sum``, ``agree``, ``from_rank0``) and
+    ``local_rows`` pass through."""
 
     def __init__(self, inner):
         self.inner = inner
@@ -624,6 +668,8 @@ class CountingTransport:
     p_local = property(lambda self: self.inner.p_local)
     first_pe = property(lambda self: self.inner.first_pe)
     device = property(lambda self: self.inner.device)
+    world = property(lambda self: self.inner.world)
+    rank = property(lambda self: self.inner.rank)
 
     def _count(self, prim: str, x) -> None:
         self.counts[prim] += 1
@@ -667,3 +713,12 @@ class CountingTransport:
 
     def rank_sum(self, x):
         return self.inner.rank_sum(x)
+
+    def agree(self, flags):
+        return self.inner.agree(flags)
+
+    def from_rank0(self, value):
+        return self.inner.from_rank0(value)
+
+    def local_rows(self, x):
+        return self.inner.local_rows(x)

@@ -13,6 +13,11 @@ holds a checkpoint resumes from its latest one; a failed step restores
 the latest checkpoint and replays (the batches regenerate from the
 step); SIGTERM/SIGINT write a checkpoint and stop. Without
 ``--ckpt-dir`` nothing is written and a failed step replays from step 0.
+Under a process group every rank runs the loop on the same state, and
+the ``Supervisor`` is the group's: rank 0 alone writes into
+``--ckpt-dir`` (a directory every rank sees), every rank restarts from
+rank 0's latest step, and a preemption or a failed step on one rank is
+one on every rank.
 
 Every step runs under the mesh context (``runtime.context.use_mesh``),
 as the reference's launcher runs it: the mesh of ``launch/mesh.py``'s
@@ -40,7 +45,8 @@ import time
 import torch
 
 from repro_torch import configs
-from repro_torch.core.listrank.transport import sim_mesh
+from repro_torch.core.listrank.transport import (DistMesh, DistTransport,
+                                                 sim_mesh)
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_lib
@@ -137,11 +143,15 @@ def main(argv=None):
         use_kernels=args.use_kernels)
     dcfg = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch)
+    mesh = host_mesh()
+    ranks = (DistTransport.for_mesh(mesh, mesh.axis_names, device)
+             if isinstance(mesh, DistMesh) else None)
     sup = Supervisor(SupervisorConfig(ckpt_dir=args.ckpt_dir,
                                       ckpt_every=args.ckpt_every),
                      lambda: initial_state(cfg, tcfg, device),
-                     lambda: state_like(cfg, tcfg), device=device)
-    one_step = step_fn(cfg, dcfg, tcfg, device, mesh=host_mesh())
+                     lambda: state_like(cfg, tcfg), device=device,
+                     ranks=ranks)
+    one_step = step_fn(cfg, dcfg, tcfg, device, mesh=mesh)
 
     records: dict[int, dict] = {}
 

@@ -18,6 +18,8 @@ plain tensor code and their expert products batched matrix products).
 """
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
 from typing import NamedTuple
 
 import math
@@ -243,8 +245,81 @@ def moe_ffn(p, x, cfg):
     otherwise (serving, single-device tests, smoke configs)."""
     ctx = runtime_context.current()
     if ctx is not None and cfg.num_experts % ctx.mesh.shape[ctx.ep_axis] == 0:
-        return moe_ffn_ep(p, x, cfg, ctx)
+        return moe_out(lambda: moe_ffn_ep(p, x, cfg, ctx))
     return _moe_ffn_dense(p, x, cfg)
+
+
+#: the remat policy's hold on the expert-parallel MoE (:class:`MoeKeep`),
+#: set by :func:`moe_policy`
+_MOE_KEEP: ContextVar["MoeKeep | None"] = ContextVar("repro_torch_moe_keep",
+                                                     default=None)
+
+
+@contextlib.contextmanager
+def moe_policy(keep: "MoeKeep | None"):
+    """Run the expert-parallel MoE calls inside under ``keep`` (a remat'd
+    layer's :class:`MoeKeep`, the same one in its forward and its
+    recompute), or under none."""
+    tok = _MOE_KEEP.set(keep)
+    try:
+        yield
+    finally:
+        _MOE_KEEP.reset(tok)
+
+
+def moe_out(call):
+    """``call()``, the expert-parallel MoE's ``(y, aux)``, under the remat
+    policy of the layer that runs it: the port's counterpart of the
+    reference's ``checkpoint_name(y, "moe_out")``, which its ``save_moe``
+    and ``offload_moe`` policies keep so that the backward does not re-run
+    the dispatch's all_to_alls. Outside a layer with such a policy,
+    ``call()``."""
+    keep = _MOE_KEEP.get()
+    return call() if keep is None else keep(call)
+
+
+class MoeKeep:
+    """What a layer remat'd under ``save_moe`` (``offload``: under
+    ``offload_moe``) keeps of its expert-parallel MoE call.
+
+    In the layer's forward the call runs with its own saved tensors kept
+    (in pinned host memory when ``offload``), outside the layer's
+    recompute, and its output is kept too; in the recompute the kept
+    output stands in for the call, so the route runs once a step and its
+    backward is the forward's own graph. The reference keeps the output
+    alone, since its route passes no gradient (``ROADMAP.md``, queue 3);
+    the port's route passes one, and the backward through the MoE needs
+    the MoE's residuals."""
+
+    def __init__(self, offload: bool):
+        self.offload = offload
+        self.kept = None
+
+    @classmethod
+    def for_policy(cls, policy: str) -> "MoeKeep | None":
+        """A fresh hold for one remat'd layer under ``policy``
+        (``cfg.remat_policy``); None under ``"nothing"``."""
+        if policy in ("save_moe", "offload_moe"):
+            return cls(offload=policy == "offload_moe")
+        return None
+
+    def __call__(self, call):
+        if self.kept is not None:  # the recompute
+            y, aux, grad = self.kept
+            dev = aux.device
+            return y.to(dev, non_blocking=True).requires_grad_(grad), aux
+        hooks = (torch.autograd.graph.save_on_cpu(pin_memory=True)
+                 if self.offload else
+                 torch.autograd.graph.saved_tensors_hooks(lambda t: t,
+                                                          lambda t: t))
+        with hooks:
+            y, aux = call()
+        out = y.detach()
+        if self.offload and out.device.type == "cuda":
+            out = torch.empty(out.shape, dtype=out.dtype,
+                              pin_memory=True).copy_(out, non_blocking=True)
+        self.kept = (out, aux.detach(), y.requires_grad)
+        return y, aux
 
 
 def _moe_ffn_dense(p, x, cfg):

@@ -16,9 +16,17 @@ with layers stacked on axis 0. Layers run as a Python loop in place of
 ``repro_torch.train.steps``) and returns the MoE aux loss, summed over
 the layers in float32.
 
-``remat`` and ``remat_policy`` have no effect: the port has no activation
-checkpointing, and autograd keeps every layer's activations. mamba2-130m
-trains at batch 8 x 1024 tokens in bf16 on one 80 GB card without it.
+``remat`` is the reference's activation checkpointing: when it is set and
+autograd records the forward (training; never with a cache, nor when no
+input requires grad), each layer runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, so the
+backward recomputes the layer's activations from its input instead of
+keeping them. ``remat_policy`` says what a layer keeps besides its
+input: ``"nothing"`` (the default; any other name too, as in the
+reference), ``"save_moe"`` (the expert-parallel MoE's call, whose route
+then runs once a step: ``layers.MoeKeep``) or ``"offload_moe"`` (the
+same, kept in pinned host memory). A policy changes what is kept, never a
+value: the recompute gives the forward's bits.
 
 The serving cache is the JAX package's pytree with layers stacked in
 front: a ``KVCache`` (decoder, and the encdec decoder's self-attention),
@@ -36,10 +44,12 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.params import init_params, map_tree, spec
+from repro_torch.models.params import init_params, leaves, map_tree, spec
+from repro_torch.runtime import context as runtime_context
 
 VOCAB_PAD = 512
 
@@ -241,20 +251,46 @@ def map_cache(fn, cache):
     return type(cache)(*map(fn, cache))
 
 
+def _remat(block, x, policy: str):
+    """``block(x)`` checkpointed: its activations recomputed in the
+    backward, under the mesh context of the forward, with ``policy``'s
+    :class:`~repro_torch.models.layers.MoeKeep` for the expert-parallel
+    MoE."""
+    keep = L.MoeKeep.for_policy(policy)
+    ctx = runtime_context.current()
+
+    def run(x):
+        with L.moe_policy(keep), runtime_context.entered(ctx):
+            return block(x)
+
+    # the forward draws no random numbers: no RNG state to replay
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 def _run_stack(stacked, x, cfg, *, positions, local_flags, caches,
                cache_pos, causal=True, enc_out=None, valid_len=None):
     """The layers in order over stacked params (a loop in place of the
-    JAX ``lax.scan``). ``caches``: the stacked cache of :func:`init_cache`,
-    updated in place layer by layer, or None. Returns (x, aux, caches):
-    aux the layers' MoE aux losses summed in float32 in layer order."""
+    JAX ``lax.scan``), each remat'd (:func:`_remat`) when ``cfg.remat`` is
+    set and autograd records the forward (grad mode on, and the input or
+    a layer parameter requires grad), and there is no cache.
+    ``caches``: the stacked cache of :func:`init_cache`, updated in place
+    layer by layer, or None. Returns (x, aux, caches): aux the layers' MoE
+    aux losses summed in float32 in layer order."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = (cfg.remat and caches is None and torch.is_grad_enabled()
+             and (x.requires_grad or any(a.requires_grad
+                                         for a in leaves(stacked))))
     for i, is_local in enumerate(local_flags):
         bp = map_tree(lambda a: a[i], stacked)
         cache = None if caches is None else map_cache(lambda a: a[i], caches)
-        x, aux_l = _block_apply(bp, x, cfg, positions=positions,
+
+        def block(x, bp=bp, is_local=is_local, cache=cache):
+            return _block_apply(bp, x, cfg, positions=positions,
                                 causal=causal, is_local=is_local, cache=cache,
                                 cache_pos=cache_pos, enc_out=enc_out,
                                 valid_len=valid_len)
+        x, aux_l = _remat(block, x, cfg.remat_policy) if remat else block(x)
         if aux_l is not None:
             aux = aux + aux_l
     return x, aux, caches

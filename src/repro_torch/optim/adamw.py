@@ -1,13 +1,13 @@
 """AdamW over the port's parameter trees, computing the JAX package's
 update (``repro.optim.adamw``) in its state tree: ``step``, the moments
-``m`` and ``v`` (float32 or bfloat16), and an fp32 ``master`` copy when
-``master_weights`` is set. Global-norm clipping, bias correction and
-decoupled weight decay on every leaf.
+``m`` and ``v`` (float32, bfloat16, or int8 blockwise quantized:
+``runtime.compression.QInt8``, requantized after every update), and an
+fp32 ``master`` copy when ``master_weights`` is set. Global-norm
+clipping, bias correction and decoupled weight decay on every leaf.
 
 Plain functions, not ``torch.optim.AdamW``: the update and the state
-layout are the reference's. Left out: int8 moments (``state_dtype="int8"``
-needs ``runtime/compression.QInt8``) and ``state_shardings`` (ZeRO-1 over
-a mesh; the port trains on one card).
+layout are the reference's. Left out: ``state_shardings`` (ZeRO-1 over a
+TPU mesh), which belongs with the shape-only dry run.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from repro_torch.models.params import leaves, map_tree
+from repro_torch.runtime.compression import QInt8
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -28,31 +29,37 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
-    #: moments dtype: float32 | bfloat16 (int8 is not ported)
+    #: moments dtype: float32 | bfloat16 | int8 (blockwise quantized)
     state_dtype: str = "float32"
     #: keep an fp32 master copy when params are low-precision
     master_weights: bool = True
 
 
-def _moment_dtype(cfg: AdamWConfig) -> torch.dtype:
+def _zeros_moment(p, cfg: AdamWConfig):
     if cfg.state_dtype == "int8":
-        raise NotImplementedError(
-            "state_dtype='int8' needs runtime/compression.QInt8, a later "
-            "slice of the port")
+        return QInt8.zeros(p.shape, device=p.device)
     if cfg.state_dtype not in _STATE_DTYPES:
         raise ValueError(f"unknown state_dtype {cfg.state_dtype!r}")
-    return _STATE_DTYPES[cfg.state_dtype]
+    return torch.zeros(p.shape, dtype=_STATE_DTYPES[cfg.state_dtype],
+                       device=p.device)
+
+
+def _load(x):
+    return x.dequantize() if isinstance(x, QInt8) else x.float()
+
+
+def _store(x, like):
+    if isinstance(like, QInt8):
+        return QInt8.quantize(x)
+    return x.to(like.dtype)
 
 
 def init(params, cfg: AdamWConfig):
-    dt = _moment_dtype(cfg)
     device = leaves(params)[0].device
     state = {
         "step": torch.zeros((), dtype=torch.int32, device=device),
-        "m": map_tree(lambda p: torch.zeros(p.shape, dtype=dt,
-                                            device=p.device), params),
-        "v": map_tree(lambda p: torch.zeros(p.shape, dtype=dt,
-                                            device=p.device), params),
+        "m": map_tree(lambda p: _zeros_moment(p, cfg), params),
+        "v": map_tree(lambda p: _zeros_moment(p, cfg), params),
     }
     if cfg.master_weights:
         state["master"] = map_tree(
@@ -79,14 +86,14 @@ def update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
 
     def upd(g, m, v, p, master):
         g = g.float() * clip
-        mf = m.float() * cfg.b1 + (1 - cfg.b1) * g
-        vf = v.float() * cfg.b2 + (1 - cfg.b2) * g * g
+        mf = _load(m) * cfg.b1 + (1 - cfg.b1) * g
+        vf = _load(v) * cfg.b2 + (1 - cfg.b2) * g * g
         mhat = mf / bc1
         vhat = vf / bc2
         base = master if master is not None else p.float()
         new = base - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
                            + cfg.weight_decay * base)
-        return (new.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype),
+        return (new.to(p.dtype), _store(mf, m), _store(vf, v),
                 new if master is not None else None)
 
     masters = state.get("master")

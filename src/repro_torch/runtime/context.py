@@ -87,3 +87,15 @@ def use_mesh(mesh, dp_axes=None, ep_axis="data", tp_axis="model"):
         yield ctx
     finally:
         _CTX.reset(tok)
+
+
+@contextlib.contextmanager
+def entered(ctx: MeshCtx | None):
+    """Make ``ctx`` (a context :func:`use_mesh` yielded, or None) the
+    current one for the block: a layer's recompute, which autograd may run
+    on another thread, runs under the context its forward ran under."""
+    tok = _CTX.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _CTX.reset(tok)

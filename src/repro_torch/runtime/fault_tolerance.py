@@ -17,6 +17,14 @@ The port's copy of the JAX package's ``repro.runtime.fault_tolerance``.
 
 ``SolveSupervisor`` does the same for the list-ranking solver's staged
 loop (``repro_torch.core.listrank.resume``).
+
+Under a ``torch.distributed`` process group both supervisors are the
+group's (``Supervisor(..., ranks=)``, ``SolveSupervisor.bind``): rank 0
+writes the checkpoints into a directory every rank sees, the step to
+restart from is rank 0's, and every decision that changes what the ranks
+run next (a preemption, a failed step, a retry) is agreed over the ranks
+with one uncounted reduction, so no rank is left waiting in a collective
+that the others skipped.
 """
 from __future__ import annotations
 
@@ -58,6 +66,12 @@ class Preempted(Exception):
     pass
 
 
+def _any_rank(ranks, flag: bool) -> bool:
+    """``flag`` or'd over the ranks of ``ranks`` (its transport's
+    ``agree``), or ``flag`` itself for one process."""
+    return bool(flag) if ranks is None else ranks.agree([int(flag)])[0] > 0
+
+
 def _install(handler) -> dict:
     """Point SIGTERM and SIGINT at ``handler``; returns the handlers
     they had, for ``signal.signal`` to put back."""
@@ -70,14 +84,19 @@ def _install(handler) -> dict:
 
 class Supervisor:
     def __init__(self, cfg: SupervisorConfig, init_state: Callable[[], tuple],
-                 restore_like: Callable[[], tuple], device=None):
+                 restore_like: Callable[[], tuple], device=None, ranks=None):
         """init_state() -> (state, step0) builds fresh state;
         restore_like() -> a template tree (tensors, ``meta`` tensors
         serve) of the checkpoint layout; restored leaves land on
-        ``device`` (the template's device when None)."""
+        ``device`` (the template's device when None). ``ranks``: the
+        transport of a process group whose ranks each run this loop on the
+        same state (the launcher's replicated training): rank 0 writes,
+        every rank restarts from rank 0's latest step, and a preemption or
+        a failed step on any rank is one on every rank."""
         self.cfg = cfg
+        self.ranks = ranks
         self.ckpt = (Checkpointer(cfg.ckpt_dir, keep=cfg.keep,
-                                  async_save=cfg.async_save)
+                                  async_save=cfg.async_save, ranks=ranks)
                      if cfg.ckpt_dir is not None else None)
         self._init_state = init_state
         self._restore_like = restore_like
@@ -126,13 +145,20 @@ class Supervisor:
 
     def run(self, step_fn: Callable, num_steps: int, on_metrics=None):
         """Run ``step_fn(state, step) -> (state, metrics)`` to
-        ``num_steps`` with checkpoint/restart supervision."""
+        ``num_steps`` with checkpoint/restart supervision. Under a process
+        group the preemption flag and each step's outcome are agreed over
+        the ranks before they act on them (two uncounted reductions a
+        step), and a checkpoint's, which every rank saves together, once
+        more."""
         restarts = 0
         state, step = self._start_state()
         while step < num_steps:
+            if _any_rank(self.ranks, self._preempted):
+                self._save(step, state, blocking=True)
+                self.stats["preempted"] = True
+                return state, step
+            err = None
             try:
-                if self._preempted:
-                    raise Preempted()
                 if self.inject_failure_at is not None \
                         and step == self.inject_failure_at:
                     self.inject_failure_at = None
@@ -143,17 +169,24 @@ class Supervisor:
                 step += 1
                 if on_metrics:
                     on_metrics(step, metrics)
-                if step % self.cfg.ckpt_every == 0 or step == num_steps:
+            except Exception as e:
+                err = e
+            failed = _any_rank(self.ranks, err is not None)
+            # a save is a collective under a process group: every rank
+            # makes it, once the step's outcome is agreed
+            if self.ckpt is not None and not failed and (
+                    step % self.cfg.ckpt_every == 0 or step == num_steps):
+                try:
                     self._save(step, state)
-            except Preempted:
-                self._save(step, state, blocking=True)
-                self.stats["preempted"] = True
-                return state, step
-            except Exception:
+                except Exception as e:
+                    err = e
+                failed = _any_rank(self.ranks, err is not None)
+            if failed:
                 restarts += 1
                 self.stats["restarts"] = restarts
                 if restarts > self.cfg.max_restarts:
-                    raise
+                    raise err if err is not None else RuntimeError(
+                        "a step failed on another rank")
                 if self._latest() is None:
                     state, step = self._init_state()
                 else:
@@ -187,6 +220,13 @@ class SolveSupervisor:
     scales, attempt/escalation path, instance fingerprint) in the JAX
     package's format, so a solve checkpointed by either package resumes
     in the other, on any device.
+
+    Under the ``torch.distributed`` transport every rank builds its own
+    supervisor on the same ``ckpt_dir``, one that every rank sees, and the
+    solve :meth:`bind` s it to its transport: rank 0 writes the gathered
+    boundary, :meth:`latest_meta` is of rank 0's latest step,
+    :meth:`should_retry` is rank 0's answer, and :meth:`preempt_agreed`
+    is true on every rank when any rank's flag is set.
     """
 
     def __init__(self, cfg: SupervisorConfig | None = None):
@@ -204,6 +244,21 @@ class SolveSupervisor:
         #: flight-recorder hook: the solve driver installs its tracer
         #: here so checkpoint save/restore appear in the span tree.
         self.tracer = NULL_TRACER
+        #: the transport of the process group the solve runs over (None:
+        #: one process); set by :meth:`bind`
+        self.ranks = None
+
+    def bind(self, transport) -> None:
+        """Supervise a solve whose PEs live on ``transport``'s ranks (the
+        stage loop calls this). Over more than one rank the checkpoint
+        directory must be given, and be the same one on every rank: a
+        temporary one is each rank's own."""
+        ranks = transport if transport.world > 1 else None
+        if ranks is not None and self.cfg.ckpt_dir is None:
+            raise ValueError("a SolveSupervisor over several ranks needs a "
+                             "ckpt_dir that every rank sees")
+        self.ranks = ranks
+        self.ckpt.ranks = ranks
 
     # ---------------------------------------------------------- signals
     def install_signal_handlers(self) -> dict:
@@ -221,23 +276,36 @@ class SolveSupervisor:
 
     @property
     def preempted(self) -> bool:
+        """This process's preemption flag."""
+        return self._preempted
+
+    def preempt_agreed(self) -> bool:
+        """Whether any rank's flag is set (every rank calls it, at the
+        same stage boundary); sets this rank's flag when so."""
+        self._preempted = _any_rank(self.ranks, self._preempted)
         return self._preempted
 
     # ------------------------------------------------------ checkpoints
     def boundary(self, idx: int, state, meta: dict, blocking: bool = False):
         """Record a completed stage boundary; checkpoints on the
-        ``ckpt_every`` cadence (or unconditionally when blocking)."""
+        ``ckpt_every`` cadence (or unconditionally when blocking).
+        ``state``: the checkpoint tree, or a function that makes it,
+        called only when a checkpoint is due (on every rank: under a
+        process group it gathers the boundary to rank 0)."""
         if blocking or idx % max(self.cfg.ckpt_every, 1) == 0:
             with self.tracer.span(f"ckpt-save@{idx}", cat="checkpoint",
                                   idx=idx, blocking=blocking):
-                self.ckpt.save(idx, state, blocking=blocking, meta=meta)
+                tree = state() if callable(state) else state
+                self.ckpt.save(idx, tree, blocking=blocking, meta=meta)
             self.stats["checkpoints"] += 1
 
     def latest_meta(self) -> dict | None:
-        """The manifest ``meta`` of the latest checkpoint, or None."""
-        if self.ckpt.latest_step() is None:
+        """The manifest ``meta`` of the latest checkpoint (rank 0's), or
+        None."""
+        step = self.ckpt.latest_step()
+        if step is None:
             return None
-        return self.ckpt.manifest().get("meta")
+        return self.ckpt.manifest(step).get("meta")
 
     def restore(self, like, device=None):
         with self.tracer.span("ckpt-restore", cat="checkpoint") as sp:
@@ -258,4 +326,7 @@ class SolveSupervisor:
         budget is exhausted."""
         self._restarts += 1
         self.stats["restarts"] = self._restarts
-        return self._restarts <= self.cfg.max_restarts
+        ok = self._restarts <= self.cfg.max_restarts
+        if self.ranks is not None:
+            ok = bool(self.ranks.from_rank0(int(ok)))
+        return ok

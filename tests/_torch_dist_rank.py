@@ -171,9 +171,10 @@ def _solve(device, succ, rank, shape, axis_names, cfg, table, kw):
     return out
 
 
-def _refusals(device, shape, axis_names):
-    """What a DistMesh refuses (supervision and fault injection), and
-    the meshes ``launch/mesh.py`` makes over the group."""
+def _recovery_and_meshes(device, shape, axis_names, ckpt_dir):
+    """A supervised solve and an injected one over the process group
+    (whole outputs; the stage logs), and the meshes ``launch/mesh.py``
+    makes over the group."""
     from repro_torch.core.listrank import (FaultSpec, instances,
                                            rank_list_with_stats)
     from repro_torch.runtime.fault_tolerance import (SolveSupervisor,
@@ -181,16 +182,13 @@ def _refusals(device, shape, axis_names):
     succ, rank = instances.gen_list(64, gamma=1.0, seed=1)
     mesh = _mesh(shape, axis_names)
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for what, kw in (
-                ("supervisor", {"supervisor": SolveSupervisor(
-                    SolveSupervisorConfig(ckpt_dir=tmp))}),
-                ("inject", {"inject": FaultSpec("pe_loss", stage="prep")})):
-            try:
-                rank_list_with_stats(succ, rank, mesh, device=device, **kw)
-                out[what] = None
-            except NotImplementedError as exc:
-                out[what] = str(exc)
+    for what, kw in (
+            ("supervisor", {"supervisor": SolveSupervisor(
+                SolveSupervisorConfig(ckpt_dir=ckpt_dir))}),
+            ("inject", {"inject": FaultSpec("pe_loss", stage="prep")})):
+        s, r, st = rank_list_with_stats(succ, rank, mesh, device=device,
+                                        **kw)
+        out[what] = (s.cpu().numpy(), r.cpu().numpy(), st["stage_log"])
     from repro_torch.launch import mesh as mesh_lib
     out["meshes"] = {
         name: ((m.axis_names, m.axis_sizes), m.pes_per_rank)
@@ -285,6 +283,121 @@ def _moe_ep(device, arch, ffn, x, shape, axis_names, capacity_factor):
             "counts": counts}
 
 
-JOBS = {"ready": _ready, "solve": _solve, "refusals": _refusals,
+def _supervised(device, succ, rank, shape, axis_names, cfg, table, ckpt_dir,
+                faults, kw):
+    """``rank_list_with_stats`` under a ``SolveSupervisor`` on
+    ``ckpt_dir`` (the same directory on every rank), with this rank's
+    ``faults`` (``faults[rank]``: a list of FaultSpecs, or None): the
+    whole outputs and the stats, or, when the solve was preempted, the
+    step it stopped at and the supervisor's stats."""
+    import torch.distributed as dist
+    from repro_torch.core.listrank import rank_list_with_stats
+    from repro_torch.runtime.fault_tolerance import (Preempted,
+                                                     SolveSupervisor,
+                                                     SolveSupervisorConfig)
+    sup = SolveSupervisor(SolveSupervisorConfig(ckpt_dir=ckpt_dir))
+    mine = faults[dist.get_rank()]
+    try:
+        s, r, st = rank_list_with_stats(
+            succ, rank, _mesh(shape, axis_names), cfg=cfg, device=device,
+            perm_fn=_perm_fn(table), supervisor=sup, inject=mine, **kw)
+    except Preempted:
+        return {"preempted": sup.ckpt.latest_step(),
+                "recovery": dict(sup.stats)}
+    return {"succ": s.cpu().numpy(), "rank": r.cpu().numpy(),
+            "stats": _host_stats(st), "records": dict(sup.ckpt.records)}
+
+
+def _failed_write(device, succ, rank, shape, axis_names, cfg, table,
+                  ckpt_dir, faults, fail_call):
+    """:func:`_supervised`'s solve with rank 0's ``fail_call``-th
+    checkpoint write failing: the exception the solve raised on this rank
+    (its type name and, for a ``CheckpointWriteError``, its step)."""
+    import torch.distributed as dist
+    from repro_torch.core.listrank import rank_list_with_stats
+    from repro_torch.runtime.fault_tolerance import (SolveSupervisor,
+                                                     SolveSupervisorConfig)
+    sup = SolveSupervisor(SolveSupervisorConfig(ckpt_dir=ckpt_dir))
+    real, calls = sup.ckpt._write, []
+
+    def write(step, *args):
+        calls.append(step)
+        if len(calls) == fail_call:
+            raise OSError(f"no space left writing step {step}")
+        return real(step, *args)
+    if dist.get_rank() == 0:
+        sup.ckpt._write = write
+    try:
+        rank_list_with_stats(
+            succ, rank, _mesh(shape, axis_names), cfg=cfg, device=device,
+            perm_fn=_perm_fn(table), supervisor=sup,
+            inject=faults[dist.get_rank()])
+    except Exception as e:
+        return {"raised": type(e).__name__, "step": getattr(e, "step", None)}
+    return {"raised": None}
+
+
+def _fingerprint(device, succ, rank, shape, axis_names, cfg, seed):
+    """The solve fingerprint a supervised solve over the process group
+    computes on this rank (its blocks gathered in global order)."""
+    import numpy as np
+    from repro_torch.core.listrank import api, resume
+    mesh = _mesh(shape, axis_names)
+    plan = api.make_plan(mesh, tuple(axis_names), cfg, device, None)
+    wdt = np.float32 if rank.dtype.kind == "f" else np.int32
+    succ_d = api.local_block(plan, succ.astype(np.int32), device)
+    rank_d = api.local_block(plan, rank.astype(wdt), device)
+    return resume.solve_fingerprint(
+        *resume._whole_instance(succ_d, rank_d, plan), succ.shape[0],
+        plan.p, seed, cfg)
+
+
+def _compressed_psum(device, x, error, shape, axis_names, axes):
+    """``compression.compressed_psum`` of this rank's rows of the whole
+    (p, ...) ``x`` and ``error`` over the process group's PEs (over the
+    mesh ``axes`` only, when given): this rank's (reduced, new_error)."""
+    import torch
+    from repro_torch.core.listrank import transport as tl
+    from repro_torch.runtime import compression
+    tr = tl.DistTransport.for_mesh(_mesh(shape, axis_names), axis_names,
+                                   device)
+    rows = slice(tr.first_pe, tr.first_pe + tr.p_local)
+    red, new = compression.compressed_psum(
+        torch.from_numpy(x[rows]).to(device), tr,
+        torch.from_numpy(error[rows]).to(device), axes)
+    return red.cpu().numpy(), new.cpu().numpy()
+
+
+def _train_launcher(device, argv, fail_rank, fail_call):
+    """``launch/train.py`` with ``argv`` on every rank (under the
+    group's host mesh), ``train_step`` failing on rank ``fail_rank`` at
+    its ``fail_call``-th call (None: never): the history, the optimizer
+    step each ``train_step`` call started from, and the checkpoint
+    directories at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as train_launch
+    real = train_launch.train_steps.train_step
+    calls = []
+
+    def step(params, opt, *a, **kw):
+        calls.append(int(opt["step"]))
+        if dist.get_rank() == fail_rank and len(calls) == fail_call:
+            raise RuntimeError("a failed step on one rank")
+        return real(params, opt, *a, **kw)
+    train_launch.train_steps.train_step = step
+    try:
+        history = train_launch.main(list(argv) + ["--device", device])
+    finally:
+        train_launch.train_steps.train_step = real
+    ckpt = argv[argv.index("--ckpt-dir") + 1]
+    return {"history": history, "calls": calls,
+            "dirs": sorted(os.listdir(ckpt))}
+
+
+JOBS = {"ready": _ready, "solve": _solve,
+        "recovery_and_meshes": _recovery_and_meshes,
         "collectives": _collectives, "tree_graph": _tree_graph,
-        "moe_ep": _moe_ep}
+        "moe_ep": _moe_ep, "supervised": _supervised,
+        "failed_write": _failed_write,
+        "fingerprint": _fingerprint, "compressed_psum": _compressed_psum,
+        "train_launcher": _train_launcher}

@@ -1,9 +1,11 @@
 """The JAX package's tree and graph front doors, its supervised
-solves and its expert-parallel MoE, run in a child process for the
-port's parity tests (``tests/test_torch_treealg.py``,
-``tests/test_torch_graphalg.py``, ``tests/test_torch_faultinject.py``,
-``tests/test_torch_obs.py``, ``tests/test_torch_telemetry.py``,
-``tests/test_torch_moe_ep.py``).
+solves, its expert-parallel MoE, its int8 compression and AdamW state,
+and its remat'd gradients, run in a child process for the port's parity
+tests (``tests/test_torch_treealg.py``, ``tests/test_torch_graphalg.py``,
+``tests/test_torch_faultinject.py``, ``tests/test_torch_obs.py``,
+``tests/test_torch_telemetry.py``, ``tests/test_torch_moe_ep.py``,
+``tests/test_torch_compression.py``, ``tests/test_torch_remat.py``,
+``tests/test_torch_dist_recovery.py``).
 
 Each of these calls compiles large simshard programs, and many such
 compiles in one pytest worker have crashed XLA's CPU compiler in a later
@@ -388,11 +390,114 @@ def moe_train_step(arch, batch, mesh):
             "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
+def qint8(arrays):
+    """Per array: the reference's ``QInt8.quantize`` (q, scale), its
+    dequantization and ``quantization_error``, each jitted, as the
+    reference's callers run them."""
+    import jax
+    from repro.runtime import compression as C
+    quant = jax.jit(C.QInt8.quantize)
+    deq = jax.jit(lambda x: C.QInt8.quantize(x).dequantize())
+    err = jax.jit(C.quantization_error)
+    out = []
+    for x in arrays:
+        q = quant(x)
+        out.append({"q": np.asarray(q.q), "scale": np.asarray(q.scale),
+                    "shape": q.shape, "deq": np.asarray(deq(x)),
+                    "err": np.asarray(err(x))})
+    return out
+
+
+def compressed_psum(x, error, steps):
+    """``compressed_psum`` over the "data" axis of a shard_map on every
+    device, ``x`` and ``error`` (devices, ...) split over it, run
+    ``steps`` times with the error fed back: each call's (reduced,
+    new_error)."""
+    import functools
+    import jax
+    from jax.sharding import PartitionSpec as P
+    from repro import compat
+    from repro.runtime import compression as C
+    mesh = compat.make_mesh((len(jax.devices()),), ("data",))
+
+    @jax.jit
+    @functools.partial(compat.shard_map, mesh=mesh,
+                       in_specs=(P("data"), P("data")),
+                       out_specs=(P("data"), P("data")))
+    def step(x, err):
+        red, new = C.compressed_psum(x[0], "data", err[0])
+        return red[None], new[None]
+    out = []
+    for i in range(steps):
+        red, error = step(x * (i + 1), error)
+        out.append((np.asarray(red), np.asarray(error)))
+    return out
+
+
+def adamw_int8(vals, grads, cfg_kw, port_ckpt):
+    """The reference's AdamW with ``cfg_kw`` (int8 moments) from
+    ``adamw.init`` of the float32 params ``vals``, one jitted update per
+    entry of ``grads``: every step's params, moments (q, scale) and
+    master; the final (params, state) written by the reference's
+    Checkpointer into ``port_ckpt + "_ref"``; and the port's checkpoint at
+    ``port_ckpt`` restored by the reference's Checkpointer into the same
+    structure."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+    from repro.checkpoint import Checkpointer
+    from repro.optim import adamw
+    from repro.runtime import compression as C
+    cfg = adamw.AdamWConfig(**cfg_kw)
+    params = jax.tree.map(jnp.asarray, vals)
+    state = adamw.init(params, cfg)
+    update = jax.jit(functools.partial(adamw.update, cfg=cfg))
+
+    def host(tree):  # QInt8 leaves as {"q", "scale"}: no jax to unpickle
+        return jax.tree.map(
+            lambda x: ({"q": np.asarray(x.q), "scale": np.asarray(x.scale)}
+                       if isinstance(x, C.QInt8) else np.asarray(x)),
+            tree, is_leaf=lambda x: isinstance(x, C.QInt8))
+    steps = []
+    for g in grads:
+        params, state, _ = update(jax.tree.map(jnp.asarray, g), state,
+                                  params)
+        steps.append({"params": host(params), "state": host(state)})
+    ck = Checkpointer(port_ckpt + "_ref", async_save=False)
+    ck.save(len(grads), (params, state))
+    keys = ck.manifest()["keys"]
+    got, _ = Checkpointer(port_ckpt).restore(None, (params, state))
+    return {"steps": steps, "keys": keys, "restored": host(got)}
+
+
+def loss_grads(arch, batch, enc_embeds=None):
+    """The reference's ``loss_fn`` value and gradient in every parameter
+    (``jax.value_and_grad``, jitted; ``cfg.remat`` at its default, on) of
+    ``arch``'s SMOKE config in float32 from ``M.init(PRNGKey(0))`` on
+    ``batch``: the parameters, the loss and the gradients."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.models import model as M
+    from repro.train import steps
+    cfg = configs.get_config(arch, smoke=True).with_(dtype=jnp.float32)
+    params = jax.jit(M.init, static_argnums=1)(jax.random.PRNGKey(0), cfg)
+    b = dict(batch)
+    if enc_embeds is not None:
+        b["enc_embeds"] = enc_embeds
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: steps.loss_fn(p, b, cfg, steps.TrainConfig()),
+        has_aux=True))(params, b)
+    return {"params": jax.tree.map(np.asarray, params), "loss": float(loss),
+            "grads": jax.tree.map(np.asarray, grads)}
+
+
 JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 graph_stats, connected_components,
                                 spanning_forest, fingerprints,
                                 preempted_solve, resumed_solve,
                                 telemetry_solve, tree_telemetry,
                                 graph_telemetry, moe_layer_ep,
-                                moe_layer_dense, moe_train_step)}
+                                moe_layer_dense, moe_train_step, qint8,
+                                compressed_psum, adamw_int8, loss_grads)}
 

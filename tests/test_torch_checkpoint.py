@@ -123,6 +123,30 @@ def test_tree_paths_dtypes_and_bfloat16(tmp_path):
     assert torch.equal(arr["a"].view(torch.int16), st["a"].view(torch.int16))
 
 
+def test_flatten_and_save_keep_no_leaf_alive(tmp_path):
+    """Once the caller drops the tree, the leaves that ``flatten`` and a
+    blocking ``save`` saw are freed at once, not at the garbage
+    collector's next pass (a reference cycle kept a whole optimizer
+    state alive on the card)."""
+    import gc
+    import weakref
+    leaf = torch.zeros(1000)
+    tree = {"a": leaf, "b": [torch.ones(3)],
+            "s": Store(ids=torch.arange(3, dtype=torch.int32),
+                       succ=torch.zeros(3, dtype=torch.int32),
+                       rank=torch.ones(3), valid=torch.ones(3, dtype=bool))}
+    alive = weakref.ref(leaf)
+    del leaf
+    gc.disable()
+    try:
+        flatten(tree)
+        Checkpointer(tmp_path, async_save=False).save(1, tree)
+        del tree
+        assert alive() is None
+    finally:
+        gc.enable()
+
+
 def test_checkpoints_cross_frameworks(tmp_path):
     """The JAX package's Checkpointer restores a port checkpoint, and the
     port's restores a JAX one, with equal keys, bytes and dtypes."""

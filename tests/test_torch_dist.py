@@ -28,8 +28,8 @@ as numpy arrays.
   virtual transport's outputs and counters, and so do ``root_tree``,
   ``solve_forest`` and ``spanning_forest``; the graph span reads
   ``backend="mesh"``;
-- ``resolve_backend``'s cases, the meshes of ``launch/mesh.py``, and the
-  refusal of ``supervisor=`` and ``inject=`` on a DistMesh.
+- ``resolve_backend``'s cases, the meshes of ``launch/mesh.py``, and a
+  supervised and an injected solve on a DistMesh.
 
 Every comparison is exact.
 """
@@ -282,11 +282,21 @@ def test_resolve_backend_cases():
         DistMesh(axis_names=("pe",), axis_sizes=(6,), world=4, rank=0)
 
 
-def test_supervisor_inject_refused_and_launch_meshes(pools):
-    for out in pools(2).run("refusals", (P,), ("pe",), timeout=SOLVE_S):
+def test_supervisor_inject_refused_and_launch_meshes(pools, tmp_path):
+    """Supervision and fault injection on a DistMesh, which were refused
+    until the distributed transport's checkpoints were ported, solve
+    (``tests/test_torch_dist_recovery.py`` holds the fault matrix); the
+    meshes of ``launch/mesh.py`` over the group."""
+    from repro_torch.core.listrank import rank_list_seq
+    succ, rank = instances.gen_list(64, gamma=1.0, seed=1)
+    want = rank_list_seq(succ, rank)
+    for out in pools(2).run("recovery_and_meshes", (P,), ("pe",),
+                            str(tmp_path), timeout=SOLVE_S):
         for what in ("supervisor", "inject"):
-            assert out[what] is not None and "later slice" in out[what], \
-                out
+            s, r, log = out[what]
+            np.testing.assert_array_equal(s, want[0])
+            np.testing.assert_array_equal(r, want[1])
+        assert out["inject"][2][:2] == ("prep!InjectedFault", "prep")
         assert out["meshes"] == {"listrank": ((("pe",), (2,)), 1),
                                  "listrank_k4": ((("pe",), (8,)), 4),
                                  "host": ((("data", "model"), (2, 1)), 1)}

@@ -398,9 +398,12 @@ def test_train_step_under_the_mesh_matches_the_reference(ref, arch):
     with context.use_mesh(sim_mesh((1, 1), AXES)) as ctx:
         new, _, metrics = steps.train_step(params, adamw.init(
             params, tcfg.optimizer), batch, cfg, tcfg)
-        # the forward's two sums a layer; its routes and their transposes
-        # in the backward cross a one-PE hop, with no collective
-        assert ctx.transport("cpu").counts == {"psum": 2 * cfg.num_layers}
+        # the forward's two sums a layer, and the first of them again in
+        # the layer's remat recompute (cfg.remat, policy "nothing", as the
+        # reference's), which stops after the last tensor the backward
+        # needs, before the tensor axis's sum; the routes and their
+        # transposes in the backward cross a one-PE hop, with no collective
+        assert ctx.transport("cpu").counts == {"psum": 3 * cfg.num_layers}
     for k in ("loss", "aux_loss"):
         np.testing.assert_allclose(float(metrics[k]),
                                    mesh_run["metrics"][k], rtol=1e-5)

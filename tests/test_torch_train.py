@@ -153,10 +153,26 @@ def test_adamw_update_matches_jax_given_equal_gradients(state_dtype,
                                    rtol=1e-7)
 
 
-def test_adamw_int8_states_belong_to_a_later_slice():
-    params = {"w": torch.zeros(4)}
-    with pytest.raises(NotImplementedError, match="QInt8"):
-        adamw.init(params, adamw.AdamWConfig(state_dtype="int8"))
+def test_adamw_int8_states_initialise_and_step():
+    """``state_dtype="int8"``: the moments start as zero ``QInt8`` blocks
+    of the parameters' shapes, and a step requantizes them (the parity
+    with the reference is in tests/test_torch_compression.py)."""
+    from repro_torch.runtime.compression import QInt8
+    params = {"w": torch.zeros((3, 100)), "b": torch.zeros(7)}
+    cfg = adamw.AdamWConfig(state_dtype="int8", lr=0.1)
+    opt = adamw.init(params, cfg)
+    for k in ("m", "v"):
+        for name, p in params.items():
+            q = opt[k][name]
+            assert isinstance(q, QInt8) and q.shape == tuple(p.shape)
+            assert q.q.dtype == torch.int8 and q.scale.dtype == torch.float32
+            assert not q.dequantize().any()
+    grads = {"w": torch.linspace(-1, 1, 300).reshape(3, 100),
+             "b": torch.ones(7)}
+    new, opt, metrics = adamw.update(grads, opt, params, cfg)
+    assert int(opt["step"]) == 1 and np.isfinite(float(metrics["grad_norm"]))
+    assert isinstance(opt["m"]["w"], QInt8) and opt["m"]["w"].q.any()
+    assert bool((new["w"] != 0).any())
 
 
 # --------------------------------------------------------------------- loss
