@@ -222,6 +222,20 @@ Phases, each fatal on failure:
    SMOKE, kernels on: the losses and every gradient of one step bit-equal
    with remat on and off for mamba2, hymba, granite-moe under a (4, 1)
    mesh and seamless-m4t.
+21. the shape-only dry run (``launch/dryrun.py``; alone:
+   ``tools/dryrun_phase.py``), which touches no card (its launches and the
+   card's allocated bytes unchanged across it): (a) granite-moe-1b's
+   launcher step at (1, 1), 4 x 512 tokens, remat on and off, the
+   kernels' path and ``launch/train.py``'s ``TrainConfig``: the predicted
+   step peak within 10 % of phase 20 (c)'s measured rows, the predicted
+   forward-and-backward peak above the weights within 25 % of its
+   ``_grad_peak``; (b) tinyllama-1.1b's prefill of 8 x 1024 tokens into
+   its cache, no kernels: the dry run's argument bytes equal to the bytes
+   of the tensors the real call reads, its peak within 15 % of the
+   call's (the counter reset with the inputs allocated), the wall against
+   the roofline's bound (no gate); (c) ``examples/torch_trace_solve.py``
+   at n = 2^16, p = 8 on the card: the oracle match, the tables, the
+   Chrome trace beside phase 15's.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -358,7 +372,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-20 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-21 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -735,6 +749,16 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
                 kern["name"]]
     results["recovery_dist_phase_s"] = time.perf_counter() - t_phase
     log(f"phase 20: {results['recovery_dist_phase_s']:.1f} s")
+
+    # --------------------------------------------------------- phase 21
+    rd = results["recovery_dist"]
+    results["dryrun"] = dryrun_phase(
+        dev, card, rows={"remat": rd["remat"][MOE_ARCH],
+                         "no_remat": rd["no_remat"][MOE_ARCH]},
+        grad_peaks=rd["grad_peak"])
+    for kern in kernels:
+        kern["launches_trace_solve"] = results["dryrun"]["launches"][
+            kern["name"]]
 
     results["card"] = card
     results["kernels"] = kernels
@@ -3954,6 +3978,227 @@ def recovery_dist_phase(dev, card: str = "", n: int = RECOV_N,
     d_s = time.perf_counter() - t0 - res["a_s"] - res["b_s"] - res["c_s"]
     log(f"phase 20: (a) {res['a_s']:.1f} s, (b) {res['b_s']:.1f} s, (c) "
         f"{res['c_s']:.1f} s, (d) {d_s:.1f} s")
+    return res
+
+
+# --------------------------------------------------------------- phase 21
+#: (b): tinyllama-1.1b's prefill on the card: batch, length (the cache's too)
+DRY_PREFILL = (8, 1024)
+#: (c): examples/torch_trace_solve.py's list length and PEs
+DRY_TRACE = (1 << 16, 8)
+#: relative gates: (a) the step's peak, (a) the forward and backward's
+#: peak above the weights, (b) the prefill's peak
+DRY_STEP_REL, DRY_GRAD_REL, DRY_PREFILL_REL = 0.10, 0.25, 0.15
+DRY_TRACE_OUT = OBS_TRACE.parent / "chip_smoke_trace_solve.json"
+
+
+def _launcher_tcfg(steps_n: int):
+    """The ``TrainConfig`` ``launch/train.py`` builds for ``steps_n``
+    steps at its default learning rate (phase 20 (c)'s rows)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as train_steps
+    return train_steps.TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=3e-3),
+        warmup_steps=max(steps_n // 10, 1), total_steps=steps_n)
+
+
+def _no_card_work(dev, fn):
+    """``fn()`` with the card's allocated bytes and every kernel's launch
+    count read before and after: the dry run must change neither."""
+    import torch
+    mods = kernel_ops()
+    before = ({k: m.LAUNCHES for k, m in mods.items()},
+              torch.cuda.memory_allocated(dev))
+    out = fn()
+    after = ({k: m.LAUNCHES for k, m in mods.items()},
+             torch.cuda.memory_allocated(dev))
+    if after != before:
+        fail(f"phase 21: the dry run touched the card: launches and bytes "
+             f"{before} -> {after}")
+    return out
+
+
+def _dry_granite(dev, card: str, rows: dict, grad_peaks: dict) -> dict:
+    """(a): the dry run of granite-moe-1b's launcher step at (1, 1)
+    against phase 20 (c)'s measured rows."""
+    from repro_torch.core.listrank import sim_mesh
+    from repro_torch.launch import dryrun
+    steps_n, batch, seq = REMAT_GRANITE
+    one = sim_mesh((1, 1), ("data", "model"))
+    res = {}
+    for name, remat in (("remat", True), ("no_remat", False)):
+        t = time.perf_counter()
+        with dryrun.patched_shape("train_4k", seq, batch):
+            rec, _ = _no_card_work(dev, lambda: dryrun.lower_cell(
+                MOE_ARCH, "train_4k", remat=remat, mesh=one,
+                use_kernels=True, tcfg=_launcher_tcfg(steps_n)))
+        mem = rec["memory"]
+        peak, fb = mem["peak_bytes_per_device"], \
+            mem["forward_backward_bytes_per_device"]
+        got_peak = rows[name]["peak_memory_bytes"]
+        got_fb = grad_peaks[name]
+        rel_peak, rel_fb = peak / got_peak - 1, fb / got_fb - 1
+        res[name] = {"predicted_peak_bytes": peak,
+                     "measured_peak_bytes": got_peak,
+                     "predicted_forward_backward_bytes": fb,
+                     "measured_forward_backward_bytes": got_fb,
+                     "rel_peak": rel_peak, "rel_forward_backward": rel_fb,
+                     "update_bytes": mem["update_bytes_per_device"],
+                     "argument_bytes": mem["argument_bytes_per_device"],
+                     "flops": rec["cost"]["flops_per_device"],
+                     "collectives": rec["collectives"]["counts"],
+                     "trace_s": time.perf_counter() - t}
+        log(f"phase 21 (a): dry run of {MOE_ARCH} at (1, 1), {batch} x {seq} "
+            f"tokens, {name.replace('_', ' ')}, kernels' path, launch/"
+            f"train.py's TrainConfig ({res[name]['trace_s']:.1f} s on the "
+            f"host): step peak {peak / 2 ** 30:.2f} GiB predicted against "
+            f"{got_peak / 2 ** 30:.2f} measured ({rel_peak:+.1%}); forward "
+            f"and backward above the weights {fb / 2 ** 30:.2f} against "
+            f"{got_fb / 2 ** 30:.2f} GiB ({rel_fb:+.1%}); the update "
+            f"{mem['update_bytes_per_device'] / 2 ** 30:.2f} GiB above the "
+            f"inputs; {rec['cost']['flops_per_device']:.4g} FLOPs; "
+            f"collectives {rec['collectives']['counts']} [{card}]")
+        if abs(rel_peak) > DRY_STEP_REL or abs(rel_fb) > DRY_GRAD_REL:
+            fail(f"phase 21 (a) {name}: predicted {peak} / {fb} bytes, "
+                 f"measured {got_peak} / {got_fb}")
+    return res
+
+
+def _dry_prefill(dev, card: str) -> dict:
+    """(b): tinyllama-1.1b's prefill with its cache: the dry run at (1, 1)
+    against the real call on the card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.listrank import sim_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves
+    batch, seq = DRY_PREFILL
+    one = sim_mesh((1, 1), ("data", "model"))
+    t = time.perf_counter()
+    with dryrun.patched_shape("prefill_32k", seq, batch):
+        rec, _ = _no_card_work(dev, lambda: dryrun.lower_cell(
+            SERVE_ARCH, "prefill_32k", mesh=one))
+    dry_s = time.perf_counter() - t
+    mem = rec["memory"]
+    # the real call, at the dry run's config (no kernels)
+    cfg = configs.get_config(SERVE_ARCH).with_(use_kernels=False)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), device=dev,
+                           dtype=torch.int32,
+                           generator=torch.Generator(dev).manual_seed(SEED))
+    cache = M.init_cache(cfg, batch, seq, dev)
+    inputs = leaves(params) + [tokens] + list(cache)
+    read = sum(x.numel() * x.element_size() for x in inputs)
+    if mem["pruned_inputs"] or mem["argument_bytes_per_device"] != read:
+        fail(f"phase 21 (b): argument bytes {mem['argument_bytes_per_device']}"
+             f" (pruned {mem['pruned_inputs']}), the call reads {read}")
+    walls, peaks = [], []
+    with torch.no_grad():
+        for _ in range(3):  # the first carries cuBLAS's set-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t = time.perf_counter()
+            logits, cache = M.prefill(params, {"tokens": tokens}, cfg, cache)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            peaks.append(torch.cuda.max_memory_allocated(dev) - base + read)
+            del logits
+    measured = peaks[-1]
+    if not bool(torch.isfinite(cache.k).all()):
+        fail("phase 21 (b): the prefill wrote a non-finite cache")
+    predicted = mem["peak_bytes_per_device"]
+    rel = predicted / measured - 1
+    bound = rec["roofline"]["step_time_bound_s"]
+    res = {"argument_bytes": read, "predicted_peak_bytes": predicted,
+           "measured_peak_bytes": measured, "peaks": peaks, "rel_peak": rel,
+           "walls_s": walls, "step_time_bound_s": bound,
+           "bottleneck": rec["roofline"]["bottleneck"],
+           "flops": rec["cost"]["flops_per_device"], "dry_s": dry_s}
+    log(f"phase 21 (b): {SERVE_ARCH} prefill of {batch} x {seq} tokens into "
+        f"its cache, no kernels: argument bytes {read} = the tensors the call "
+        f"reads (dry run {dry_s:.1f} s on the host); peak "
+        f"{predicted / 2 ** 30:.3f} GiB predicted against "
+        f"{measured / 2 ** 30:.3f} measured ({rel:+.1%}; the counter reset "
+        f"with the inputs allocated); wall "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms against the "
+        f"roofline's {bound * 1e3:.2f} ms bound "
+        f"({rec['roofline']['bottleneck']}) [{card}]")
+    del params, tokens, cache, inputs
+    torch.cuda.empty_cache()
+    if abs(rel) > DRY_PREFILL_REL:
+        fail(f"phase 21 (b): predicted peak {predicted}, measured {measured}")
+    return res
+
+
+def _trace_solve(dev, card: str) -> dict:
+    """(c): ``examples/torch_trace_solve.py`` on the card."""
+    import importlib.util
+    import io
+    mods = kernel_ops()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    spec = importlib.util.spec_from_file_location(
+        "torch_trace_solve", ROOT / "examples" / "torch_trace_solve.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    n, p = DRY_TRACE
+    DRY_TRACE_OUT.parent.mkdir(parents=True, exist_ok=True)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = example.main([str(DRY_TRACE_OUT), "--n", str(n), "--p",
+                                str(p), "--device", str(dev)])
+    except AssertionError as e:
+        fail(f"phase 21 (c): trace_solve differs from the oracle: {e}")
+    wall = time.perf_counter() - t
+    text = buf.getvalue()
+    trace = json.loads(DRY_TRACE_OUT.read_text())
+    spans = sum(1 for e in trace["traceEvents"] if e.get("ph") == "X")
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    if "matches the oracle" not in text or not spans:
+        fail(f"phase 21 (c): trace_solve printed {text[:200]!r}, {spans} "
+             f"spans")
+    DRY_TRACE_OUT.with_suffix(".txt").write_text(text)
+    log(f"phase 21 (c): {text.splitlines()[0]} (its tables in "
+        f"{DRY_TRACE_OUT.with_suffix('.txt').name})")
+    log(f"phase 21 (c): examples/torch_trace_solve.py n={n} p={p} on the "
+        f"card: matches the oracle, {out['stats']['attempts']} attempt(s), "
+        f"{spans} spans in {DRY_TRACE_OUT.name}, {wall:.2f} s with its tables; "
+        f"launches {launches} [{card}]")
+    return {"wall_s": wall, "spans": spans, "launches": launches,
+            "attempts": out["stats"]["attempts"]}
+
+
+def dryrun_phase(dev, card: str = "", rows=None, grad_peaks=None) -> dict:
+    """Phase 21: (a) the dry run of granite-moe-1b's training step at (1,
+    1) against the measured step and forward-and-backward peaks (``rows``:
+    phase 20 (c)'s granite rows ``{"remat", "no_remat"}``, ``grad_peaks``
+    its ``_grad_peak`` values; both measured here when None), (b)
+    tinyllama-1.1b's prefill against the real call, (c)
+    ``examples/torch_trace_solve.py`` on the card."""
+    t0 = time.perf_counter()
+    if rows is None:
+        steps_n, batch, seq = REMAT_GRANITE
+        rows = {"remat": _launcher_steps(dev, MOE_ARCH, steps_n, batch, seq),
+                "no_remat": _launcher_steps(dev, MOE_ARCH, steps_n, batch,
+                                            seq, lambda c: c.with_(
+                                                remat=False))}
+    if grad_peaks is None:
+        from repro_torch import configs
+        steps_n, batch, seq = REMAT_GRANITE
+        granite = configs.get_config(MOE_ARCH).with_(use_kernels=True)
+        grad_peaks = {"remat": _grad_peak(dev, granite, batch, seq),
+                      "no_remat": _grad_peak(dev, granite.with_(remat=False),
+                                             batch, seq)}
+    res = {"granite": _dry_granite(dev, card, rows, grad_peaks)}
+    res["prefill"] = _dry_prefill(dev, card)
+    res["trace_solve"] = _trace_solve(dev, card)
+    res["launches"] = res["trace_solve"]["launches"]
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 21: {res['phase_s']:.1f} s")
     return res
 
 

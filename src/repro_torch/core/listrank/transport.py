@@ -654,7 +654,9 @@ class CountingTransport:
     input's ``numel() * element_size()`` over the PEs its leading axis
     holds (``p_local``: p on the virtual transport, the rank's PEs on the
     distributed one), so a stage's bytes per PE are the same on both.
-    Both read tensor metadata only: no device work, no synchronisation.
+    ``axes_nbytes`` the payload bytes per PE by (collective, the mesh
+    axes it spans), which the dry run prices link by link.
+    All read tensor metadata only: no device work, no synchronisation.
     ``resume.run_staged`` clears them per stage. The uncounted host
     reads (``gather_pes``, ``rank_sum``, ``agree``, ``from_rank0``) and
     ``local_rows`` pass through."""
@@ -663,6 +665,7 @@ class CountingTransport:
         self.inner = inner
         self.counts: collections.Counter = collections.Counter()
         self.nbytes: collections.Counter = collections.Counter()
+        self.axes_nbytes: collections.Counter = collections.Counter()
 
     p = property(lambda self: self.inner.p)
     p_local = property(lambda self: self.inner.p_local)
@@ -671,14 +674,17 @@ class CountingTransport:
     world = property(lambda self: self.inner.world)
     rank = property(lambda self: self.inner.rank)
 
-    def _count(self, prim: str, x) -> None:
+    def _count(self, prim: str, x, axes=None) -> None:
+        nbytes = x.numel() * x.element_size() // self.inner.p_local
         self.counts[prim] += 1
-        self.nbytes[prim] += (x.numel() * x.element_size()
-                              // self.inner.p_local)
+        self.nbytes[prim] += nbytes
+        axes = tuple(self.inner.pe_axes if axes is None else axes)
+        self.axes_nbytes[prim, axes] += nbytes
 
     def clear(self) -> None:
         self.counts.clear()
         self.nbytes.clear()
+        self.axes_nbytes.clear()
 
     def footprint(self) -> dict[str, tuple[int, int]]:
         """``{collective: (count, payload bytes per PE)}`` since the last
@@ -690,7 +696,7 @@ class CountingTransport:
         return self.inner.axis_index()
 
     def all_to_all(self, x, hop, axis):
-        self._count("all_to_all", x)
+        self._count("all_to_all", x, hop)
         return self.inner.all_to_all(x, hop, axis)
 
     def psum(self, x):
@@ -698,7 +704,7 @@ class CountingTransport:
         return self.inner.psum(x)
 
     def psum_axes(self, x, axes):
-        self._count("psum", x)
+        self._count("psum", x, axes)
         return self.inner.psum_axes(x, axes)
 
     def all_gather(self, x):

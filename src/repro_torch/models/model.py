@@ -48,7 +48,8 @@ import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.params import init_params, leaves, map_tree, spec
+from repro_torch.models.params import (abstract_params, init_params, leaves,
+                                      map_tree, spec)
 from repro_torch.runtime import context as runtime_context
 
 VOCAB_PAD = 512
@@ -199,6 +200,12 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None,
         raise ValueError(f"generator on {generator.device}, parameters on "
                          f"{device}")
     return init_params(generator, param_specs(cfg))
+
+
+def abstract(cfg: ModelConfig, mode=None, device="cpu"):
+    """The parameter tree as fake tensors under ``mode`` (see
+    ``params.abstract_params``): the dry run's parameters."""
+    return abstract_params(param_specs(cfg), mode, device)
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +379,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     if cfg.family == "hybrid":
         return kv(), ssm()
     return kv()
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of the cache (mirrors :func:`init_cache`), as the JAX
+    package's ``cache_axes``."""
+    kv_ax = L.KVCache(k=("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
+                      v=("layers", "batch", "kv_heads", "kv_seq", "head_dim"))
+    ssm_ax = L.SSMCache(conv=("layers", "batch", "conv", "mlp"),
+                        state=("layers", "batch", "ssm_heads", "ssm_state",
+                               None))
+    if cfg.family == "mamba":
+        return ssm_ax
+    if cfg.family == "hybrid":
+        return (kv_ax, ssm_ax)
+    return kv_ax
 
 
 def prefill(params, batch, cfg: ModelConfig, cache,

@@ -2,9 +2,13 @@
 
 Models declare a nested dict of :class:`ParamSpec`; from it come
 ``init_params`` (tensors drawn from a seeded ``torch.Generator``),
-``count_params``, and :func:`from_reference`, which carries the JAX
-package's parameters (as numpy arrays) across. The logical axes are kept
-as data: the port runs on one device and shards nothing.
+:func:`abstract_params` (fake tensors: shapes and dtypes, no storage, for
+the shape-only dry run), ``count_params``, and :func:`from_reference`,
+which carries the JAX package's parameters (as numpy arrays) across. The
+logical axes resolve to a mesh layout through
+``repro_torch.runtime.sharding.tree_shardings``, which the dry run
+(``launch/dryrun.py``) prices per device; the training and serving paths
+hold every parameter whole on their device.
 """
 from __future__ import annotations
 
@@ -35,6 +39,24 @@ def spec(shape: Sequence[int], axes: Sequence[str | None],
          dtype: torch.dtype = torch.float32, init: str = "normal",
          scale: float | None = None) -> ParamSpec:
     return ParamSpec(tuple(shape), tuple(axes), dtype, init, scale)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def abstract_params(spec_tree, mode=None, device="cpu"):
+    """Fake tensors of every spec's shape and dtype on ``device``, in
+    :func:`map_tree`'s sorted order: created under ``mode`` (a
+    ``torch._subclasses.fake_tensor.FakeTensorMode``; a new one when
+    None), so nothing is allocated and the step they enter must run under
+    the same mode."""
+    if mode is None:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        mode = FakeTensorMode()
+    with mode:
+        return map_tree(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                              device=device), spec_tree)
 
 
 def map_tree(fn, tree, *rest):

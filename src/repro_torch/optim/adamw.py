@@ -6,8 +6,9 @@ fp32 ``master`` copy when ``master_weights`` is set. Global-norm
 clipping, bias correction and decoupled weight decay on every leaf.
 
 Plain functions, not ``torch.optim.AdamW``: the update and the state
-layout are the reference's. Left out: ``state_shardings`` (ZeRO-1 over a
-TPU mesh), which belongs with the shape-only dry run.
+layout are the reference's. :func:`state_shardings` gives the state's
+ZeRO-1 layout on a mesh (specs as data, ``runtime.sharding``), which the
+shape-only dry run prices per device.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.params import leaves, map_tree
+from repro_torch.models.params import is_spec, leaves, map_tree
+from repro_torch.runtime import sharding as shlib
 from repro_torch.runtime.compression import QInt8
 
 _STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -114,3 +116,45 @@ def _pick(tree, i):
     if isinstance(tree, dict):
         return {k: _pick(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# state layout (ZeRO-1)
+# ---------------------------------------------------------------------------
+
+
+def state_shardings(param_specs_tree, mesh, cfg: AdamWConfig, rules=None,
+                    zero1: bool = True):
+    """Specs for the optimizer state tree (``step``, ``m``, ``v``, and
+    ``master`` with ``master_weights``), as the reference's.
+
+    Moments and master copies take the parameter's resolved spec; with
+    ``zero1`` the first replicated dimension that divides (and is at
+    least as large) is also sharded over ``("pod", "data")``, else over
+    ``("data",)``, whichever the mesh has and the spec does not use yet.
+    """
+    def one(s):
+        parts = list(shlib.resolve_spec(s.shape, s.axes, mesh, rules))
+        if zero1:
+            used = shlib.spec_axes(parts)
+            for axes_try in (("pod", "data"), ("data",)):
+                cand = tuple(a for a in axes_try
+                             if a in mesh.axis_names and a not in used)
+                if not cand:
+                    continue
+                size = 1
+                for a in cand:
+                    size *= mesh.shape[a]
+                free = [i for i, pt in enumerate(parts) if pt is None
+                        and s.shape[i] % size == 0 and s.shape[i] >= size]
+                if free:
+                    parts[free[0]] = cand if len(cand) > 1 else cand[0]
+                    break
+        return tuple(parts)
+
+    moment = map_tree(lambda s: one(s) if is_spec(s) else s,
+                      param_specs_tree)
+    out = {"step": (), "m": moment, "v": moment}
+    if cfg.master_weights:
+        out["master"] = moment
+    return out

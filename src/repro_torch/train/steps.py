@@ -70,25 +70,28 @@ def _split_microbatches(batch, n):
              for k, v in batch.items()} for i in range(n)]
 
 
-def train_step(params, opt_state, batch, cfg: M.ModelConfig,
-               tcfg: TrainConfig):
-    """One optimizer step (with grad accumulation when microbatches>1).
-    Returns (params, opt_state, metrics); the inputs are not modified."""
-    if tcfg.microbatches > 1:
-        grads = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
-        loss = torch.zeros((), dtype=torch.float32,
-                           device=leaves(params)[0].device)
-        for mb in _split_microbatches(batch, tcfg.microbatches):
-            (l_mb, _), g_mb = value_and_grad(params, mb, cfg, tcfg)
-            grads = map_tree(torch.add, grads, g_mb)
-            loss = loss + l_mb
-        grads = map_tree(lambda g: g / tcfg.microbatches, grads)
-        loss = loss / tcfg.microbatches
-        extras = {}
-    else:
+def gradients(params, batch, cfg: M.ModelConfig, tcfg: TrainConfig):
+    """(loss, extras, grads) of one step's batch: ``value_and_grad``, or
+    with ``microbatches > 1`` the mean over equal slices of the batch
+    (extras empty then)."""
+    if tcfg.microbatches <= 1:
         (loss, extras), grads = value_and_grad(params, batch, cfg, tcfg)
+        return loss, extras, grads
+    grads = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    loss = torch.zeros((), dtype=torch.float32,
+                       device=leaves(params)[0].device)
+    for mb in _split_microbatches(batch, tcfg.microbatches):
+        (l_mb, _), g_mb = value_and_grad(params, mb, cfg, tcfg)
+        grads = map_tree(torch.add, grads, g_mb)
+        loss = loss + l_mb
+    grads = map_tree(lambda g: g / tcfg.microbatches, grads)
+    return loss / tcfg.microbatches, {}, grads
 
+
+def apply_update(params, opt_state, grads, tcfg: TrainConfig):
+    """The scheduled AdamW update: (params, opt_state, optimizer
+    metrics)."""
     lr_scale = {
         "cosine": sched.cosine_warmup,
         "rsqrt": sched.rsqrt,
@@ -96,8 +99,16 @@ def train_step(params, opt_state, batch, cfg: M.ModelConfig,
     }[tcfg.schedule](opt_state["step"] + 1,  # step counter is 0-based
                      warmup_steps=tcfg.warmup_steps,
                      total_steps=tcfg.total_steps)
-    params, opt_state, om = adamw.update(grads, opt_state, params,
-                                         tcfg.optimizer, lr_scale)
+    return adamw.update(grads, opt_state, params, tcfg.optimizer, lr_scale)
+
+
+def train_step(params, opt_state, batch, cfg: M.ModelConfig,
+               tcfg: TrainConfig):
+    """One optimizer step (with grad accumulation when microbatches>1):
+    :func:`gradients`, then :func:`apply_update`. Returns (params,
+    opt_state, metrics); the inputs are not modified."""
+    loss, extras, grads = gradients(params, batch, cfg, tcfg)
+    params, opt_state, om = apply_update(params, opt_state, grads, tcfg)
     metrics = {"loss": loss, **om, **extras}
     return params, opt_state, metrics
 

@@ -492,6 +492,78 @@ def loss_grads(arch, batch, enc_embeds=None):
             "grads": jax.tree.map(np.asarray, grads)}
 
 
+def _dryrun_module():
+    """The reference's dry run, imported after this child's backend is up
+    (its import sets ``XLA_FLAGS`` to 512 host devices, which must not
+    reach a backend that is not initialised yet)."""
+    import jax
+    jax.devices()
+    from repro.launch import dryrun
+    return dryrun
+
+
+def dryrun_cell(arch, shape_name, kind, seq, batch, mesh_shape):
+    """Compile the reference's dry-run step of ``arch``'s SMOKE config at
+    ``shape_name`` patched to (seq, batch) on a ``("data", "model")``
+    mesh of this child's devices, as its ``lower_cell`` does (default
+    rules, ZeRO-1, donation, remat, no kernels, scanned layers): the
+    executable's memory analysis and the flat argument names it keeps."""
+    import jax
+    dr = _dryrun_module()
+    from repro import compat, configs
+    from repro.configs import shapes as SH
+    from repro.runtime import sharding as shlib
+    cfg = configs.get_config(arch, smoke=True).with_(
+        remat=True, use_kernels=False, scan_layers=True,
+        remat_policy="nothing")
+    mesh = compat.make_mesh(mesh_shape, ("data", "model"))
+    report = shlib.ResolveReport()
+    saved = SH.SHAPES[shape_name]
+    SH.SHAPES[shape_name] = SH.ShapeSpec(shape_name, seq, batch, kind)
+    try:  # the child's next job sees the shapes as they were
+        lowered, _ = dr._lower(cfg, shape_name, mesh,
+                               dict(shlib.DEFAULT_RULES), report, True, True)
+    finally:
+        SH.SHAPES[shape_name] = saved
+    mem = lowered.compile().memory_analysis()
+    kept = lowered._lowering.compile_args.get("kept_var_idx")
+    return {"argument": int(mem.argument_size_in_bytes),
+            "output": int(mem.output_size_in_bytes),
+            "alias": int(mem.alias_size_in_bytes),
+            "temp": int(mem.temp_size_in_bytes),
+            "kept": sorted(kept) if kept is not None else None,
+            "downgrades": list(report.downgrades)}
+
+
+def dryrun_formulas(cells):
+    """The reference's dry-run tables and per-cell figures for full-width
+    configs: its ``RULE_PRESETS`` and ``BATCH_AXES``, and (arch, shape) ->
+    params, active params, tokens, model FLOPs and
+    ``analytic_memory_bytes`` at 256 and 512 chips."""
+    dr = _dryrun_module()
+    from repro import configs
+    from repro.configs import shapes as SH
+    from repro.models import model as M
+    from repro.models.params import count_params
+    out = {}
+    for arch, shape_name in cells:
+        cfg = configs.get_config(arch).with_(
+            remat=True, use_kernels=False, scan_layers=True)
+        kind = SH.SHAPES[shape_name].kind
+        n_params = count_params(M.param_specs(cfg))
+        active = count_params(M.param_specs(cfg.with_(
+            num_experts=max(cfg.top_k, 1)))) if cfg.moe else n_params
+        tokens = SH.token_count(cfg, shape_name)
+        out[arch, shape_name] = {
+            "params": n_params, "active": active, "tokens": tokens,
+            "model_flops": (6 if kind == "train" else 2) * active * tokens,
+            "bytes_model": {chips: dr.analytic_memory_bytes(
+                cfg, shape_name, kind, chips, n_params, active)
+                for chips in (256, 512)}}
+    return {"cells": out, "presets": dr.RULE_PRESETS,
+            "batch_axes": dr.BATCH_AXES}
+
+
 JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 graph_stats, connected_components,
                                 spanning_forest, fingerprints,
@@ -499,5 +571,6 @@ JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 telemetry_solve, tree_telemetry,
                                 graph_telemetry, moe_layer_ep,
                                 moe_layer_dense, moe_train_step, qint8,
-                                compressed_psum, adamw_int8, loss_grads)}
+                                compressed_psum, adamw_int8, loss_grads,
+                                dryrun_cell, dryrun_formulas)}
 
