@@ -5,7 +5,8 @@ Run from the root of the repository (it imports ``src/repro_torch``):
 
     python3 chip_smoke.py [--out results.json]
 
-Phases, each fatal on failure:
+(``python3 tools/phase.py N`` runs phase 6, 7 or one of 16-22 alone.) Phases,
+each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; build the
    kernel library from ``src/repro_torch/kernels/csrc`` and time it, and
@@ -27,9 +28,9 @@ Phases, each fatal on failure:
    with per-stage wall times;
 4. the same solve with both kernels off: identical outputs and counters;
 5. two-hop grid routing: n = 2^20 on a 4x4 virtual mesh, kernels on;
-6. the tree path: ``treealg.tree_stats`` on ``gen_tree_parents(2^22,
+6. the tree path: ``treealg.tree_stats`` on ``gen_tree_parents(2^21,
    seed=0)`` over 16 virtual PEs, kernels on (its batched solve ranks
-   2 x 2^23 arcs) — depth, subtree size, pre- and postorder exact
+   2 x 2^22 arcs) — depth, subtree size, pre- and postorder exact
    against a host oracle (the numpy ``oracle_tour``, ``rank_list_seq`` of
    both weightings, the closed forms of ``treealg/ops.py``), both kernels
    launched (counts reset just before), a warm rerun with per-stage
@@ -39,9 +40,9 @@ Phases, each fatal on failure:
    kernels off (identical outputs and counters); ``root_tree`` and
    ``solve_forest``
    (64 trees of 2^14 nodes) once each, exact against the oracle;
-7. the graph path: ``graphalg.graph_stats`` on ``gen_graph_edges(2^20,
-   2^22, seed=0, num_components=4)`` (GNM, average degree 8) over 16
-   virtual PEs, kernels on (two solves of 2 x 2^22 arcs) — components
+7. the graph path: ``graphalg.graph_stats`` on ``gen_graph_edges(2^19,
+   2^21, seed=0, num_components=4)`` (GNM, average degree 8) over 16
+   virtual PEs, kernels on (two solves of 2 x 2^21 arcs) — components
    against ``scipy.sparse.csgraph.connected_components`` (min-id labels),
    the forest's edges, roots and span checked, its statistics against
    the tree oracle on the emitted parent array; the same measurements as
@@ -73,7 +74,7 @@ Phases, each fatal on failure:
    chunk-parallel tensor-core kernels; float32: the CUDA-core kernel),
    ``ssd_chunked_ref`` and ``ssd_ref`` times and the kernel's bound;
 12. the training path: ``launch.train`` trains mamba2-130m at full width
-   and depth (24 layers, d_model 768, bfloat16) with kernels on, batch 8
+   and depth (24 layers, d_model 768, bfloat16) with kernels on, batch 4
    x 1024 tokens from ``pipeline.global_batch``, 2 AdamW steps — finite
    losses and gradient norms, the last loss below the first, 48
    ``ssd_scan`` launches a step (each layer's forward and its remat
@@ -116,8 +117,8 @@ Phases, each fatal on failure:
    at phase 7's configuration, traced with telemetry on: outputs equal
    phases 6 and 7, graph-family records present, the graph call's
    escalations as ``escalate:`` instants and in the headroom rows; (e)
-   the cost: (a)'s warm wall against phase 3's (2 each, alternating;
-   median and spread), the device time of one solve of List(2^20) with
+   the cost: (a)'s warm wall against phase 3's (one each), the device
+   time of one solve of List(2^20) with
    telemetry on and off (``devtime.kernel_times_over``) and the device
    events added;
 16. the ``torch.distributed`` transport (``dist_mesh``): (a) NCCL at
@@ -197,7 +198,7 @@ Phases, each fatal on failure:
    ``moe_ffn_ep`` kernels on equal to off and to itself bit for bit, the
    forward on against off within the attention kernel's tolerance;
 20. per-rank recovery, the int8 runtime and remat (alone:
-   ``tools/recovery_dist_phase.py``): (a) gloo with CUDA tensors, 2
+   ``tools/phase.py 20``): (a) gloo with CUDA tensors, 2
    spawned ranks of 8 PEs on the card (p = 16), List(2^22, gamma=1),
    kernels on: an unsupervised solve cold and warm, then supervised
    (every boundary kept), preempted on rank 1 alone after descend@0 and
@@ -209,7 +210,7 @@ Phases, each fatal on failure:
    virtual transport resuming the ranks' preempted checkpoint; bytes,
    snapshot and write seconds per boundary, walls and launches per rank;
    (b) ``compressed_psum`` on the card equal to the CPU's bit for bit on
-   the same inputs, then ``examples/dp_compression.py``'s loop over a
+   the same inputs, then ``examples/torch_dp_compression.py``'s loop over a
    virtual transport of 8 PEs (final loss against the exact all-reduce's
    and the CPU run's), and one granite-moe-1b step at full width with
    int8 AdamW state (its bytes against float32 state's); (c)
@@ -223,7 +224,7 @@ Phases, each fatal on failure:
    with remat on and off for mamba2, hymba, granite-moe under a (4, 1)
    mesh and seamless-m4t.
 21. the shape-only dry run (``launch/dryrun.py``; alone:
-   ``tools/dryrun_phase.py``), which touches no card (its launches and the
+   ``tools/phase.py 21``), which touches no card (its launches and the
    card's allocated bytes unchanged across it): (a) granite-moe-1b's
    launcher step at (1, 1), 4 x 512 tokens, remat on and off, the
    kernels' path and ``launch/train.py``'s ``TrainConfig``: the predicted
@@ -235,7 +236,35 @@ Phases, each fatal on failure:
    call's (the counter reset with the inputs allocated), the wall against
    the roofline's bound (no gate); (c) ``examples/torch_trace_solve.py``
    at n = 2^16, p = 8 on the card: the oracle match, the tables, the
-   Chrome trace beside phase 15's.
+   Chrome trace beside phase 15's;
+22. the port's examples (alone: ``tools/phase.py 22``): (a)
+   ``flash_attention`` at gemma2-2b's heads (Hq 8, Hkv 4, D 256, scale
+   256^-0.5, soft-cap 50, causal) over its 8192-key slot in bf16 and f32:
+   global and 4096-key-window prefills at Lq = Lk = 8192, a 1024-token
+   prefill bucket, split-K decodes at offsets 100, 4095-4097 and 8191 with
+   the window on and off, each against its plain version (a decode also
+   against its split-and-merge) with kernel, device and plain times, the
+   bound, and one call of torch's compiled ``flex_attention`` (soft-cap
+   as its score_mod, a block mask) as the library call; (b) gemma2-2b at
+   full width and depth (26 layers, bf16, kernels on) served through
+   ``examples/torch_serve_demo.py``'s ``serve``: 8 slots of 8192, 16
+   requests of 32..6000 tokens, 32 new each, every request answered,
+   ``flash_attention`` exactly 26 x (prefills + ticks); prefill ms per
+   bucket, decode ms per tick, tokens/s, p50/p90 latency, peak memory
+   (the counter reset with the weights and the cache allocated); (c)
+   ``examples/torch_{quickstart,euler_tour,tree_stats,connectivity}.py``
+   on the card as written and with ``--kernels``: their checks pass,
+   every output and counter bit-equal, ``local_chase`` and
+   ``mailbox_pack`` launched with ``--kernels`` only; (d)
+   ``examples/torch_train_100m.py`` at its full config with
+   ``--use-kernels``: 5 steps of 4 x 512 with a checkpoint, then resumed
+   there to step 10 (finite losses, 24 ``flash_attention`` launches a
+   step), ms a step, tokens/s, peak memory; then
+   ``examples/torch_dp_compression.py``'s wall; (e) float32, TF32 off:
+   gemma2-2b at full width with 2 layers, a 6000-token prompt and 8
+   teacher-forced steps with kernels on against off (atol 2e-3, rtol
+   1e-3), and the SMOKE engine's tokens through ``serve`` equal to its own
+   ``forward``'s greedy continuation.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -262,8 +291,9 @@ SRC = ROOT / "src"
 
 N_MAIN, P_MAIN, SEED = 1 << 24, 16, 0
 N_GRID = 1 << 20
-#: the tree path's nodes; the graph path's nodes (edges: 4x, components 4)
-N_TREE, N_GRAPH = 1 << 22, 1 << 20
+#: the tree path's nodes; the graph path's nodes (edges: 4x, components 4);
+#: halved from 2^22 and 2^20 for the script's time limit
+N_TREE, N_GRAPH = 1 << 21, 1 << 19
 #: solve_forest's batch in phase 6: trees x nodes
 FOREST_TREES, FOREST_NODES = 64, 1 << 14
 
@@ -320,7 +350,8 @@ def max_abs_err(a, b, torch) -> float:
 
 #: the kernels whose ptxas report phase 1 prints
 PTXAS_KERNELS = ("chase_persistent_kernel", "mailbox_pack_kernel",
-                 "flash_fwd_mma_kernel", "flash_decode_split_kernel",
+                 "flash_fwd_mma_kernel", "flash_fwd_kernel",
+                 "flash_decode_split_kernel",
                  "flash_decode_merge_kernel", "ssd_cb_kernel",
                  "ssd_state_kernel", "ssd_pass_kernel",
                  "ssd_chunk_scan_kernel")
@@ -341,6 +372,8 @@ def ptxas_summary(log_text: str) -> list[str]:
                 args = re.findall(r"Li(\d+)E", rest)
                 if rest.startswith(("IiE", "IfE")):  # an int / float kernel
                     args = ["int" if rest[1] == "i" else "float"]
+                elif rest.startswith("If"):  # <float, D>
+                    args = ["float"] + args
                 name += f"<{','.join(args)}>" if args else ""
             continue
         if name and "spill" in line:
@@ -372,7 +405,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-21 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-22 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -385,7 +418,16 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     from repro_torch.kernels.mailbox_pack import ops as mp_ops
     from repro_torch.kernels.mailbox_pack import ref as mp_ref
 
-    results: dict = {}
+    results: dict = {"phase_s": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        """Log the seconds since the last lap (phases 1-14; the later
+        phases time themselves)."""
+        now = time.perf_counter()
+        results["phase_s"][what] = now - t_lap[0]
+        log(f"{what}: {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     # ---------------------------------------------------------- phase 1
     smi = subprocess.run(
@@ -401,9 +443,10 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     log(f"phase 1: kernel library built and loaded in "
         f"{results['build_s']:.1f} s")
     if "log" in build.build_info:
-        log("phase 1: ptxas (nvcc -Xptxas -v) for the list-ranking and "
-            "tensor-core kernels; the tensor-core kernels' tiles are dynamic "
-            "shared memory, sized at launch:")
+        log("phase 1: ptxas (nvcc -Xptxas -v) for the list-ranking, "
+            "attention and tensor-core kernels; the attention and "
+            "tensor-core kernels' tiles are dynamic shared memory, sized at "
+            "launch:")
         for line in ptxas_summary(build.build_info["log"]):
             log("  " + line)
         log(f"  ssd_scan bf16 at mamba2-130m's shape needs "
@@ -426,6 +469,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     term_bound = int(np.bincount(owners[succ_np == np.arange(n_main)],
                                  minlength=P_MAIN).max())
     spec0 = api.build_specs(cfg_on, plan, m, n_main, term_bound)[0]
+
+    lap("phase 1 and the instance")
 
     # ---------------------------------------------------------- phase 2
     kernels = []
@@ -579,6 +624,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     del valid, target, payload, order, row, col, fits, cols, out_k, out_p
     del stacked, lib_buf, lib_idx, succ_l, dist0, skey, out_s
 
+    lap("phase 2")
+
     # ---------------------------------------------------------- phase 3
     def solve(rank, cfg, mesh=mesh, **kw):
         torch.cuda.synchronize()
@@ -615,7 +662,9 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         kern["launches"] = launches[kern["name"]]
 
     rank_f = rank_np.astype(np.float32)  # 0/1 weights: sums < 2^24, exact
-    s_ref_f, r_ref_f = rank_list_seq(succ_np, rank_f)
+    # every partial sum of 0/1 weights is an integer below 2^24, exact in
+    # float32 in any order: the float32 oracle is the int32 one cast
+    s_ref_f, r_ref_f = s_ref, r_ref.astype(np.float32)
     s_f, r_f, st_f, _ = solve(rank_f, cfg_on)
     check_oracle(s_f, r_f, s_ref_f, r_ref_f, "main path (float32 0/1)")
     log("phase 3: float32 0/1 weights: exact")
@@ -628,6 +677,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         "counters": ints_on, "launches": launches}
     log(f"phase 3: warm wall {wall_warm:.3f} s; per stage "
         + ", ".join(f"{k} {v:.3f} s" for k, v in st_w["stage_wall_s"]))
+
+    lap("phase 3")
 
     # ---------------------------------------------------------- phase 4
     cfg_off = ListRankConfig(use_pallas=False, use_pallas_pack=False)
@@ -642,6 +693,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         f"{wall_off:.3f} s; per stage "
         + ", ".join(f"{k} {v:.3f} s" for k, v in st_off["stage_wall_s"]))
 
+    lap("phase 4")
+
     # ---------------------------------------------------------- phase 5
     succ_g, rank_g = instances.gen_list(n_grid, gamma=1.0, seed=2)
     s_ref_g, r_ref_g = rank_list_seq(succ_g, rank_g)
@@ -653,9 +706,13 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     log(f"phase 5: n={n_grid} on a 4x4 grid, two hops, kernels on: exact; "
         f"rounds {st_g['rounds']}, attempts {st_g['attempts']}")
 
+    lap("phase 5")
+
     # ------------------------------------------------------ phases 6-7
     results["tree"], tree_out = tree_phase(dev, n_tree, cfg_on, cfg_off)
+    lap("phase 6")
     results["graph"], graph_out = graph_phase(dev, n_graph, cfg_on, cfg_off)
+    lap("phase 7")
     for kern in kernels:
         for path in ("tree", "graph"):
             kern[f"launches_{path}"] = results[path]["launches"][kern["name"]]
@@ -667,12 +724,16 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     kernels.append(fa_entry)
     results["kernels_on_off"] = kernels_on_off_phase(dev)
 
+    lap("phases 8-10")
+
     # ----------------------------------------------------- phases 11-13
     ssd_entry, results["ssd_scan"] = ssd_scan_phase(dev)
     results["train"] = train_phase(dev)
     ssd_entry["launches"] = results["train"]["launches"]
     kernels.append(ssd_entry)
     results["train_on_off"] = train_on_off_phase(dev)
+
+    lap("phases 11-13")
 
     # --------------------------------------------------------- phase 14
     results["recovery"] = recovery_phase(
@@ -682,6 +743,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         if kern["name"] in results["recovery"]["launches"]:
             kern["launches_recovery"] = results["recovery"]["launches"][
                 kern["name"]]
+
+    lap("phase 14")
 
     # --------------------------------------------------------- phase 15
     results["obs"] = obs_phase(
@@ -759,6 +822,16 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     for kern in kernels:
         kern["launches_trace_solve"] = results["dryrun"]["launches"][
             kern["name"]]
+
+    # --------------------------------------------------------- phase 22
+    results["examples"] = examples_phase(dev, card)
+    fa_entry["gemma2"] = results["examples"]["attention"]
+    for kern in kernels:
+        parts = results["examples"]["launches"]
+        for part, counts in parts.items():
+            kern[f"launches_examples_{part}"] = counts[kern["name"]]
+        kern["launches_examples"] = sum(counts[kern["name"]]
+                                        for counts in parts.values())
 
     results["card"] = card
     results["kernels"] = kernels
@@ -846,6 +919,16 @@ def run_path(phase, call, torch, dev) -> tuple:
 
 def int_counters(stats) -> dict:
     return {k: v for k, v in stats.items() if isinstance(v, int)}
+
+
+def load_example(name: str):
+    """``examples/{name}.py`` imported as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def kernel_ops() -> dict:
@@ -1183,31 +1266,22 @@ def flash_attention_phase(dev):
 
 
 # ---------------------------------------------------------------- phase 9
-def serve_traffic(dev, phase: int, cfg, max_seq: int, max_prompt: int) -> dict:
-    """Serve ``SERVE_REQUESTS`` requests (prompts of 32..``max_prompt``
-    tokens from ``default_rng(0)``, ``SERVE_MAX_NEW`` tokens each) over
-    ``SERVE_SLOTS`` slots of ``max_seq`` with ``cfg`` (random weights from
-    seed ``SEED``) through the engine; every request answered with tokens
-    in the vocabulary. Each kernel's launches are counted from 0 just
-    before the run; prefill and decode calls are timed between syncs."""
-    import torch
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.local_chase import ops as lc_ops
-    from repro_torch.kernels.mailbox_pack import ops as mp_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.models import model as M
-    from repro_torch.serve.engine import Request, ServeConfig, ServingEngine
-
-    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
-    eng = ServingEngine(params, cfg, ServeConfig(
-        slots=SERVE_SLOTS, max_seq=max_seq,
-        max_new_tokens=SERVE_MAX_NEW), device=dev)
+def traffic_requests(vocab_size: int, max_prompt: int,
+                     n: int = SERVE_REQUESTS) -> list:
+    """``n`` requests with prompts of 32..``max_prompt`` tokens from
+    ``default_rng(0)`` (their lengths first, then each prompt)."""
+    from repro_torch.serve.engine import Request
     rng = np.random.default_rng(0)
-    lengths = rng.integers(32, max_prompt + 1, SERVE_REQUESTS)
-    for uid, n in enumerate(lengths):
-        eng.submit(Request(uid=uid, prompt=rng.integers(
-            2, cfg.vocab_size, n).astype(np.int32)))
+    lengths = rng.integers(32, max_prompt + 1, n)
+    return [Request(uid=uid, prompt=rng.integers(
+        2, vocab_size, k).astype(np.int32)) for uid, k in enumerate(lengths)]
 
+
+def engine_timers(eng, torch) -> tuple[dict, list]:
+    """Wrap ``eng``'s prefill and decode calls in timers between syncs:
+    (ms per prefill bucket {bucket: [ms]}, ms per decode tick [ms]), filled
+    as the engine runs. ``del eng._prefill, eng._decode`` afterwards: the
+    timers hold the engine's bound methods."""
     prefill_ms: dict = {}
     decode_ms: list = []
 
@@ -1224,6 +1298,34 @@ def serve_traffic(dev, phase: int, cfg, max_seq: int, max_prompt: int) -> dict:
     eng._prefill = timed(eng._prefill, lambda a, ms: prefill_ms.setdefault(
         int(a[1].shape[1]), []).append(ms))
     eng._decode = timed(eng._decode, lambda a, ms: decode_ms.append(ms))
+    return prefill_ms, decode_ms
+
+
+def serve_traffic(dev, phase: int, cfg, max_seq: int, max_prompt: int) -> dict:
+    """Serve ``SERVE_REQUESTS`` requests (prompts of 32..``max_prompt``
+    tokens from ``default_rng(0)``, ``SERVE_MAX_NEW`` tokens each) over
+    ``SERVE_SLOTS`` slots of ``max_seq`` with ``cfg`` (random weights from
+    seed ``SEED``) through the engine; every request answered with tokens
+    in the vocabulary. Each kernel's launches are counted from 0 just
+    before the run; prefill and decode calls are timed between syncs."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    eng = ServingEngine(params, cfg, ServeConfig(
+        slots=SERVE_SLOTS, max_seq=max_seq,
+        max_new_tokens=SERVE_MAX_NEW), device=dev)
+    requests = traffic_requests(cfg.vocab_size, max_prompt)
+    lengths = np.array([len(r.prompt) for r in requests])
+    for req in requests:
+        eng.submit(req)
+
+    prefill_ms, decode_ms = engine_timers(eng, torch)
     torch.cuda.reset_peak_memory_stats(dev)
     mods = {"local_chase": lc_ops, "mailbox_pack": mp_ops,
             "flash_attention": fa_ops, "ssd_scan": ssd_ops}
@@ -1293,6 +1395,26 @@ def serve_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 10
+def teacher_forced_logits(params, cfg, prompt, steps: int, max_seq: int, dev,
+                          teacher=None):
+    """(logits (1, 1 + steps, V), the tokens fed): ``prompt`` (1, L)
+    prefilled into a cache of ``max_seq``, then ``steps`` decode steps fed
+    ``teacher``'s tokens, or the greedy ones when None."""
+    from repro_torch.models import model as M
+    import torch
+    cache = M.init_cache(cfg, 1, max_seq, dev)
+    lg, cache = M.prefill(params, {"tokens": prompt}, cfg, cache)
+    out, fed = [lg], []
+    for i in range(steps):
+        tok = teacher[i] if teacher is not None else \
+            torch.argmax(lg[0, 0, :cfg.vocab_size]).view(1, 1).int()
+        fed.append(tok)
+        lg, cache = M.decode_step(params, tok, prompt.shape[1] + i, cfg,
+                                  cache)
+        out.append(lg)
+    return torch.cat(out, dim=1), fed
+
+
 def kernels_on_off_phase(dev) -> dict:
     """Phase 10: full-width logits with the kernel on and off, prefill plus
     16 decode steps fed the kernels-off greedy tokens."""
@@ -1311,26 +1433,16 @@ def kernels_on_off_phase(dev) -> dict:
         2, vocab, (1, 1000)).astype(np.int32)).to(dev)
     steps = 16
 
-    def logits_of(params, cfg, teacher=None):
-        cache = M.init_cache(cfg, 1, SERVE_MAX_SEQ, dev)
-        lg, cache = M.prefill(params, {"tokens": prompt}, cfg, cache)
-        out, fed = [lg], []
-        for i in range(steps):
-            tok = teacher[i] if teacher is not None else \
-                torch.argmax(lg[0, 0, :cfg.vocab_size]).view(1, 1).int()
-            fed.append(tok)
-            lg, cache = M.decode_step(params, tok, prompt.shape[1] + i, cfg,
-                                      cache)
-            out.append(lg)
-        return torch.cat(out, dim=1), fed
-
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         cfg = configs.get_config(SERVE_ARCH).with_(dtype=dt)
         params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
-        off, fed = logits_of(params, cfg)
+        off, fed = teacher_forced_logits(params, cfg, prompt, steps,
+                                         SERVE_MAX_SEQ, dev)
         fa_ops.LAUNCHES = 0
-        on, _ = logits_of(params, cfg.with_(use_kernels=True), teacher=fed)
+        on, _ = teacher_forced_logits(params, cfg.with_(use_kernels=True),
+                                      prompt, steps, SERVE_MAX_SEQ, dev,
+                                      teacher=fed)
         launches = fa_ops.LAUNCHES
         torch.cuda.synchronize()
         diff = max_abs_err(on, off, torch)
@@ -1353,7 +1465,8 @@ def kernels_on_off_phase(dev) -> dict:
 TRAIN_ARCH = "mamba2-130m"
 #: mamba2-130m's training shape: (Bt, L, H, G, N, P, chunk)
 SSD_MAIN = (8, 1024, 24, 1, 128, 64, 256)
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 2
+#: phase 12's batch (8 x 1024 before the script's time limit), steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 2
 
 
 def ssd_bound(bt, l, h, g, n, p, chunk, elem_bytes, skip=True,
@@ -2044,19 +2157,16 @@ def obs_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
         f"{rec['util_max']:.3f}, {wall_graph:.3f} s [{card}]")
     log(obs.format_headroom_table(rows_g))
 
-    # (e) the cost: warm walls alternating, device time on and off
-    walls = {"plain": [], "obs": []}
-    for _ in range(2):
-        walls["plain"].append(solve(cfg_on)[3])
-        walls["obs"].append(solve(cfg_tele, tracer=obs.Tracer(),
-                                  stage_counters=True)[3])
+    # (e) the cost: warm walls (one each; two each before the script's
+    # time limit), device time on and off
+    walls = {"plain": [solve(cfg_on)[3]],
+             "obs": [solve(cfg_tele, tracer=obs.Tracer(),
+                           stage_counters=True)[3]]}
     res["walls_s"] = walls
     med = {k: statistics.median(v) for k, v in walls.items()}
-    log(f"phase 15 (e): warm wall, 2 each alternating: plain median "
-        f"{med['plain']:.4f} s (spread {min(walls['plain']):.4f}-"
-        f"{max(walls['plain']):.4f}), telemetry + tracer + counters median "
-        f"{med['obs']:.4f} s (spread {min(walls['obs']):.4f}-"
-        f"{max(walls['obs']):.4f}); overhead "
+    log(f"phase 15 (e): warm wall, one each: plain "
+        f"{med['plain']:.4f} s, telemetry + tracer + counters "
+        f"{med['obs']:.4f} s; overhead "
         f"{med['obs'] - med['plain']:+.4f} s "
         f"({100 * (med['obs'] / med['plain'] - 1):+.2f} %) [{card}]")
     # the device-time windows hold one solve of List(N_GRID): a hop's
@@ -2337,7 +2447,7 @@ def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
             if launches != want_launches:
                 fail(f"phase 16 (a): launches {launches}, phase 3's "
                      f"{want_launches}")
-            warm = [solve()[3] for _ in range(2)]
+            warm = [solve()[3]]  # two before the script's time limit
             acc, undo = _timed_collectives(dist, torch, dev)
             try:
                 timed = solve()[3]
@@ -2969,6 +3079,26 @@ def encdec_phase(dev) -> dict:
     return res
 
 
+def greedy_continuation(params, cfg, prompts, new: int, max_seq: int,
+                        dev) -> dict:
+    """{index: ``new`` tokens}: each prompt's greedy continuation by
+    ``forward`` over the prompts right-padded to ``max_seq`` (causal: the
+    padding changes no kept logit)."""
+    import torch
+    from repro_torch.models import model as M
+    seqs = [list(p) for p in prompts]
+    toks = np.zeros((len(prompts), max_seq), np.int32)
+    for _ in range(new):
+        for i, s in enumerate(seqs):
+            toks[i, :len(s)] = s
+        logits, _ = M.forward(params, {"tokens": torch.from_numpy(toks).to(
+            dev)}, cfg)
+        for i, s in enumerate(seqs):
+            s.append(int(torch.argmax(logits[i, len(s) - 1,
+                                             :cfg.vocab_size])))
+    return {uid: s[len(p):] for uid, (p, s) in enumerate(zip(prompts, seqs))}
+
+
 def moe_exactness_phase(dev) -> dict:
     """Phase 18 (d): in float32 (TF32 off) at SMOKE width, each of
     ``EXACT_ARCHS``' forward with kernels on against off, and granite-moe's
@@ -3030,17 +3160,7 @@ def moe_exactness_phase(dev) -> dict:
     fa_ops.LAUNCHES = 0
     got = eng.run_to_completion()
     launches = fa_ops.LAUNCHES
-    seqs = [list(p) for p in prompts]
-    toks = np.zeros((len(prompts), max_seq), np.int32)
-    for _ in range(new):
-        for i, s in enumerate(seqs):
-            toks[i, :len(s)] = s
-        logits, _ = M.forward(params, {"tokens": torch.from_numpy(toks).to(
-            dev)}, cfg)
-        for i, s in enumerate(seqs):
-            s.append(int(torch.argmax(logits[i, len(s) - 1,
-                                             :cfg.vocab_size])))
-    want = {uid: s[len(p):] for uid, (p, s) in enumerate(zip(prompts, seqs))}
+    want = greedy_continuation(params, cfg, prompts, new, max_seq, dev)
     res["engine"] = {"requests": len(prompts), "new_tokens": new,
                      "equal": got == want, "launches": launches}
     log(f"phase 18 (d): {cfg.name} SMOKE float32 engine, capacity factor "
@@ -3324,7 +3444,8 @@ RECOV_TIMEOUT_S = 400
 RECOV_FREE_BYTES = 4 << 30
 RECOV_LABELS = ("prep", "descend@0", "descend@1", "base@2", "ascend@1",
                 "ascend@0", "post")
-#: (b): examples/dp_compression.py's loop: PEs, dim, rows a PE, lr, steps
+#: (b): examples/torch_dp_compression.py's loop: PEs, dim, rows a PE, lr,
+#: steps
 DPC = (8, 512, 64, 0.05, 150)
 #: (b)'s final-loss gates, relative: against the exact all-reduce's loss
 #: (the example's claim) and against the CPU's run of the same loop (a
@@ -3596,37 +3717,6 @@ def _recovery_dist(dev, card: str, n: int) -> dict:
     return res
 
 
-def _dp_losses(device, compressed: bool) -> list:
-    """``examples/dp_compression.py``'s loop over a virtual transport of
-    ``DPC[0]`` PEs on ``device``: float32 least squares, each PE's
-    gradient of its rows reduced by ``compressed_psum`` (error fed back)
-    or by the exact ``psum``, then averaged; the loss after every step."""
-    import torch
-    from repro_torch.core.listrank import transport as tl
-    from repro_torch.runtime import compression
-    p, dim, rows, lr, steps = DPC
-    rng = np.random.default_rng(0)
-    w_true = rng.normal(size=(dim,)).astype(np.float32)
-    x_all = rng.normal(size=(p * rows, dim)).astype(np.float32)
-    x = torch.from_numpy(x_all).to(device)
-    y = torch.from_numpy(x_all @ w_true).to(device)
-    tr = tl.VirtualTransport(("data",), (p,), torch.device(device))
-    w = torch.zeros(dim, dtype=torch.float32, device=device)
-    err = torch.zeros((p, dim), dtype=torch.float32, device=device)
-    xs, ys = x.reshape(p, rows, dim), y.reshape(p, rows)
-    losses = []
-    for _ in range(steps):
-        pred = torch.einsum("prd,d->pr", xs, w)
-        g = 2 * torch.einsum("prd,pr->pd", xs, pred - ys) / rows
-        if compressed:
-            g, err = compression.compressed_psum(g, tr, err)
-        else:
-            g = tr.psum(g)
-        w = w - lr * (g[0] / p)
-        losses.append(float(torch.mean((x @ w - y) ** 2)))
-    return losses
-
-
 def _state_bytes(tree) -> int:
     from repro_torch.checkpoint.checkpointer import flatten
     return sum(x.numel() * x.element_size() for x in flatten(tree)[1])
@@ -3664,11 +3754,12 @@ def _int8_runtime(dev, card: str) -> dict:
     if not bits or sum_rel > 1e-6:
         fail(f"phase 20 (b): compressed_psum on the card: new error "
              f"bit-equal {bits}, sum {sum_rel:.3g} relative from the CPU's")
+    dp_losses = load_example("torch_dp_compression").dp_losses
     t = time.perf_counter()
-    comp = _dp_losses(dev, True)
+    comp = dp_losses(dev, True, *DPC)
     res["dp_s"] = time.perf_counter() - t
-    exact = _dp_losses(dev, False)
-    cpu = _dp_losses("cpu", True)
+    exact = dp_losses(dev, False, *DPC)
+    cpu = dp_losses("cpu", True, *DPC)
     rel_exact = abs(comp[-1] - exact[-1]) / exact[-1]
     rel_cpu = abs(comp[-1] - cpu[-1]) / cpu[-1]
     res["dp"] = {"final_loss": comp[-1], "exact_final_loss": exact[-1],
@@ -3677,7 +3768,7 @@ def _int8_runtime(dev, card: str) -> dict:
                  "new_error_bit_equal": bits, "sum_rel_cpu": sum_rel}
     log(f"phase 20 (b): compressed_psum on the card, {p} PEs x 3 x {dim}: "
         f"new error bit-equal to the CPU's, the sum {sum_rel:.3g} relative "
-        f"from it; examples/dp_compression.py's loop ({DPC[4]} steps, "
+        f"from it; examples/torch_dp_compression.py's loop ({DPC[4]} steps, "
         f"{res['dp_s']:.2f} s): loss {comp[0]:.6g} -> {comp[-1]:.9g}, the "
         f"exact all-reduce's {exact[-1]:.9g} ({rel_exact:.3g} relative), "
         f"the CPU's {cpu[-1]:.9g} ({rel_cpu:.3g} relative) [{card}]")
@@ -4134,15 +4225,11 @@ def _dry_prefill(dev, card: str) -> dict:
 
 def _trace_solve(dev, card: str) -> dict:
     """(c): ``examples/torch_trace_solve.py`` on the card."""
-    import importlib.util
     import io
     mods = kernel_ops()
     for m in mods.values():
         m.LAUNCHES = 0
-    spec = importlib.util.spec_from_file_location(
-        "torch_trace_solve", ROOT / "examples" / "torch_trace_solve.py")
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("torch_trace_solve")
     n, p = DRY_TRACE
     DRY_TRACE_OUT.parent.mkdir(parents=True, exist_ok=True)
     buf = io.StringIO()
@@ -4199,6 +4286,511 @@ def dryrun_phase(dev, card: str = "", rows=None, grad_peaks=None) -> dict:
     res["launches"] = res["trace_solve"]["launches"]
     res["phase_s"] = time.perf_counter() - t0
     log(f"phase 21: {res['phase_s']:.1f} s")
+    return res
+
+
+# --------------------------------------------------------------- phase 22
+GEMMA2 = "gemma2-2b"
+#: (b): gemma2-2b served at full width through torch_serve_demo.serve:
+#: slots, max_seq, requests, longest prompt, new tokens a request
+EX_SERVE = (8, 8192, 16, 6000, 32)
+#: (c): the list examples, each run as written and with --kernels
+EX_LISTS = ("torch_quickstart", "torch_euler_tour", "torch_tree_stats",
+            "torch_connectivity")
+#: (d): llama-100m: steps in all, the step of its checkpoint, batch, seq
+EX_TRAIN = (10, 5, 4, 512)
+#: (e): gemma2-2b's layers, prompt, teacher-forced decode steps, cache
+EX_EXACT = (2, 6000, 8, 8192)
+#: (e): the SMOKE engine: slots, max_seq, new tokens (the demo's)
+EX_SMOKE_SERVE = (4, 192, 24)
+#: what the examples printed in (c) and (d)
+EX_OUT = OBS_TRACE.parent / "chip_smoke_examples.txt"
+#: (a)'s library column: one call of torch's compiled flex_attention
+LIBRARY = "flex_attention"
+
+
+def flex_yardstick(q, k, v, *, q_offset, window, softcap, scale):
+    """One call of torch's ``flex_attention`` computing what
+    ``flash_attention`` computes on (q, k, v): the soft-cap as its
+    ``score_mod``, the causal mask, the window and the per-slot offsets as
+    a block mask (built here, once, as a user builds it for every layer),
+    GQA by ``enable_gqa``. On the card its Triton kernel through
+    ``torch.compile``; on the CPU the unfused eager version, which checks
+    the masks there. Returns the zero-argument call."""
+    import torch
+    from torch.nn.attention import flex_attention as fx
+    b, _, lq, _ = q.shape
+    lk = k.shape[2]
+    pos0 = torch.as_tensor(q_offset, device=q.device).to(
+        torch.int32).reshape(-1).expand(b).contiguous()
+    # no window as a window past every key: one mask function, so the
+    # kernel compiles once a shape and dtype
+    win = torch.tensor(window or 1 << 30, dtype=torch.int32, device=q.device)
+
+    def mask_mod(bi, h, qi, ki):
+        pos = pos0[bi] + qi
+        return (ki <= pos) & (pos - ki < win)
+
+    def score_mod(s, bi, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    mask = fx.create_block_mask(mask_mod, b, None, lq, lk, device=q.device)
+    fn = fx.flex_attention
+    if q.is_cuda:
+        # in this process (no pool of compile workers), its caches beside
+        # the kernel library's build
+        from torch._inductor import config as inductor_config
+        from repro_torch.kernels import build
+        inductor_config.compile_threads = 1
+        # every (a) case's shape and dtype compiled, none left to eager
+        dyn = torch._dynamo.config
+        setattr(dyn, "recompile_limit" if hasattr(dyn, "recompile_limit")
+                else "cache_size_limit", 64)
+        for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                         ("TRITON_CACHE_DIR", "triton")):
+            os.environ.setdefault(var, str(build.BUILD_DIR / sub))
+        fn = torch.compile(fx.flex_attention, dynamic=False)
+    return lambda: fn(q, k, v, score_mod=score_mod, block_mask=mask,
+                      scale=scale, enable_gqa=True)
+
+
+def example_values(out, path: str = "") -> dict:
+    """Every array and integer an example returned, by path (floats, its
+    walls and rates, and strings left out)."""
+    import dataclasses
+    import torch
+    if isinstance(out, torch.Tensor):
+        return {path: out.cpu().numpy()}
+    if isinstance(out, np.ndarray):
+        return {path: out}
+    if isinstance(out, (int, np.integer)) and not isinstance(out, bool):
+        return {path: int(out)}
+    if isinstance(out, dict):
+        items = out.items()
+    elif isinstance(out, (list, tuple)):
+        items = enumerate(out)
+    elif dataclasses.is_dataclass(out):
+        items = ((f.name, getattr(out, f.name))
+                 for f in dataclasses.fields(out))
+    else:
+        return {}
+    flat: dict = {}
+    for k, v in items:
+        flat.update(example_values(v, f"{path}/{k}"))
+    return flat
+
+
+def same_values(a: dict, b: dict) -> list:
+    """The paths where two :func:`example_values` differ (an array in
+    dtype, shape or any bit)."""
+    def same(x, y):
+        if isinstance(x, np.ndarray) and isinstance(y, np.ndarray):
+            return x.dtype == y.dtype and x.shape == y.shape \
+                and x.tobytes() == y.tobytes()
+        return type(x) is type(y) and x == y
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or not same(a[k], b[k]))
+
+
+def quiet(fn, text: list, title: str):
+    """``fn()`` with its standard output kept in ``text`` under
+    ``title``."""
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn()
+    finally:
+        text.append(f"== {title}\n{buf.getvalue()}")
+
+
+def _gemma2_attention(dev, card: str) -> dict:
+    """(a): ``flash_attention`` at gemma2-2b's heads over its 8192-key
+    slot (``GEMMA2_ATTN_CASES``) in bf16 and f32 against its plain
+    version, a decode also against its split-and-merge; kernel, device and
+    plain times, the bound, and the library call's time
+    (:func:`flex_yardstick`, held to the same tolerance)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import (ATTN_TOL, GEMMA2_ATTN_CASES,
+                                      GEMMA2_HEADS)
+    from repro_torch import devtime
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    hq, hkv, d, scale, cap = GEMMA2_HEADS
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for name, b, lq, lk, offs, window in GEMMA2_ATTN_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device=dev).manual_seed(22)
+            q = torch.randn((b, hq, lq, d), generator=g, device=dev).to(dt)
+            k = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dt)
+            v = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dt)
+            off = offs[0] if b == 1 else torch.tensor(
+                offs, dtype=torch.int32, device=dev)
+            kw = dict(q_offset=off, window=window, softcap=cap, scale=scale)
+            key = f"{name}_{str(dt).removeprefix('torch.')}"
+            out = fa_ops.flash_attention(q, k, v, **kw).float()
+            want = fa_ref.attention_ref(q, k, v, **kw).float()
+            torch.cuda.synchronize()
+            err = max_abs_err(out, want, torch)
+            if not torch.allclose(out, want, **ATTN_TOL[dt]):
+                fail(f"phase 22 (a): flash_attention {key} differs from its "
+                     f"plain version by {err}")
+            if lq == 1 and dt == torch.bfloat16:
+                parts = fa_ref.attention_split_ref(
+                    q, k, v, part_len=fa_ops.decode_part_len(
+                        lk, fa_ops.decode_splits(b, hkv, hq // hkv, lk,
+                                                 n_sm)), **kw).float()
+                if not torch.allclose(out, parts, **ATTN_TOL[dt]):
+                    fail(f"phase 22 (a): the split-K decode {key} differs "
+                         f"from its plain split-and-merge by "
+                         f"{max_abs_err(out, parts, torch)}")
+                del parts
+            del out
+            t = time.perf_counter()
+            try:
+                library_call = flex_yardstick(q, k, v, **kw)
+                lib = library_call().float()
+                torch.cuda.synchronize()
+            except Exception as exc:  # the yardstick only: no gate
+                library_call, library = None, (
+                    f"none: {LIBRARY} does not run this case ("
+                    f"{type(exc).__name__}: {str(exc).splitlines()[0]})")
+            else:
+                library = (f"{LIBRARY}, compiled in "
+                           f"{time.perf_counter() - t:.1f} s")
+                if not torch.allclose(lib, want, **ATTN_TOL[dt]):
+                    fail(f"phase 22 (a): the {LIBRARY} yardstick computes "
+                         f"another function ({key}: "
+                         f"{max_abs_err(lib, want, torch)})")
+                del lib
+            del want
+
+            def kernel():
+                return fa_ops.flash_attention(q, k, v, **kw)
+
+            ms = time_ms(kernel, torch, reps=10)
+            plain = time_ms(lambda: fa_ref.attention_ref(q, k, v, **kw),
+                            torch, reps=5)
+            lib_ms = None if library_call is None else time_ms(
+                library_call, torch, reps=10)
+            kname = ("f32" if dt == torch.float32 else
+                     "decode_bf16" if lq == 1 else "prefill_bf16")
+            dev_ms = device_ms(kernel, torch,
+                               devtime.EXPECT[f"flash_attention_{kname}"],
+                               reps=5)
+            bnd, by = attention_bound(b, hq, hkv, lq, d, offs, lk,
+                                      q.element_size(), window=window,
+                                      ops_per_s=ops_rate(dt, torch))
+            rows[key] = {"b": b, "lq": lq, "lk": lk, "offsets": list(offs),
+                         "window": window, "max_abs_err": err, "ms": ms,
+                         "device_ms": dev_ms, "plain_ms": plain,
+                         "bound_ms": bnd, "bound_by": by,
+                         "library_ms": lib_ms, "library": library}
+            log(f"phase 22 (a): flash_attention {key} B={b} Hq={hq} "
+                f"Hkv={hkv} D={d} softcap={cap} window={window} Lq={lq} "
+                f"Lk={lk}" + (f" offsets {list(offs)}" if b > 1 else "")
+                + f": max |err| {err:.3g} (tolerance {ATTN_TOL[dt]}); kernel "
+                  f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), plain "
+                  f"{plain:.4f} ms, bound {bnd:.4f} ms by {by}; library "
+                  f"{fmt_ms(lib_ms)} ({library}) [{card}]")
+            del q, k, v, library_call
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _gemma2_serve(dev, card: str) -> dict:
+    """(b): gemma2-2b at full width and depth (bf16, kernels on) served
+    through ``examples/torch_serve_demo.py``'s ``serve``: every request
+    answered with tokens in the vocabulary, ``flash_attention`` exactly
+    once a layer a prefill and a tick."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models.params import leaves
+    from repro_torch.serve.engine import ServeConfig
+
+    demo = load_example("torch_serve_demo")
+    slots, max_seq, n_req, max_prompt, new = EX_SERVE
+    cfg = configs.get_config(GEMMA2).with_(use_kernels=True)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    requests = traffic_requests(cfg.vocab_size, max_prompt, n_req)
+    lengths = [len(r.prompt) for r in requests]
+    mods = kernel_ops()
+    held: dict = {}
+
+    def on_engine(eng):
+        held["eng"] = eng
+        held["prefill"], held["decode"] = engine_timers(eng, torch)
+        held["bytes"] = (sum(x.numel() * x.element_size()
+                             for x in leaves(params)),
+                         sum(x.numel() * x.element_size()
+                             for x in eng.cache))  # a KVCache: k, v
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for m in mods.values():
+            m.LAUNCHES = 0
+
+    text: list = []
+    res = quiet(lambda: demo.serve(
+        cfg, ServeConfig(slots=slots, max_seq=max_seq, max_new_tokens=new),
+        requests, dev, params=params, on_engine=on_engine), text,
+        "torch_serve_demo.serve at full width")
+    torch.cuda.synchronize()
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    prefill_ms, decode_ms = held["prefill"], held["decode"]
+    n_prefill = sum(len(v) for v in prefill_ms.values())
+    ticks = len(decode_ms)
+    out = res["out"]
+    if sorted(out) != list(range(n_req)) or n_prefill != n_req:
+        fail(f"phase 22 (b): {len(out)} requests answered, {n_prefill} "
+             "prefills")
+    for uid, toks in out.items():
+        if not 1 <= len(toks) <= new or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            fail(f"phase 22 (b): request {uid} returned {toks}")
+    need = cfg.num_layers * (n_prefill + ticks)
+    if launches["flash_attention"] != need or launches["ssd_scan"] \
+            or launches["local_chase"] or launches["mailbox_pack"]:
+        fail(f"phase 22 (b): launches {launches}; flash_attention should "
+             f"launch {need} times ({cfg.num_layers} x ({n_prefill} prefills "
+             f"+ {ticks} ticks))")
+    w_bytes, c_bytes = held["bytes"]
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "requests": n_req, "max_seq": max_seq, "prompt_lengths": lengths,
+           "prefills": n_prefill, "decode_ticks": ticks,
+           "generated_tokens": res["tokens"], "wall_s": res["wall_s"],
+           "tokens_per_s": res["tokens_per_s"], "p50_s": res["p50_s"],
+           "p90_s": res["p90_s"],
+           "prefill_ms_median": {b: statistics.median(v)
+                                 for b, v in sorted(prefill_ms.items())},
+           "prefill_ms": {b: v for b, v in sorted(prefill_ms.items())},
+           "decode_ms_median": statistics.median(decode_ms),
+           "decode_ms": decode_ms, "launches": launches,
+           "weight_bytes": w_bytes, "cache_bytes": c_bytes,
+           "peak_memory_bytes": peak}
+    for line in text[-1].splitlines()[1:]:
+        log(f"phase 22 (b): {line}")
+    log(f"phase 22 (b): served {n_req} requests (prompts {min(lengths)}.."
+        f"{max(lengths)} tokens) with {cfg.name} at full width "
+        f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{str(cfg.dtype).removeprefix('torch.')}, kernels on; weights "
+        f"{w_bytes / 2 ** 30:.2f} GiB, cache {c_bytes / 2 ** 30:.2f} GiB for "
+        f"{slots} slots x {max_seq}): {n_prefill} prefills, {ticks} decode "
+        f"ticks, {res['tokens']} tokens, {res['tokens_per_s']:.1f} tokens/s; "
+        f"flash_attention launches {launches['flash_attention']} = "
+        f"{cfg.num_layers} x ({n_prefill} + {ticks}) [{card}]")
+    log("  prefill ms per bucket (median of n): " + ", ".join(
+        f"{b}: {statistics.median(v):.2f} (n={len(v)})"
+        for b, v in sorted(prefill_ms.items())))
+    log(f"  decode ms per tick: median {row['decode_ms_median']:.3f}, min "
+        f"{min(decode_ms):.3f}, max {max(decode_ms):.3f}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB above nothing (the counter reset with the "
+        f"weights and the cache allocated)")
+    del held["eng"]._prefill, held["eng"]._decode
+    held.clear()
+    del params, res
+    torch.cuda.empty_cache()
+    return row
+
+
+def _list_examples(dev, card: str, text: list) -> dict:
+    """(c): the four list examples on the card as written, then with
+    ``--kernels``: every output and counter bit-equal, ``local_chase`` and
+    ``mailbox_pack`` launched with ``--kernels`` only."""
+    import torch
+    mods = kernel_ops()
+    res = {}
+    for name in EX_LISTS:
+        example = load_example(name)
+        runs = {}
+        for flag in ((), ("--kernels",)):
+            for m in mods.values():
+                m.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                out = quiet(lambda: example.main(["--device", str(dev),
+                                                  *flag]), text,
+                            " ".join((name,) + flag))
+            except AssertionError as e:
+                fail(f"phase 22 (c): {name} {flag}: {e}")
+            torch.cuda.synchronize()
+            runs[flag] = (example_values(out), time.perf_counter() - t,
+                          {k: m.LAUNCHES for k, m in mods.items()})
+        (plain, wall, off), (kern, wall_k, on) = runs.values()
+        differ = same_values(plain, kern)
+        if differ:
+            fail(f"phase 22 (c): {name} with --kernels differs at {differ}")
+        if any(off.values()) or on["flash_attention"] or on["ssd_scan"] \
+                or not (on["local_chase"] and on["mailbox_pack"]):
+            fail(f"phase 22 (c): {name}: launches {off} as written, {on} with "
+                 "--kernels")
+        res[name] = {"wall_s": wall, "wall_s_kernels": wall_k,
+                     "launches": on, "values": len(plain)}
+        log(f"phase 22 (c): examples/{name}.py on the card: its checks pass, "
+            f"{len(plain)} arrays and counters bit-equal with --kernels; wall "
+            f"{wall:.2f} s as written (no launch), {wall_k:.2f} s with "
+            f"--kernels (launches {on}) [{card}]")
+    return res
+
+
+def _train_example(dev, card: str, text: list) -> dict:
+    """(d): ``examples/torch_train_100m.py`` at its full config with
+    ``--use-kernels``: ``EX_TRAIN``'s steps, a checkpoint at its step into
+    a fresh temporary directory, a second run resumed from it; then
+    ``examples/torch_dp_compression.py``."""
+    import math
+    import tempfile
+    import torch
+    example = load_example("torch_train_100m")
+    steps_n, at, batch, seq = EX_TRAIN
+    mods = kernel_ops()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_100m_") as d:
+        common = ["--ckpt-dir", d, "--ckpt-every", str(at), "--log-every",
+                  "1", "--batch", str(batch), "--seq", str(seq),
+                  "--use-kernels", "--device", str(dev)]
+        first = quiet(lambda: example.main(["--steps", str(at)] + common),
+                      text, f"torch_train_100m --steps {at}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        second = quiet(lambda: example.main(["--steps", str(steps_n)]
+                                            + common), text,
+                       f"torch_train_100m --steps {steps_n} (resumed)")
+        torch.cuda.synchronize()
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = first["history"] + second["history"]
+    losses = [r["loss"] for r in hist]
+    if [r["step"] for r in hist] != list(range(1, steps_n + 1)) \
+            or not all(math.isfinite(x) for x in losses):
+        fail(f"phase 22 (d): steps {[r['step'] for r in hist]}, losses "
+             f"{losses}: the second run must resume at step {at}")
+    # each layer's attention in a step's forward and its remat recompute
+    need = 2 * example.llama_100m().num_layers * steps_n
+    if launches["flash_attention"] != need:
+        fail(f"phase 22 (d): flash_attention launched "
+             f"{launches['flash_attention']} times in {steps_n} steps, not "
+             f"{need}")
+    warm = [r["ms"] for r in hist if r["step"] not in (1, at + 1)]
+    ms = statistics.median(warm)
+    res = {"params": first["params"], "losses": losses, "ms_step": ms,
+           "tokens_per_s": batch * seq / (ms / 1e3), "launches": launches,
+           "peak_memory_bytes": peak, "first_step_ms": hist[0]["ms"],
+           "resumed_step_ms": hist[at]["ms"]}
+    log(f"phase 22 (d): examples/torch_train_100m.py at its full config "
+        f"({first['params'] / 1e6:.1f}M parameters, float32, {batch} x {seq} "
+        f"tokens, --use-kernels): steps 1-{at}, a checkpoint at {at}, resumed"
+        f" at {at} for steps {at + 1}-{steps_n}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {ms:.1f} ms a step (median of the warm steps; "
+        f"first {hist[0]['ms']:.1f}, resumed {hist[at]['ms']:.1f}), "
+        f"{res['tokens_per_s']:.0f} tokens/s; peak {peak / 2 ** 30:.2f} GiB "
+        f"(the resumed run); launches {launches} [{card}]")
+    dp = load_example("torch_dp_compression")
+    t = time.perf_counter()
+    out = quiet(lambda: dp.main(["--device", str(dev)]), text,
+                "torch_dp_compression")
+    res["dp_wall_s"] = time.perf_counter() - t
+    res["dp_final_loss"] = (out["compressed"][-1], out["exact"][-1])
+    log(f"phase 22 (d): examples/torch_dp_compression.py on the card: final "
+        f"loss {out['compressed'][-1]:.9g} compressed, {out['exact'][-1]:.9g} "
+        f"exact ({out['rel']:.3g} relative), {res['dp_wall_s']:.2f} s "
+        f"[{card}]")
+    return res
+
+
+def _gemma2_exactness(dev, card: str, text: list) -> dict:
+    """(e): in float32 (TF32 off), gemma2-2b at full width and
+    ``EX_EXACT``'s depth: a prefill of one long prompt and teacher-forced
+    decode steps with kernels on against off (atol 2e-3, rtol 1e-3); and
+    the SMOKE engine's tokens through ``torch_serve_demo.serve`` (kernels
+    on) equal to its own ``forward``'s greedy continuation."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig
+    fa = kernel_ops()["flash_attention"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers, plen, steps, max_seq = EX_EXACT
+    cfg = configs.get_config(GEMMA2).with_(num_layers=layers,
+                                           dtype=torch.float32)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompt = torch.from_numpy(np.random.default_rng(22).integers(
+        2, cfg.vocab_size, (1, plen)).astype(np.int32)).to(dev)
+    off, fed = teacher_forced_logits(params, cfg, prompt, steps, max_seq,
+                                     dev)
+    fa.LAUNCHES = 0
+    on, _ = teacher_forced_logits(params, cfg.with_(use_kernels=True), prompt,
+                                  steps, max_seq, dev, teacher=fed)
+    launches = fa.LAUNCHES
+    torch.cuda.synchronize()
+    diff = max_abs_err(on, off, torch)
+    res = {"max_abs_diff": diff, "launches": launches}
+    log(f"phase 22 (e): {cfg.name} at full width, {layers} layers (window "
+        f"{cfg.local_window} on layer 0), float32, TF32 off: prompt {plen} + "
+        f"{steps} teacher-forced steps, max |logits on - off| {diff:.3g}; "
+        f"flash_attention launches {launches} [{card}]")
+    if launches != layers * (1 + steps):
+        fail(f"phase 22 (e): {launches} launches, not {layers * (1 + steps)}")
+    if not torch.allclose(on, off, atol=2e-3, rtol=1e-3):
+        fail(f"phase 22 (e): logits with kernels on differ from off by {diff}")
+    del params, on, off
+    torch.cuda.empty_cache()
+
+    demo = load_example("torch_serve_demo")
+    slots, seq, new = EX_SMOKE_SERVE
+    cfg = configs.get_config(GEMMA2, smoke=True).with_(use_kernels=True)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    requests = demo.demo_requests(cfg.vocab_size)
+    got = quiet(lambda: demo.serve(cfg, ServeConfig(
+        slots=slots, max_seq=seq, max_new_tokens=new, eos_id=-1), requests,
+        dev, params=params), text, "torch_serve_demo.serve SMOKE")["out"]
+    want = greedy_continuation(params, cfg, [r.prompt for r in requests],
+                               new, seq, dev)
+    res["engine_equal"] = got == want
+    log(f"phase 22 (e): {cfg.name} SMOKE float32 through torch_serve_demo."
+        f"serve (kernels on, {len(requests)} requests, {slots} slots): "
+        f"{new} tokens each equal to its own forward's greedy continuation: "
+        f"{got == want}")
+    if got != want:
+        fail(f"phase 22 (e): the engine's tokens {got} are not the greedy "
+             f"continuation {want}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def examples_phase(dev, card: str = "") -> dict:
+    """Phase 22: the port's examples and the gemma2-2b path they need: (a)
+    ``flash_attention`` at gemma2-2b's heads, (b) gemma2-2b served at full
+    width through ``examples/torch_serve_demo.py``, (c) the four list
+    examples as written and with ``--kernels``, (d)
+    ``examples/torch_train_100m.py`` trained and resumed and
+    ``examples/torch_dp_compression.py``, (e) gemma2-2b in float32 with
+    kernels on against off and the SMOKE engine against its forward.
+    Their printed output goes to ``EX_OUT``."""
+    t0 = time.perf_counter()
+    text: list = []
+    res = {"attention": _gemma2_attention(dev, card)}
+    res["serve"] = _gemma2_serve(dev, card)
+    res["lists"] = _list_examples(dev, card, text)
+    res["train"] = _train_example(dev, card, text)
+    res["exact"] = _gemma2_exactness(dev, card, text)
+    EX_OUT.parent.mkdir(parents=True, exist_ok=True)
+    EX_OUT.write_text("\n".join(text))
+    lists = {k: sum(r["launches"][k] for r in res["lists"].values())
+             for k in kernel_ops()}
+    res["launches"] = {"serve": res["serve"]["launches"], "lists": lists,
+                       "train": res["train"]["launches"]}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 22: {res['phase_s']:.1f} s (the examples' output in "
+        f"{EX_OUT.name})")
     return res
 
 

@@ -134,6 +134,23 @@ CROSS_ATTN_CASES = [
     (2, 16, 16, 1, 130, 64, {"causal": False}),
 ]
 
+#: gemma2-2b's attention heads: Hq, Hkv, D, scale, soft-cap (causal; the
+#: local layers keep the last 4096 keys)
+GEMMA2_HEADS = (8, 4, 256, 256 ** -0.5, 50.0)
+GEMMA2_WINDOW = 4096
+#: flash-attention at gemma2-2b's heads, as its full-width serving path
+#: calls it over an 8192-key slot (name, b, lq, lk, per-slot offsets,
+#: window): global and local prefills at Lq = Lk, a 1024-token prefill
+#: bucket, and split-K decodes at offsets about the window's edge
+GEMMA2_ATTN_CASES = [
+    ("prefill_global", 1, 8192, 8192, (0,), None),
+    ("prefill_local", 1, 8192, 8192, (0,), GEMMA2_WINDOW),
+    ("prefill_bucket", 1, 1024, 8192, (0,), None),
+    ("decode_global", 5, 1, 8192, (100, 4095, 4096, 4097, 8191), None),
+    ("decode_local", 5, 1, 8192, (100, 4095, 4096, 4097, 8191),
+     GEMMA2_WINDOW),
+]
+
 #: the repo's flash-attention tolerances (tests/test_kernels.py)
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}

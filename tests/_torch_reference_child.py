@@ -5,7 +5,8 @@ tests (``tests/test_torch_treealg.py``, ``tests/test_torch_graphalg.py``,
 ``tests/test_torch_faultinject.py``, ``tests/test_torch_obs.py``,
 ``tests/test_torch_telemetry.py``, ``tests/test_torch_moe_ep.py``,
 ``tests/test_torch_compression.py``, ``tests/test_torch_remat.py``,
-``tests/test_torch_dist_recovery.py``).
+``tests/test_torch_dist_recovery.py``), and the reference's examples
+(``tests/test_torch_examples_*.py``).
 
 Each of these calls compiles large simshard programs, and many such
 compiles in one pytest worker have crashed XLA's CPU compiler in a later
@@ -564,6 +565,172 @@ def dryrun_formulas(cells):
             "batch_axes": dr.BATCH_AXES}
 
 
+# --------------------------------------------------------------------------
+# the examples (examples/*.py), as the reference's examples call the JAX
+# package: on a jax mesh of this child's devices (run_reference(devices=8))
+# --------------------------------------------------------------------------
+
+def _mesh(shape, names):
+    from repro import compat
+    return compat.make_mesh(shape, names)
+
+
+def quickstart_example(succ, rank):
+    """``examples/quickstart.py``'s two solves of (succ, rank) on a (2, 4)
+    ("row", "col") mesh with grid indirection, fixed ruler fraction 1/32
+    and auto-tuned: outputs, integer stats, the auto level plan's
+    fractions and r*."""
+    from repro.core.listrank import (IndirectionSpec, ListRankConfig,
+                                     analysis, rank_list_with_stats, tuner)
+    mesh = _mesh((2, P // 2), ("row", "col"))
+    grid = IndirectionSpec.grid(("row", "col"))
+    n = succ.shape[0]
+    cfg = ListRankConfig(srs_rounds=2, local_contraction=True,
+                         ruler_fraction=1 / 32)
+    s, r, st = rank_list_with_stats(succ, rank, mesh, cfg=cfg,
+                                    indirection=grid)
+    auto = cfg.with_(ruler_fraction=None)
+    _, r2, st2 = rank_list_with_stats(succ, rank, mesh, cfg=auto,
+                                      indirection=grid)
+    return {"succ": np.asarray(s), "rank": np.asarray(r), "stats": _ints(st),
+            "rank_auto": np.asarray(r2), "stats_auto": _ints(st2),
+            "level_fracs": [lp.frac for lp in tuner.level_plan(
+                auto, P, grid.depth, n)],
+            "r_star": analysis.r_star(n, P, 2, analysis.SUPERMUC)}
+
+
+def euler_tour_example(succ, rank, arcs):
+    """``examples/euler_tour.py`` on a ("pe",) mesh: the tour's ranks and
+    integer stats, and the depth, subtree size and parent its loops derive
+    from them (copied from the example)."""
+    from repro.core.listrank import ListRankConfig, rank_list_with_stats
+    cfg = ListRankConfig(srs_rounds=2, local_contraction=True)
+    _, rank_out, stats = rank_list_with_stats(succ, rank,
+                                              _mesh((P,), ("pe",)), cfg=cfg)
+    n_arcs = arcs.shape[0]
+    n_nodes = n_arcs // 2 + 1
+    pos = (n_arcs - 1) - np.asarray(rank_out)[:n_arcs]
+    down_pos = np.full(n_nodes, -1)
+    up_pos = np.full(n_nodes, -1)
+    for c in range(1, n_nodes):
+        down_pos[c] = pos[2 * (c - 1)]
+        up_pos[c] = pos[2 * (c - 1) + 1]
+    size = np.ones(n_nodes, np.int64)
+    size[1:] = (up_pos[1:] - down_pos[1:] - 1) // 2 + 1
+    size[0] = n_nodes
+    order = np.argsort(pos)
+    depth_at = np.cumsum(np.where(order % 2 == 0, 1, -1))
+    depth = np.zeros(n_nodes, np.int64)
+    for c in range(1, n_nodes):
+        depth[c] = depth_at[down_pos[c]]
+    parent = np.zeros(n_nodes, np.int64)
+    for c in range(1, n_nodes):
+        parent[c] = arcs[2 * (c - 1)][0]
+    return {"rank": np.asarray(rank_out), "stats": _ints(stats),
+            "depth": depth, "size": size, "parent": parent}
+
+
+def tree_stats_example(parents):
+    """``examples/tree_stats.py`` on a ("pe",) mesh: ``solve_forest`` of
+    ``parents`` and ``root_tree`` of the largest at its deepest node."""
+    from repro.core import treealg
+    from repro.core.listrank import ListRankConfig
+    mesh = _mesh((P,), ("pe",))
+    cfg = ListRankConfig(srs_rounds=2, local_contraction=True)
+    forest = treealg.solve_forest(parents, mesh, cfg=cfg)
+    big = int(np.argmax([q.shape[0] for q in parents]))
+    deepest = int(np.argmax(forest[big].depth))
+    return {"forest": [_arrays(st, TREE_ARRAYS) for st in forest],
+            "rerooted": np.asarray(treealg.root_tree(parents[big], deepest,
+                                                     mesh, cfg=cfg)),
+            "big": big, "deepest": deepest}
+
+
+def connectivity_example(cc_graphs, edges, n):
+    """``examples/connectivity.py`` on a ("pe",) mesh: the components of
+    each of ``cc_graphs`` ({family: edges}), then ``graph_stats`` of
+    ``edges`` and ``tree_stats`` of its forest."""
+    from repro.core import graphalg, treealg
+    from repro.core.listrank import ListRankConfig
+    mesh = _mesh((P,), ("pe",))
+    cfg = ListRankConfig(srs_rounds=1, local_contraction=True)
+    cc = {}
+    for fam, e in cc_graphs.items():
+        labels, st = graphalg.connected_components(e, n, mesh, cfg=cfg)
+        cc[fam] = (np.asarray(labels), _ints(st))
+    gs = graphalg.graph_stats(edges, n, mesh, cfg=cfg)
+    st = treealg.tree_stats(gs.parent, mesh, cfg=cfg)
+    return {"cc": cc, "graph": _arrays(gs, GRAPH_ARRAYS),
+            "tree": _arrays(st, TREE_ARRAYS)}
+
+
+def serve_demo_example(prompts):
+    """``examples/serve_demo.py``: gemma2-2b's SMOKE model from
+    ``M.init(PRNGKey(0))`` served to ``prompts`` (4 slots, max_seq 192, 24
+    new tokens, greedy): the parameters, every request's tokens and the
+    ticks."""
+    import jax
+    from repro import configs
+    from repro.models import model as M
+    from repro.serve.engine import Request, ServeConfig, ServingEngine
+    cfg = configs.get_config("gemma2-2b", smoke=True)
+    params = M.init(jax.random.PRNGKey(0), cfg)
+    eng = ServingEngine(params, cfg, ServeConfig(
+        slots=4, max_seq=192, max_new_tokens=24, temperature=0.0))
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt))
+    ticks = 0
+    while eng.queue or eng.active.any():
+        eng.step(jax.random.PRNGKey(ticks))
+        ticks += 1
+    return {"params": jax.tree.map(np.asarray, params),
+            "out": {u: [int(t) for t in v] for u, v in eng.out.items()},
+            "ticks": ticks}
+
+
+def dp_compression_example(dim, rows, lr, steps):
+    """``examples/dp_compression.py``'s loop (the compiled ``shard_map``
+    step over a ("data",) mesh of this child's devices), compressed and
+    exact: the loss after every step of each."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as PS
+    from repro import compat
+    from repro.runtime import compression
+    p = len(jax.devices())
+    mesh = compat.make_mesh((p,), ("data",))
+    rng = np.random.default_rng(0)
+    w_true = jnp.asarray(rng.normal(size=(dim,)), jnp.float32)
+    x_all = jnp.asarray(rng.normal(size=(p * rows, dim)), jnp.float32)
+    y_all = x_all @ w_true
+
+    def run(compressed):
+        @jax.jit
+        @functools.partial(
+            compat.shard_map, mesh=mesh,
+            in_specs=(PS(), PS("data"), PS("data"), PS("data")),
+            out_specs=(PS(), PS("data")))
+        def step(w, x, y, err):
+            g = 2 * x.T @ (x @ w - y) / x.shape[0]
+            if compressed:
+                g, err = compression.compressed_psum(g, "data", err[0])
+                g = g / p
+                err = err[None]
+            else:
+                g = jax.lax.pmean(g, "data")
+            return w - lr * g, err
+
+        w = jnp.zeros((dim,), jnp.float32)
+        err = jnp.zeros((p, dim), jnp.float32)
+        losses = []
+        for _ in range(steps):
+            w, err = step(w, x_all, y_all, err)
+            losses.append(float(jnp.mean((x_all @ w - y_all) ** 2)))
+        return losses
+    return {"exact": run(False), "compressed": run(True)}
+
+
 JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 graph_stats, connected_components,
                                 spanning_forest, fingerprints,
@@ -572,5 +739,8 @@ JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 graph_telemetry, moe_layer_ep,
                                 moe_layer_dense, moe_train_step, qint8,
                                 compressed_psum, adamw_int8, loss_grads,
-                                dryrun_cell, dryrun_formulas)}
+                                dryrun_cell, dryrun_formulas,
+                                quickstart_example, euler_tour_example,
+                                tree_stats_example, connectivity_example,
+                                serve_demo_example, dp_compression_example)}
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, CROSS_ATTN_CASES,
+                                  GEMMA2_ATTN_CASES, GEMMA2_HEADS,
                                   PACK_HOPS, SSD_CASES, SSD_RAGGED, SSD_TOL, attn_inputs,
                                   bucket_hop, chains, chase_edge_case,
                                   float_dist, ssd_inputs, ssd_training_inputs)
@@ -343,6 +344,40 @@ def test_flash_attention_cuda_split_decode(cuda, d):
                 q, k, v, part_len=part, q_offset=offsets, **kw).float(),
             **ATTN_TOL[torch.bfloat16])
         assert torch.count_nonzero(out[4]) == 0
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GEMMA2_ATTN_CASES,
+                         ids=[c[0] for c in GEMMA2_ATTN_CASES])
+def test_flash_attention_cuda_gemma2_heads(cuda, case, dtype):
+    """gemma2-2b's heads (D 256, scale 256^-0.5, soft-cap 50) over its
+    8192-key slot: the bf16 prefill kernel's 3-stage ring of 32-key tiles
+    with Q read from shared memory, the float32 kernel and the split-K
+    decode at D = 256, with and without the 4096-key window; a decode also
+    against its plain split-and-merge."""
+    name, b, lq, lk, offs, window = case
+    hq, hkv, d, scale, cap = GEMMA2_HEADS
+    q, k, v = (t.to(cuda) for t in attn_inputs(b, hq, hkv, lq, lk, d,
+                                                seed=lq, dtype=dtype))
+    off = offs[0] if b == 1 else torch.tensor(offs, dtype=torch.int32,
+                                                device=cuda)
+    kw = dict(q_offset=off, window=window, softcap=cap, scale=scale)
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(
+        out.float(), fa_ref.attention_ref(q, k, v, **kw).float(),
+        **ATTN_TOL[dtype])
+    if name.startswith("decode") and dtype == torch.bfloat16:
+        part = fa_ops.decode_part_len(lk, fa_ops.decode_splits(
+            b, hkv, hq // hkv, lk,
+            torch.cuda.get_device_properties(cuda).multi_processor_count))
+        torch.testing.assert_close(
+            out.float(), fa_ref.attention_split_ref(
+                q, k, v, part_len=part, **kw).float(), **ATTN_TOL[dtype])
 
 
 #: hymba-1.5b's attention: Hq, Hkv (a GQA group of 5), D, window

@@ -6,7 +6,9 @@ autograd.Function against ``jax.grad`` through the reference's custom
 vjp. The CUDA kernel's twins of these checks are in
 ``test_torch_cuda.py``."""
 import functools
+import importlib.util
 import itertools
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import torch
 
 import test_kernels
 from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, CROSS_ATTN_CASES,
+                                  GEMMA2_ATTN_CASES, GEMMA2_HEADS,
                                   attn_inputs)
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro import configs as jax_configs
@@ -201,3 +204,33 @@ def test_split_merge_per_slot_offsets(window, softcap):
     np.testing.assert_allclose(out.numpy(), np.asarray(want),
                                **ATTN_TOL[torch.float32])
     assert torch.count_nonzero(out[4]) == 0 and torch.isfinite(out).all()
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(GEMMA2_ATTN_CASES)))
+def test_flex_yardstick_computes_the_kernels_function(case, dtype):
+    """``chip_smoke.py`` phase 22 (a) times one call of torch's
+    ``flex_attention`` beside the kernel at gemma2-2b's heads. Its masks
+    and soft-cap, run eager here, give the plain version's output on each
+    case at 1/32 of its lengths (the window 128, decode offsets about its
+    edge)."""
+    name, b, lq, lk, offs, window = GEMMA2_ATTN_CASES[case]
+    hq, hkv, d, scale, cap = GEMMA2_HEADS
+    lq, lk = max(1, lq // 32), lk // 32
+    window = window and window // 32
+    if b > 1:
+        offs = (3, 127, 128, 129, 255)
+    q, k, v = attn_inputs(b, hq, hkv, lq, lk, d, seed=case, dtype=dtype)
+    kw = dict(q_offset=offs[0] if b == 1 else torch.tensor(offs),
+              window=window, softcap=cap, scale=scale)
+    got = _chip_smoke().flex_yardstick(q, k, v, **kw)()
+    want = fa_ref.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])

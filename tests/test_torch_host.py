@@ -179,7 +179,8 @@ def test_port_imports_no_jax():
 
 def test_chip_smoke_and_port_sources_import_no_jax():
     files = [ROOT / "chip_smoke.py"] + sorted(
-        (ROOT / "src" / "repro_torch").rglob("*.py"))
+        (ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+        (ROOT / "tools").glob("*.py"))
     for path in files:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):

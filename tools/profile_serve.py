@@ -3,17 +3,19 @@
 
 Run from the root of the repository, after or beside ``chip_smoke.py``:
 
-    python3 tools/profile_serve.py [--arch tinyllama-1.1b] [--ticks 16]
+    python3 tools/profile_serve.py [--arch tinyllama-1.1b] [--ticks 16] \
+        [--prefill 1024]
 
 It builds the ``ServingEngine`` of ``chip_smoke.py`` phase 9 (full width,
-bfloat16, random weights from seed 0, 8 slots, 2048 positions, the
-``flash_attention`` kernel on; ``--arch mamba2-130m`` or ``hymba-1.5b``
-for phase 17's models, ``--arch granite-moe-1b-a400m`` for phase 18's),
-fills every slot with a 512-token prompt, and profiles with
-torch.profiler:
+bfloat16, random weights from seed 0, 8 slots of 2048 positions or twice
+the local window where that is longer, the ``flash_attention`` kernel on;
+``--arch mamba2-130m`` or ``hymba-1.5b`` for phase 17's models, ``--arch
+granite-moe-1b-a400m`` for phase 18's, ``--arch gemma2-2b`` for phase
+22's, over 8192 positions), fills every slot with a 512-token prompt, and
+profiles with torch.profiler:
 
-- one prefill of a 1024-token bucket (``ServingEngine._prefill``, as an
-  admission of a 1024-token prompt);
+- one prefill of a ``--prefill``-token bucket (``ServingEngine._prefill``,
+  as an admission of a prompt of that length);
 - ``--ticks`` decode ticks with all slots active (``ServingEngine.step``);
 - for an MoE model, one MoE FFN layer (``layers.moe_ffn`` on the first
   layer's experts) at a tick's tokens (one a slot) and at a 1024-token
@@ -89,6 +91,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--ticks", type=int, default=16)
+    ap.add_argument("--prefill", type=int, default=1024)
     args = ap.parse_args()
 
     import torch
@@ -104,7 +107,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     cfg = configs.get_config(args.arch).with_(use_kernels=True)
     params = M.init(cfg, torch.Generator(dev).manual_seed(0), dev)
-    scfg = ServeConfig(slots=8, max_seq=2048, eos_id=-1,
+    # a slot long enough that a windowed layer's window binds
+    max_seq = max(2048, 2 * (cfg.local_window or 0))
+    scfg = ServeConfig(slots=8, max_seq=max_seq, eos_id=-1,
                        max_new_tokens=4 * args.ticks + 16)
     eng = ServingEngine(params, cfg, scfg, device=dev)
     rng = np.random.default_rng(0)
@@ -113,10 +118,11 @@ def main() -> None:
             2, cfg.vocab_size, 512).astype(np.int32)))
     for _ in range(4):  # admits every slot, then warm decode ticks
         eng.step()
-    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (1, 1024))
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size,
+                                         (1, args.prefill))
                             .astype(np.int32)).to(dev)
     plen = toks.shape[1]
-    # warm the 1024 bucket (slot 0 is rewritten below and decodes on)
+    # warm the prefill's bucket (slot 0 is rewritten below and decodes on)
     eng._prefill(0, toks, plen - 1)
     torch.cuda.synchronize()
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
@@ -152,7 +158,7 @@ def main() -> None:
                            devtime.EXPECT[
         f"flash_attention_prefill_{kinds}" if kinds == "bf16"
         else "flash_attention_f32"])
-    report("prefill, bucket 1024", events, wall, 1)
+    report(f"prefill, bucket {plen}", events, wall, 1)
 
     def ticks():
         for _ in range(args.ticks):
