@@ -5,7 +5,7 @@ Run from the root of the repository (it imports ``src/repro_torch``):
 
     python3 chip_smoke.py [--out results.json]
 
-(``python3 tools/phase.py N`` runs phase 6, 7 or one of 16-22 alone.) Phases,
+(``python3 tools/phase.py N`` runs phase 6, 7 or one of 16-23 alone.) Phases,
 each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; build the
@@ -244,8 +244,8 @@ each fatal on failure:
    prefill bucket, split-K decodes at offsets 100, 4095-4097 and 8191 with
    the window on and off, each against its plain version (a decode also
    against its split-and-merge) with kernel, device and plain times, the
-   bound, and one call of torch's compiled ``flex_attention`` (soft-cap
-   as its score_mod, a block mask) as the library call; (b) gemma2-2b at
+   bound (the library call, torch's compiled ``flex_attention``, is
+   ``tools/profile_lm_kernels.py``'s); (b) gemma2-2b at
    full width and depth (26 layers, bf16, kernels on) served through
    ``examples/torch_serve_demo.py``'s ``serve``: 8 slots of 8192, 16
    requests of 32..6000 tokens, 32 new each, every request answered,
@@ -264,7 +264,29 @@ each fatal on failure:
    gemma2-2b at full width with 2 layers, a 6000-token prompt and 8
    teacher-forced steps with kernels on against off (atol 2e-3, rtol
    1e-3), and the SMOKE engine's tokens through ``serve`` equal to its own
-   ``forward``'s greedy continuation.
+   ``forward``'s greedy continuation;
+23. the solver's configurations (alone: ``tools/phase.py 23 [n]``), each
+   solved through ``rank_list_with_stats`` at p = 16 with both kernels on
+   and then off: (a) the paper's Fig 3, ``srs`` and ``doubling`` each
+   with direct routing over 16 PEs and two-hop grid routing on a 4x4
+   mesh, List(2^22, gamma=1); (b) Fig 4 on a (2, 2, 4) ("node", "row",
+   "col") mesh: direct (one hop over three axes), the three-hop grid,
+   topology-aware routing (("col",) then ("node", "row"): a hop over two
+   axes) and ``auto_indirection`` (the tuner's spec logged), with the
+   messages of each phase; (c) Fig 2 at 2^20: gamma 0, 0.5 and 1 with
+   local contraction off and on; (d) at 2^19: the faithful reversal,
+   the all-gather base, no request dedup, the unpacked wire
+   (``local_chase`` only), tuned rulers, ``algorithm="auto"``, capacity
+   estimation, and a forest of 64 random lists with int32 and
+   integer-valued float32 weights ((c) and (d) cut from 2^22 for the
+   phase's time). Each variant's two solves equal
+   ``rank_list_seq`` exactly and each other bit for bit with equal
+   integer counters, leave dropped, sub_overflow, store_miss and
+   undelivered at 0, and launch ``local_chase`` where (and only where)
+   local contraction is on and ``mailbox_pack`` where the wire is packed
+   (counts reset before each solve); walls, rounds, messages, attempts,
+   collectives per stage and launches go to
+   ``chiprun_out/chip_smoke_configs.json``.
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -274,8 +296,10 @@ no verdict.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
+import multiprocessing
 import os
 import pathlib
 import re
@@ -405,7 +429,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-22 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-23 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -437,6 +461,12 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    # the host's oracles, made in worker processes while the card works:
+    # the main path's (taken before phase 3 checks against it), then
+    # phase 23's instances
+    pool = host_pool()
+    oracle = pool.submit(_config_instance_child, ("list", n_main, 1.0))
+    config_made = config_futures(pool, CONFIG_N)
     t0 = time.time()
     build.load_library()
     results["build_s"] = time.time() - t0
@@ -458,9 +488,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     # the main path's instance and capacities (host side)
     t0 = time.time()
     succ_np, rank_np = instances.gen_list(n_main, gamma=1.0, seed=1)
-    s_ref, r_ref = rank_list_seq(succ_np, rank_np)
-    log(f"instance List({n_main}, gamma=1) and its oracle: "
-        f"{time.time() - t0:.1f} s on the host")
+    log(f"instance List({n_main}, gamma=1): {time.time() - t0:.1f} s on the "
+        f"host (its oracle in a worker process)")
     m = n_main // P_MAIN
     mesh = sim_mesh(P_MAIN)
     plan = exchange.MeshPlan.from_mesh(mesh, ("pe",), device=dev)
@@ -640,6 +669,10 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
                 and r.cpu().numpy().tobytes() == r_ref.tobytes()):
             fail(f"{what}: output differs from the sequential oracle")
 
+    t0 = time.time()
+    s_ref, r_ref = oracle.result()[2:]
+    del oracle
+    log(f"phase 3: waited {time.time() - t0:.1f} s for the oracle")
     lc_ops.LAUNCHES = 0
     mp_ops.LAUNCHES = 0
     s_on, r_on, st_on, wall_cold = solve(rank_np, cfg_on)
@@ -833,6 +866,13 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         kern["launches_examples"] = sum(counts[kern["name"]]
                                         for counts in parts.values())
 
+    # --------------------------------------------------------- phase 23
+    results["configs"] = configs_phase(dev, card, CONFIG_N, config_made)
+    pool.shutdown()
+    for kern in kernels:
+        kern["launches_configs"] = results["configs"]["launches"][
+            kern["name"]]
+
     results["card"] = card
     results["kernels"] = kernels
     if out_path:
@@ -878,11 +918,12 @@ def tree_oracle(parent: np.ndarray):
     return depth, size, pre, post
 
 
-def check_tree_stats(what, got, parent):
-    """Fail unless ``got``'s four arrays equal the oracle's."""
+def check_tree_stats(what, got, want):
+    """Fail unless ``got``'s four arrays equal ``want``, the oracle's
+    (:func:`tree_oracle`)."""
     for name, a, b in zip(("depth", "subtree_size", "preorder", "postorder"),
                           (got.depth, got.subtree_size, got.preorder,
-                           got.postorder), tree_oracle(parent)):
+                           got.postorder), want):
         if not np.array_equal(a, b):
             fail(f"{what}: {name} differs from the host oracle at "
                  f"{int(np.flatnonzero(a != b)[0])}")
@@ -951,7 +992,7 @@ def tree_phase(dev, n_tree: int, cfg_on, cfg_off) -> tuple:
 
     t = time.time()
     parent = instances.gen_tree_parents(n_tree, seed=SEED, locality=False)
-    tree_oracle(parent)  # timed here; the checks recompute it
+    want = tree_oracle(parent)
     oracle_s = time.time() - t
     mesh = sim_mesh(P_MAIN)
 
@@ -960,7 +1001,7 @@ def tree_phase(dev, n_tree: int, cfg_on, cfg_off) -> tuple:
                                   device=dev)
 
     cold, warm, res = run_path(6, call, torch, dev)
-    check_tree_stats("tree path (kernels on)", cold, parent)
+    check_tree_stats("tree path (kernels on)", cold, want)
     st = warm.stats
     if int_counters(st) != int_counters(cold.stats):
         fail("tree path: the warm rerun's counters differ")
@@ -1003,7 +1044,8 @@ def tree_phase(dev, n_tree: int, cfg_on, cfg_off) -> tuple:
                for s in range(FOREST_TREES)]
     for b, st_b in enumerate(treealg.solve_forest(parents, mesh, cfg=cfg_on,
                                                   device=dev)):
-        check_tree_stats(f"solve_forest tree {b}", st_b, parents[b])
+        check_tree_stats(f"solve_forest tree {b}", st_b,
+                         tree_oracle(parents[b]))
     log(f"phase 6: root_tree (n={FOREST_NODES}, new root {new_root}) and "
         f"solve_forest ({FOREST_TREES} trees of {FOREST_NODES} nodes): exact")
     return res, cold
@@ -1064,7 +1106,8 @@ def graph_phase(dev, n_graph: int, cfg_on, cfg_off) -> tuple:
     if not np.array_equal(cold.components, comp):
         fail("graph path: components differ from scipy's")
     check_forest(edges, n, cold, comp)
-    check_tree_stats("graph path (kernels on)", cold, cold.parent)
+    check_tree_stats("graph path (kernels on)", cold,
+                     tree_oracle(cold.parent))
     st = warm.stats
     if int_counters(st) != int_counters(cold.stats):
         fail("graph path: the warm rerun's counters differ")
@@ -4305,53 +4348,8 @@ EX_EXACT = (2, 6000, 8, 8192)
 EX_SMOKE_SERVE = (4, 192, 24)
 #: what the examples printed in (c) and (d)
 EX_OUT = OBS_TRACE.parent / "chip_smoke_examples.txt"
-#: (a)'s library column: one call of torch's compiled flex_attention
-LIBRARY = "flex_attention"
-
-
-def flex_yardstick(q, k, v, *, q_offset, window, softcap, scale):
-    """One call of torch's ``flex_attention`` computing what
-    ``flash_attention`` computes on (q, k, v): the soft-cap as its
-    ``score_mod``, the causal mask, the window and the per-slot offsets as
-    a block mask (built here, once, as a user builds it for every layer),
-    GQA by ``enable_gqa``. On the card its Triton kernel through
-    ``torch.compile``; on the CPU the unfused eager version, which checks
-    the masks there. Returns the zero-argument call."""
-    import torch
-    from torch.nn.attention import flex_attention as fx
-    b, _, lq, _ = q.shape
-    lk = k.shape[2]
-    pos0 = torch.as_tensor(q_offset, device=q.device).to(
-        torch.int32).reshape(-1).expand(b).contiguous()
-    # no window as a window past every key: one mask function, so the
-    # kernel compiles once a shape and dtype
-    win = torch.tensor(window or 1 << 30, dtype=torch.int32, device=q.device)
-
-    def mask_mod(bi, h, qi, ki):
-        pos = pos0[bi] + qi
-        return (ki <= pos) & (pos - ki < win)
-
-    def score_mod(s, bi, h, qi, ki):
-        return softcap * torch.tanh(s / softcap)
-
-    mask = fx.create_block_mask(mask_mod, b, None, lq, lk, device=q.device)
-    fn = fx.flex_attention
-    if q.is_cuda:
-        # in this process (no pool of compile workers), its caches beside
-        # the kernel library's build
-        from torch._inductor import config as inductor_config
-        from repro_torch.kernels import build
-        inductor_config.compile_threads = 1
-        # every (a) case's shape and dtype compiled, none left to eager
-        dyn = torch._dynamo.config
-        setattr(dyn, "recompile_limit" if hasattr(dyn, "recompile_limit")
-                else "cache_size_limit", 64)
-        for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
-                         ("TRITON_CACHE_DIR", "triton")):
-            os.environ.setdefault(var, str(build.BUILD_DIR / sub))
-        fn = torch.compile(fx.flex_attention, dynamic=False)
-    return lambda: fn(q, k, v, score_mod=score_mod, block_mask=mask,
-                      scale=scale, enable_gqa=True)
+#: (a)'s library call, compiled flex_attention, is timed there
+LIBRARY_TOOL = "tools/profile_lm_kernels.py"
 
 
 def example_values(out, path: str = "") -> dict:
@@ -4408,8 +4406,8 @@ def _gemma2_attention(dev, card: str) -> dict:
     """(a): ``flash_attention`` at gemma2-2b's heads over its 8192-key
     slot (``GEMMA2_ATTN_CASES``) in bf16 and f32 against its plain
     version, a decode also against its split-and-merge; kernel, device and
-    plain times, the bound, and the library call's time
-    (:func:`flex_yardstick`, held to the same tolerance)."""
+    plain times and the bound. The library call (torch's compiled
+    ``flex_attention``) is timed by ``tools/profile_lm_kernels.py``."""
     import torch
     sys.path.insert(0, str(ROOT / "tests"))
     from _torch_kernel_inputs import (ATTN_TOL, GEMMA2_ATTN_CASES,
@@ -4448,25 +4446,7 @@ def _gemma2_attention(dev, card: str) -> dict:
                          f"from its plain split-and-merge by "
                          f"{max_abs_err(out, parts, torch)}")
                 del parts
-            del out
-            t = time.perf_counter()
-            try:
-                library_call = flex_yardstick(q, k, v, **kw)
-                lib = library_call().float()
-                torch.cuda.synchronize()
-            except Exception as exc:  # the yardstick only: no gate
-                library_call, library = None, (
-                    f"none: {LIBRARY} does not run this case ("
-                    f"{type(exc).__name__}: {str(exc).splitlines()[0]})")
-            else:
-                library = (f"{LIBRARY}, compiled in "
-                           f"{time.perf_counter() - t:.1f} s")
-                if not torch.allclose(lib, want, **ATTN_TOL[dt]):
-                    fail(f"phase 22 (a): the {LIBRARY} yardstick computes "
-                         f"another function ({key}: "
-                         f"{max_abs_err(lib, want, torch)})")
-                del lib
-            del want
+            del out, want
 
             def kernel():
                 return fa_ops.flash_attention(q, k, v, **kw)
@@ -4474,8 +4454,6 @@ def _gemma2_attention(dev, card: str) -> dict:
             ms = time_ms(kernel, torch, reps=10)
             plain = time_ms(lambda: fa_ref.attention_ref(q, k, v, **kw),
                             torch, reps=5)
-            lib_ms = None if library_call is None else time_ms(
-                library_call, torch, reps=10)
             kname = ("f32" if dt == torch.float32 else
                      "decode_bf16" if lq == 1 else "prefill_bf16")
             dev_ms = device_ms(kernel, torch,
@@ -4488,15 +4466,14 @@ def _gemma2_attention(dev, card: str) -> dict:
                          "window": window, "max_abs_err": err, "ms": ms,
                          "device_ms": dev_ms, "plain_ms": plain,
                          "bound_ms": bnd, "bound_by": by,
-                         "library_ms": lib_ms, "library": library}
+                         "library_ms": None, "library": LIBRARY_TOOL}
             log(f"phase 22 (a): flash_attention {key} B={b} Hq={hq} "
                 f"Hkv={hkv} D={d} softcap={cap} window={window} Lq={lq} "
                 f"Lk={lk}" + (f" offsets {list(offs)}" if b > 1 else "")
                 + f": max |err| {err:.3g} (tolerance {ATTN_TOL[dt]}); kernel "
                   f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), plain "
-                  f"{plain:.4f} ms, bound {bnd:.4f} ms by {by}; library "
-                  f"{fmt_ms(lib_ms)} ({library}) [{card}]")
-            del q, k, v, library_call
+                  f"{plain:.4f} ms, bound {bnd:.4f} ms by {by} [{card}]")
+            del q, k, v
         torch.cuda.empty_cache()
     return rows
 
@@ -4792,6 +4769,265 @@ def examples_phase(dev, card: str = "") -> dict:
     log(f"phase 22: {res['phase_s']:.1f} s (the examples' output in "
         f"{EX_OUT.name})")
     return res
+
+
+# --------------------------------------------------------------- phase 23
+#: (a) and (b)'s list length (n/p = 2^18 at p = 16); (c) runs at a
+#: quarter of it, (d) at an eighth, for the phase's time limit
+CONFIG_N = 1 << 22
+#: (b)'s mesh: 2 nodes x 2 rows x 4 columns
+MESH3 = ((2, 2, 4), ("node", "row", "col"))
+#: the counters recorded for each variant
+CONFIG_COUNTERS = ("rounds", "pd_rounds", "chase_msgs", "pd_msgs",
+                   "fixup_msgs", "reversal_msgs", "attempts")
+#: counters every variant's solve must leave at 0
+CONFIG_ZEROS = ("dropped", "sub_overflow", "store_miss", "undelivered")
+#: the variants' rows, beside the other phases' files
+CONFIG_OUT = OBS_TRACE.parent / "chip_smoke_configs.json"
+
+
+def config_variants(n: int) -> list:
+    """Phase 23's variants as (group, name, instance, mesh, indirection,
+    ListRankConfig fields). An instance is ("list", n, gamma) for
+    ``gen_list(n, gamma, seed=1)`` or ("forest", n, weights) for
+    ``gen_random_lists(n, 64, seed=5, weighted=True)`` with its int32
+    weights or integer-valued float32 ones; a mesh "flat" (16 PEs),
+    "grid" (4 x 4) or "mesh3" (``MESH3``); an indirection None (direct,
+    or the tuner's choice), ("grid",) over every axis, or ("topology",
+    intra axes, inter axes). (a) and (b) run at ``n`` elements, (c) at
+    n / 4, (d) at n / 8; (c) and (d) come first, so that the host makes
+    (a)'s instance while the card solves theirs."""
+    n_c, n_d = n // 4, n // 8
+    a = ("list", n, 1.0)
+    d = ("list", n_d, 1.0)
+    topo = ("topology", ("col",), ("node", "row"))
+    out = []
+    for gamma in (0.0, 0.5, 1.0):  # Fig 2
+        for contract in (False, True):
+            out.append(("c", f"gamma {gamma} "
+                        f"{'contraction' if contract else 'plain'}",
+                        ("list", n_c, gamma), "flat", None,
+                        {"local_contraction": contract}))
+    out += [("d", name, d, "flat", None, fields) for name, fields in (
+        ("reversal", {"avoid_reversal": False}),
+        ("allgather base", {"base_case": "allgather"}),
+        ("no dedup", {"dedup_requests": False}),
+        ("unpacked wire", {"wire_packing": False, "srs_rounds": 2,
+                           "local_contraction": True}),
+        ("tuned rulers", {"ruler_fraction": None}),
+        ("algorithm auto", {"algorithm": "auto"}),
+        ("capacity estimation", {"capacity_estimation": True}))]
+    out += [("d", f"forest {w}", ("forest", n_d, w), "flat", None, {})
+            for w in ("int32", "float32")]
+    for algo in ("srs", "doubling"):  # Fig 3
+        for mesh, ind in (("flat", None), ("grid", ("grid",))):
+            out.append(("a", f"{algo} {'grid' if ind else 'direct'}", a,
+                        mesh, ind, {"algorithm": algo}))
+    out += [("b", "direct", a, "mesh3", None, {}),  # Fig 4
+            ("b", "grid", a, "mesh3", ("grid",), {}),
+            ("b", "topology", a, "mesh3", topo, {}),
+            ("b", "auto_indirection", a, "mesh3", None,
+             {"auto_indirection": True})]
+    return out
+
+
+def config_instance(inst) -> tuple:
+    """(succ, rank, oracle succ, oracle rank) of a ``config_variants``
+    instance, made on the host."""
+    from repro_torch.core.listrank import instances, rank_list_seq
+    kind, n, arg = inst
+    if kind == "list":
+        succ, rank = instances.gen_list(n, gamma=arg, seed=1)
+    else:
+        succ, rank = instances.gen_random_lists(n, num_lists=64, seed=5,
+                                                weighted=True)
+        if arg == "float32":
+            # integer-valued weights: every partial sum is exact in any
+            # summation order (sums below 3 n < 2^24)
+            rank = np.random.default_rng(5).integers(
+                0, 4, n).astype(np.float32)
+            rank[succ == np.arange(n)] = 0
+    return (succ, rank) + tuple(rank_list_seq(succ, rank))
+
+
+def _config_instance_child(inst) -> tuple:
+    """:func:`config_instance` in a worker process (the host's instances
+    and oracles are made there while the card solves)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    return config_instance(inst)
+
+
+def _config_solve(dev, succ, rank, mesh, ind, cfg) -> dict:
+    """One solve with both kernels' counts reset just before it: outputs,
+    stats, wall and launches."""
+    import torch
+    from repro_torch.core.listrank import rank_list_with_stats
+    from repro_torch.kernels.local_chase import ops as lc_ops
+    from repro_torch.kernels.mailbox_pack import ops as mp_ops
+    lc_ops.LAUNCHES = 0
+    mp_ops.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s, r, st = rank_list_with_stats(succ, rank, mesh, cfg=cfg,
+                                    indirection=ind, seed=SEED, device=dev,
+                                    stage_counters=True)
+    torch.cuda.synchronize()
+    return {"succ": s, "rank": r, "stats": st,
+            "wall_s": time.perf_counter() - t,
+            "launches": {"local_chase": lc_ops.LAUNCHES,
+                         "mailbox_pack": mp_ops.LAUNCHES}}
+
+
+def _config_checks(what: str, runs: dict, oracle: tuple,
+                   fields: dict) -> None:
+    """Fail unless both runs equal the oracle, each other (bits and
+    integer counters), leave ``CONFIG_ZEROS`` at 0, and launched each
+    kernel where (and only where) the path reaches it."""
+    import torch
+    on, off = runs["on"], runs["off"]
+    for key, run in runs.items():
+        s, r = run["succ"].cpu().numpy(), run["rank"].cpu().numpy()
+        if not (np.array_equal(s, oracle[0]) and r.dtype == oracle[1].dtype
+                and r.tobytes() == oracle[1].tobytes()):
+            fail(f"phase 23 {what}: kernels {key}: output differs from "
+                 f"rank_list_seq")
+        bad = {k: run["stats"][k] for k in CONFIG_ZEROS if run["stats"][k]}
+        if bad:
+            fail(f"phase 23 {what}: kernels {key}: {bad}")
+    if not (torch.equal(on["succ"], off["succ"]) and on["rank"].cpu().numpy(
+            ).tobytes() == off["rank"].cpu().numpy().tobytes()):
+        fail(f"phase 23 {what}: kernels on and off differ in bits")
+    ints_on, ints_off = (int_counters(on["stats"]),
+                         int_counters(off["stats"]))
+    if ints_on != ints_off:
+        fail(f"phase 23 {what}: counters differ, on {ints_on}, off "
+             f"{ints_off}")
+    if any(off["launches"].values()):
+        fail(f"phase 23 {what}: kernels off launched {off['launches']}")
+    cfg = {"local_contraction": True, "wire_packing": True, **fields}
+    for name, flag in (("local_chase", "local_contraction"),
+                       ("mailbox_pack", "wire_packing")):
+        got = on["launches"][name]
+        if cfg[flag] and got < 1:
+            fail(f"phase 23 {what}: {name} was not launched with "
+                 f"{flag} on")
+        if not cfg[flag] and got:
+            fail(f"phase 23 {what}: {name} launched {got} times with "
+                 f"{flag} off")
+
+
+def host_pool():
+    """Two spawned worker processes for the host's instances and
+    oracles."""
+    return concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+
+
+def config_futures(pool, n: int = CONFIG_N) -> dict:
+    """{instance: its future on ``pool``} for phase 23's variants at
+    ``n``, submitted in the order the variants use them."""
+    return {inst: pool.submit(_config_instance_child, inst)
+            for inst in dict.fromkeys(v[2] for v in config_variants(n))}
+
+
+def configs_phase(dev, card: str = "", n: int = CONFIG_N,
+                  made=None) -> dict:
+    """Phase 23: the solver's configurations, each variant of
+    :func:`config_variants` solved through ``rank_list_with_stats`` at p
+    = 16 with both kernels on, then off (:func:`_config_checks`); per
+    variant the walls, ``CONFIG_COUNTERS``, the collectives per stage and
+    the launches, written to ``CONFIG_OUT``. The instances and their
+    oracles come from ``made`` (:func:`config_futures`, submitted early by
+    :func:`run`), or are made here in two worker processes while the card
+    solves."""
+    from repro_torch.core.listrank import sim_mesh
+    t0 = time.perf_counter()
+    meshes = {"flat": sim_mesh(P_MAIN),
+              "grid": sim_mesh((4, 4), ("row", "col")),
+              "mesh3": sim_mesh(*MESH3)}
+    pool = None
+    if made is None:
+        pool = host_pool()
+        made = config_futures(pool, n)
+    try:
+        rows, launches, wait_s = _config_rows(
+            dev, card, config_variants(n), made, meshes)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+    for row in rows:
+        if row["group"] == "b":
+            log(f"phase 23 (b) messages by phase, {row['name']} (hops "
+                f"{row['hops']}): chase {row['chase_msgs']}, base "
+                f"{row['pd_msgs']}, propagate+fix {row['fixup_msgs']}")
+    res = {"rows": rows, "launches": launches, "host_wait_s": wait_s,
+           "phase_s": time.perf_counter() - t0}
+    CONFIG_OUT.parent.mkdir(parents=True, exist_ok=True)
+    CONFIG_OUT.write_text(json.dumps(res, indent=1))
+    log(f"phase 23: {len(rows)} variants, {res['phase_s']:.1f} s "
+        f"({wait_s:.1f} s waiting for the host's instances and oracles); "
+        f"launches {launches}")
+    return res
+
+
+def _config_rows(dev, card: str, variants: list, made: dict,
+                 meshes: dict) -> tuple:
+    """Phase 23's variants solved and checked in turn, each instance taken
+    from its future in ``made`` (and dropped after its last use): (rows,
+    launches summed over the kernels-on solves, seconds spent waiting for
+    instances)."""
+    from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
+                                           tuner)
+    last_use = {v[2]: i for i, v in enumerate(variants)}
+    rows, launches = [], {k: 0 for k in kernel_ops()}
+    wait_s = 0.0
+    for i, (group, name, inst, mesh_key, ind, fields) in enumerate(
+            variants):
+        t = time.perf_counter()
+        succ, rank, s_ref, r_ref = made[inst].result()
+        wait_s += time.perf_counter() - t
+        mesh = meshes[mesh_key]
+        spec = (None if ind is None else IndirectionSpec.grid(
+            mesh.axis_names) if ind[0] == "grid" else
+            IndirectionSpec.topology(*ind[1:]))
+        what = f"({group}) {name}"
+        runs = {}
+        for key, on in (("on", True), ("off", False)):
+            cfg = ListRankConfig(**fields, use_pallas=on, use_pallas_pack=on)
+            runs[key] = _config_solve(dev, succ, rank, mesh, spec, cfg)
+        _config_checks(what, runs, (s_ref, r_ref), fields)
+        st = runs["on"]["stats"]
+        hops = (spec.hops if spec is not None else tuner.choose_indirection(
+            ListRankConfig(), mesh.axis_names, mesh.axis_sizes,
+            inst[1]).hops if fields.get("auto_indirection") else
+            (tuple(mesh.axis_names),))
+        coll = {label: dict(c) for label, c in st["stage_collectives"]}
+        a2a = sum(c.get("all_to_all", 0) for c in coll.values())
+        row = {"group": group, "name": name, "n": inst[1],
+               "instance": list(inst), "mesh": list(mesh.axis_sizes),
+               "hops": [list(h) for h in hops], "config": fields,
+               "wall_on_s": runs["on"]["wall_s"],
+               "wall_off_s": runs["off"]["wall_s"],
+               **{k: st[k] for k in CONFIG_COUNTERS},
+               "stage_collectives": coll, "all_to_all": a2a,
+               "launches": runs["on"]["launches"]}
+        rows.append(row)
+        for k, v in row["launches"].items():
+            launches[k] += v
+        log(f"phase 23 {what}: n={inst[1]} mesh {row['mesh']} hops "
+            f"{row['hops']}: exact, on = off; walls on / off "
+            f"{row['wall_on_s']:.3f} / {row['wall_off_s']:.3f} s; "
+            + ", ".join(f"{k} {row[k]}" for k in CONFIG_COUNTERS)
+            + f"; launches {row['launches']} ({a2a} all_to_all counted) "
+              f"[{card}]")
+        log("    collectives per stage: " + "; ".join(
+            f"{label} " + ",".join(f"{k} {v}" for k, v in c.items())
+            for label, c in coll.items()))
+        for key in [k for k, j in last_use.items() if j == i]:
+            del made[key]
+        del runs
+    return rows, launches, wait_s
 
 
 if __name__ == "__main__":

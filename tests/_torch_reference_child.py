@@ -5,8 +5,9 @@ tests (``tests/test_torch_treealg.py``, ``tests/test_torch_graphalg.py``,
 ``tests/test_torch_faultinject.py``, ``tests/test_torch_obs.py``,
 ``tests/test_torch_telemetry.py``, ``tests/test_torch_moe_ep.py``,
 ``tests/test_torch_compression.py``, ``tests/test_torch_remat.py``,
-``tests/test_torch_dist_recovery.py``), and the reference's examples
-(``tests/test_torch_examples_*.py``).
+``tests/test_torch_dist_recovery.py``), its routings on a three-axis
+mesh (``tests/test_torch_routing_parity.py``), and the reference's
+examples (``tests/test_torch_examples_*.py``).
 
 Each of these calls compiles large simshard programs, and many such
 compiles in one pytest worker have crashed XLA's CPU compiler in a later
@@ -298,6 +299,24 @@ def graph_telemetry(mode, edges, n):
         labels, stats = gs.components, gs.stats
     return {"labels": np.asarray(labels), "stats": _ints(stats),
             "telemetry": stats["telemetry"], "trace": span_tree(tr)}
+
+
+def routing_solve(succ, rank, shape, names, fields, ind):
+    """One solve of (succ, rank) on ``sim_mesh(shape, names)`` with
+    ``ListRankConfig(**fields)`` and the indirection ``ind``
+    (``("topology", intra, inter)``, ``("grid",)`` or None): its outputs
+    and integer stats, and the hops the tuner chooses for the mesh at
+    this n."""
+    from repro.core.listrank import (IndirectionSpec, ListRankConfig,
+                                     rank_list_with_stats, sim_mesh, tuner)
+    spec = (None if ind is None else IndirectionSpec.grid(names)
+            if ind[0] == "grid" else IndirectionSpec.topology(*ind[1:]))
+    s, r, st = rank_list_with_stats(succ, rank, sim_mesh(shape, names),
+                                    cfg=ListRankConfig(**fields),
+                                    indirection=spec)
+    return {"succ": np.asarray(s), "rank": np.asarray(r), "stats": _ints(st),
+            "chosen": tuner.choose_indirection(ListRankConfig(), names, shape,
+                                               succ.shape[0]).hops}
 
 
 def _moe_layer_setup(arch, ffn, x):
@@ -736,7 +755,8 @@ JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 spanning_forest, fingerprints,
                                 preempted_solve, resumed_solve,
                                 telemetry_solve, tree_telemetry,
-                                graph_telemetry, moe_layer_ep,
+                                graph_telemetry, routing_solve,
+                                moe_layer_ep,
                                 moe_layer_dense, moe_train_step, qint8,
                                 compressed_psum, adamw_int8, loss_grads,
                                 dryrun_cell, dryrun_formulas,

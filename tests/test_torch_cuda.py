@@ -219,6 +219,81 @@ def test_route_cuda_sorted_pack_on_the_4x4_grid(cuda):
         assert torch.equal(a, b)
 
 
+#: a three-axis mesh and its topology-aware spec: ("col",), then one hop
+#: over ("node", "row")
+MESH3 = ((2, 2, 4), ("node", "row", "col"))
+TOPOLOGY = (("col",), ("node", "row"))
+
+
+@pytest.mark.torch_cuda
+def test_route_cuda_sorted_pack_under_the_topology_spec(cuda):
+    """Two-hop topology-aware routing on the (2, 2, 4) mesh (4 buckets on
+    the intra-node hop, 4 on the hop over two axes): the kernel's packed
+    route equals the slot scatter's, byte for byte."""
+    from repro_torch.core.listrank import exchange, transport
+    from repro_torch.core.listrank.config import IndirectionSpec
+    p, q = 16, 3000
+    g = torch.Generator().manual_seed(5)
+    payload = {"a": torch.randint(-9, 99, (p, q), generator=g,
+                                  dtype=torch.int32).to(cuda),
+               "f": torch.randn((p, q), generator=g).to(cuda)}
+    dest = torch.randint(0, p, (p, q), generator=g,
+                         dtype=torch.int32).to(cuda)
+    valid = (torch.rand((p, q), generator=g) < 0.8).to(cuda)
+    outs = []
+    for pallas_pack in (True, False):
+        plan = exchange.MeshPlan.from_mesh(
+            transport.sim_mesh(*MESH3), MESH3[1],
+            IndirectionSpec.topology(*TOPOLOGY), pallas_pack=pallas_pack,
+            device=cuda)
+        before = mp_ops.LAUNCHES
+        outs.append(exchange.route(plan, [700, 180], payload, dest, valid))
+        assert mp_ops.LAUNCHES == before + 2 * pallas_pack
+    (d1, v1, _, s1), (d2, v2, _, s2) = outs
+    assert torch.equal(v1, v2)
+    for k in d1:
+        assert torch.equal(d1[k].view(torch.int32), d2[k].view(torch.int32))
+    for a, b in zip(s1["sent"], s2["sent"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("variant", [
+    {"algorithm": "doubling"},
+    {"avoid_reversal": False},
+    {"base_case": "allgather"},
+    {"wire_packing": False, "srs_rounds": 2}],
+    ids=["doubling", "reversal", "allgather_base", "unpacked"])
+def test_solver_configs_cuda_kernels_on_equal_off(cuda, variant):
+    """At n = 2^14 under the topology spec on the (2, 2, 4) mesh: each
+    configuration solved twice with both kernels on and twice with both
+    off gives the oracle's outputs, and all four runs the same bits and
+    integer counters (the scatters of these paths are deterministic on
+    the card)."""
+    from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
+                                           instances, rank_list_seq,
+                                           rank_list_with_stats, sim_mesh)
+    succ, rank = instances.gen_list(1 << 14, gamma=0.5, seed=6)
+    s_ref, r_ref = rank_list_seq(succ, rank)
+    runs = []
+    for on in (True, True, False, False):
+        cfg = ListRankConfig(**variant, use_pallas=on, use_pallas_pack=on)
+        lc_ops.LAUNCHES = mp_ops.LAUNCHES = 0
+        s, r, st = rank_list_with_stats(
+            succ, rank, sim_mesh(*MESH3), cfg=cfg, device=cuda,
+            indirection=IndirectionSpec.topology(*TOPOLOGY))
+        launches = (lc_ops.LAUNCHES, mp_ops.LAUNCHES)
+        packed = variant.get("wire_packing", True)
+        assert launches == ((1, launches[1]) if on else (0, 0))
+        assert (launches[1] > 0) == (on and packed)
+        runs.append((s.cpu(), r.cpu(), _int_stats(st)))
+    np.testing.assert_array_equal(runs[0][0].numpy(), s_ref)
+    np.testing.assert_array_equal(runs[0][1].numpy(), r_ref)
+    for s, r, ints in runs[1:]:
+        assert torch.equal(s, runs[0][0]) and torch.equal(r, runs[0][1])
+        assert ints == runs[0][2]
+
+
 @pytest.mark.torch_cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", range(len(ATTN_CASES)))

@@ -206,9 +206,10 @@ def test_split_merge_per_slot_offsets(window, softcap):
     assert torch.count_nonzero(out[4]) == 0 and torch.isfinite(out).all()
 
 
-def _chip_smoke():
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+def _profile_lm_kernels():
+    path = (pathlib.Path(__file__).resolve().parents[1] / "tools"
+            / "profile_lm_kernels.py")
+    spec = importlib.util.spec_from_file_location("profile_lm_kernels", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -217,8 +218,9 @@ def _chip_smoke():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", range(len(GEMMA2_ATTN_CASES)))
 def test_flex_yardstick_computes_the_kernels_function(case, dtype):
-    """``chip_smoke.py`` phase 22 (a) times one call of torch's
-    ``flex_attention`` beside the kernel at gemma2-2b's heads. Its masks
+    """``tools/profile_lm_kernels.py`` times one call of torch's
+    ``flex_attention`` beside the kernel at gemma2-2b's heads
+    (``chip_smoke.py`` phase 22 (a)'s shapes). Its masks
     and soft-cap, run eager here, give the plain version's output on each
     case at 1/32 of its lengths (the window 128, decode offsets about its
     edge)."""
@@ -231,6 +233,6 @@ def test_flex_yardstick_computes_the_kernels_function(case, dtype):
     q, k, v = attn_inputs(b, hq, hkv, lq, lk, d, seed=case, dtype=dtype)
     kw = dict(q_offset=offs[0] if b == 1 else torch.tensor(offs),
               window=window, softcap=cap, scale=scale)
-    got = _chip_smoke().flex_yardstick(q, k, v, **kw)()
+    got = _profile_lm_kernels().flex_yardstick(q, k, v, **kw)()
     want = fa_ref.attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])

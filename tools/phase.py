@@ -29,7 +29,11 @@ attention kernels, runs phase ``N`` and exits non-zero on any failure:
 - 22: the port's examples and gemma2-2b's path: ``flash_attention`` at its
   heads (D 256, soft-cap 50, a 4096-key window), gemma2-2b served at full
   width, the list examples with and without ``--kernels``, llama-100m
-  trained and resumed, float32 exactness.
+  trained and resumed, float32 exactness;
+- 23: the solver's configurations (the paper's Figs 2-4 and the other
+  switches), each solved with both kernels on and off against the
+  sequential oracle: groups (a) and (b) at ``n`` elements (default
+  ``chip_smoke.CONFIG_N``, 2^22), (c) at n / 4, (d) at n / 8.
 """
 from __future__ import annotations
 
@@ -117,6 +121,8 @@ def main() -> None:
         20: chip_smoke.recovery_dist_phase,
         21: chip_smoke.dryrun_phase,
         22: chip_smoke.examples_phase,
+        23: lambda dev, card: chip_smoke.configs_phase(
+            dev, card, size(chip_smoke.CONFIG_N)),
     }
     if len(sys.argv) < 2 or int(sys.argv[1]) not in phases:
         chip_smoke.fail(f"usage: tools/phase.py N [n], N one of "

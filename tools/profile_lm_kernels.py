@@ -19,7 +19,14 @@ inside), and for attention the rate in TFLOP/s over the unmasked pairs
   per-slot offsets), each beside ``scaled_dot_product_attention`` on the
   same inputs (its backend's kernels are named);
 - ``ssd_scan`` at mamba2-130m's training shape (Bt 8, L 1024, H 24, P 64,
-  G 1, N 128, chunk 256) and at Bt 1, each of its four kernels apart.
+  G 1, N 128, chunk 256) and at Bt 1, each of its four kernels apart;
+- the library call beside ``flash_attention`` at gemma2-2b's heads (Hq 8,
+  Hkv 4, D 256, soft-cap 50) over its 8192-key slot, every case of
+  ``GEMMA2_ATTN_CASES`` in bf16 and f32 (``chip_smoke.py`` phase 22 (a)'s
+  shapes): one call of torch's compiled ``flex_attention``
+  (:func:`flex_yardstick`), held to the kernel's tolerance against the
+  plain version, its compile seconds and its CUDA-event ms beside the
+  kernel's.
 """
 from __future__ import annotations
 
@@ -81,6 +88,101 @@ def report(what: str, fn, torch, expect: dict,
         print(f"    {ms:.4f} ms  {name[:100]}")
 
 
+def flex_yardstick(q, k, v, *, q_offset, window, softcap, scale):
+    """One call of torch's ``flex_attention`` computing what
+    ``flash_attention`` computes on (q, k, v): the soft-cap as its
+    ``score_mod``, the causal mask, the window and the per-slot offsets as
+    a block mask (built here, once, as a user builds it for every layer),
+    GQA by ``enable_gqa``. On the card its Triton kernel through
+    ``torch.compile``; on the CPU the unfused eager version, which checks
+    the masks there. Returns the zero-argument call."""
+    import os
+    import torch
+    from torch.nn.attention import flex_attention as fx
+    b, _, lq, _ = q.shape
+    lk = k.shape[2]
+    pos0 = torch.as_tensor(q_offset, device=q.device).to(
+        torch.int32).reshape(-1).expand(b).contiguous()
+    # no window as a window past every key: one mask function, so the
+    # kernel compiles once a shape and dtype
+    win = torch.tensor(window or 1 << 30, dtype=torch.int32, device=q.device)
+
+    def mask_mod(bi, h, qi, ki):
+        pos = pos0[bi] + qi
+        return (ki <= pos) & (pos - ki < win)
+
+    def score_mod(s, bi, h, qi, ki):
+        return softcap * torch.tanh(s / softcap)
+
+    mask = fx.create_block_mask(mask_mod, b, None, lq, lk, device=q.device)
+    fn = fx.flex_attention
+    if q.is_cuda:
+        # in this process (no pool of compile workers), its caches beside
+        # the kernel library's build
+        from torch._inductor import config as inductor_config
+        from repro_torch.kernels import build
+        inductor_config.compile_threads = 1
+        # every case's shape and dtype compiled, none left to eager
+        dyn = torch._dynamo.config
+        setattr(dyn, "recompile_limit" if hasattr(dyn, "recompile_limit")
+                else "cache_size_limit", 64)
+        for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                         ("TRITON_CACHE_DIR", "triton")):
+            os.environ.setdefault(var, str(build.BUILD_DIR / sub))
+        fn = torch.compile(fx.flex_attention, dynamic=False)
+    return lambda: fn(q, k, v, score_mod=score_mod, block_mask=mask,
+                      scale=scale, enable_gqa=True)
+
+
+def gemma2_library(dev, torch) -> None:
+    """flex_attention beside the kernel at every ``GEMMA2_ATTN_CASES``
+    case in bf16 and f32, each held to ``ATTN_TOL`` against the plain
+    version; a case flex does not run prints why."""
+    from _torch_kernel_inputs import (ATTN_TOL, GEMMA2_ATTN_CASES,
+                                      GEMMA2_HEADS)
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import time_ms
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    hq, hkv, d, scale, cap = GEMMA2_HEADS
+    for name, b, lq, lk, offs, window in GEMMA2_ATTN_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device=dev).manual_seed(22)
+            q = torch.randn((b, hq, lq, d), generator=g, device=dev).to(dt)
+            k = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dt)
+            v = torch.randn((b, hkv, lk, d), generator=g, device=dev).to(dt)
+            off = offs[0] if b == 1 else torch.tensor(
+                offs, dtype=torch.int32, device=dev)
+            kw = dict(q_offset=off, window=window, softcap=cap, scale=scale)
+            key = f"{name}_{str(dt).removeprefix('torch.')}"
+            want = fa_ref.attention_ref(q, k, v, **kw).float()
+            t = time.perf_counter()
+            try:
+                call = flex_yardstick(q, k, v, **kw)
+                got = call().float()
+                torch.cuda.synchronize()
+            except Exception as exc:
+                print(f"flex_attention {key}: does not run this case "
+                      f"({type(exc).__name__}: "
+                      f"{str(exc).splitlines()[0]})")
+                continue
+            compile_s = time.perf_counter() - t
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, **ATTN_TOL[dt]):
+                sys.exit(f"profile_lm_kernels: flex_attention {key} computes "
+                         f"another function (max |err| {err})")
+            del got, want
+            lib = time_ms(call, torch, reps=10)
+            ker = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
+                          torch, reps=10)
+            print(f"flex_attention {key} B {b} Lq {lq} Lk {lk} window "
+                  f"{window}: max |err| {err:.3g} (tolerance {ATTN_TOL[dt]});"
+                  f" compiled in {compile_s:.1f} s; {lib:.4f} ms, the kernel "
+                  f"{ker:.4f} ms (CUDA events, median of 10)")
+            del q, k, v, call
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     import torch.nn.functional as F
@@ -92,7 +194,11 @@ def main() -> None:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     dev = torch.device("cuda", 0)
-    print(f"card {torch.cuda.get_device_name(0)}")
+    import subprocess
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"card {torch.cuda.get_device_name(0)} ({smi})")
     g = torch.Generator(device=dev).manual_seed(11)
     hq, hkv, d = 32, 4, 64
     for b, lq, lk, causal in ((1, 1024, 2048, True), (1, 1024, 2048, False),
@@ -132,6 +238,8 @@ def main() -> None:
         report(f"ssd_scan bf16 Bt {bt} L 1024 H 24 P 64 N 128 chunk 256",
                lambda: ssd_ops.ssd_scan(*args, 256), torch,
                devtime.EXPECT["ssd_scan_bf16"])
+
+    gemma2_library(dev, torch)
 
 
 if __name__ == "__main__":
