@@ -5,7 +5,7 @@ Run from the root of the repository (it imports ``src/repro_torch``):
 
     python3 chip_smoke.py [--out results.json]
 
-(``python3 tools/phase.py N`` runs phase 6, 7 or one of 16-23 alone.) Phases,
+(``python3 tools/phase.py N`` runs phase 6, 7 or one of 16-24 alone.) Phases,
 each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; build the
@@ -286,7 +286,32 @@ each fatal on failure:
    local contraction is on and ``mailbox_pack`` where the wire is packed
    (counts reset before each solve); walls, rounds, messages, attempts,
    collectives per stage and launches go to
-   ``chiprun_out/chip_smoke_configs.json``.
+   ``chiprun_out/chip_smoke_configs.json``;
+24. the head-dim-128 decoders (alone: ``tools/phase.py 24``): (a)
+   ``flash_attention`` at the heads of qwen2.5-14b, phi4-mini-3.8b and
+   pixtral-12b (Hq / Hkv 40 / 8, 24 / 8 and 32 / 8: GQA groups 5, 3 and 4;
+   D 128, causal, no window) in bf16 and f32: a prefill at Lq = Lk = 4096,
+   a 1024-token prefill bucket over an 8192-key slot and a split-K decode
+   of 5 slots over 8192 keys at offsets 0, 1, 4095, 6000 and 8191, each
+   against its plain version (a bf16 decode also against its
+   split-and-merge) with kernel, device and plain times and the bound
+   (SDPA at the same cases is ``tools/profile_lm_kernels.py``'s); (b)
+   qwen2.5-14b (its q/k/v biases redrawn as seeded normals x 0.02), (c)
+   phi4-mini-3.8b (its tied 200 064-token head) and (d) pixtral-12b at
+   full width and depth (bf16, kernels on) served through
+   ``examples/torch_serve_demo.py``'s ``serve`` with 22 (b)'s traffic:
+   every request answered with tokens in the vocabulary (no padded row of
+   the head), ``flash_attention`` exactly layers x (prefills + ticks) and
+   no other kernel; prefill ms per bucket, decode ms per tick, tokens/s,
+   p50/p90 latency, weight and cache bytes, the init's peak memory and the
+   run's (the counter reset with the weights and the cache allocated);
+   then pixtral through ``M.prefill`` with 2 x 1024 patch embeddings in
+   front of 64 tokens a row into a 2048-position cache and 32 greedy
+   ``M.decode_step``s at positions 1088 + i: finite logits, exactly the
+   filled positions, 40 x 33 launches; (e) float32, TF32 off: each at full
+   width with 2 layers, a 6000-token prompt (pixtral's behind 1024 patch
+   embeddings) and 8 teacher-forced steps with kernels on against off
+   (atol 2e-3, rtol 1e-3).
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -429,7 +454,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-23 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-24 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -872,6 +897,12 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     for kern in kernels:
         kern["launches_configs"] = results["configs"]["launches"][
             kern["name"]]
+
+    # --------------------------------------------------------- phase 24
+    results["d128"] = d128_phase(dev, card)
+    fa_entry["d128"] = results["d128"]["attention"]
+    for kern in kernels:
+        kern["launches_d128"] = results["d128"]["launches"][kern["name"]]
 
     results["card"] = card
     results["kernels"] = kernels
@@ -1439,21 +1470,27 @@ def serve_phase(dev) -> dict:
 
 # ---------------------------------------------------------------- phase 10
 def teacher_forced_logits(params, cfg, prompt, steps: int, max_seq: int, dev,
-                          teacher=None):
-    """(logits (1, 1 + steps, V), the tokens fed): ``prompt`` (1, L)
-    prefilled into a cache of ``max_seq``, then ``steps`` decode steps fed
-    ``teacher``'s tokens, or the greedy ones when None."""
+                          teacher=None, prefix_embeds=None):
+    """(logits (1, 1 + steps, V), the tokens fed): ``prompt`` (1, L),
+    behind ``prefix_embeds`` (1, P, ``cfg.prefix_embed_dim``) if given,
+    prefilled into a cache of ``max_seq``, then ``steps`` decode steps from
+    position P + L fed ``teacher``'s tokens, or the greedy ones when
+    None."""
     from repro_torch.models import model as M
     import torch
+    batch = {"tokens": prompt}
+    start = prompt.shape[1]
+    if prefix_embeds is not None:
+        batch["prefix_embeds"] = prefix_embeds
+        start += prefix_embeds.shape[1]
     cache = M.init_cache(cfg, 1, max_seq, dev)
-    lg, cache = M.prefill(params, {"tokens": prompt}, cfg, cache)
+    lg, cache = M.prefill(params, batch, cfg, cache)
     out, fed = [lg], []
     for i in range(steps):
         tok = teacher[i] if teacher is not None else \
             torch.argmax(lg[0, 0, :cfg.vocab_size]).view(1, 1).int()
         fed.append(tok)
-        lg, cache = M.decode_step(params, tok, prompt.shape[1] + i, cfg,
-                                  cache)
+        lg, cache = M.decode_step(params, tok, start + i, cfg, cache)
         out.append(lg)
     return torch.cat(out, dim=1), fed
 
@@ -4402,24 +4439,25 @@ def quiet(fn, text: list, title: str):
         text.append(f"== {title}\n{buf.getvalue()}")
 
 
-def _gemma2_attention(dev, card: str) -> dict:
-    """(a): ``flash_attention`` at gemma2-2b's heads over its 8192-key
-    slot (``GEMMA2_ATTN_CASES``) in bf16 and f32 against its plain
-    version, a decode also against its split-and-merge; kernel, device and
-    plain times and the bound. The library call (torch's compiled
-    ``flex_attention``) is timed by ``tools/profile_lm_kernels.py``."""
+def attention_rows(dev, card: str, tag: str, heads: tuple,
+                   cases: list) -> dict:
+    """``flash_attention`` at ``heads`` (Hq, Hkv, D, scale, soft-cap) on
+    each of ``cases`` (name, b, lq, lk, per-slot offsets, window) in bf16
+    and f32 against its plain version, a decode also against its
+    split-and-merge; kernel, device and plain times and the bound, logged
+    under ``tag``. The library call is timed by
+    ``tools/profile_lm_kernels.py``."""
     import torch
     sys.path.insert(0, str(ROOT / "tests"))
-    from _torch_kernel_inputs import (ATTN_TOL, GEMMA2_ATTN_CASES,
-                                      GEMMA2_HEADS)
+    from _torch_kernel_inputs import ATTN_TOL
     from repro_torch import devtime
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    hq, hkv, d, scale, cap = GEMMA2_HEADS
+    hq, hkv, d, scale, cap = heads
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
-    for name, b, lq, lk, offs, window in GEMMA2_ATTN_CASES:
+    for name, b, lq, lk, offs, window in cases:
         for dt in (torch.bfloat16, torch.float32):
             g = torch.Generator(device=dev).manual_seed(22)
             q = torch.randn((b, hq, lq, d), generator=g, device=dev).to(dt)
@@ -4434,15 +4472,16 @@ def _gemma2_attention(dev, card: str) -> dict:
             torch.cuda.synchronize()
             err = max_abs_err(out, want, torch)
             if not torch.allclose(out, want, **ATTN_TOL[dt]):
-                fail(f"phase 22 (a): flash_attention {key} differs from its "
+                fail(f"{tag}: flash_attention {key} differs from its "
                      f"plain version by {err}")
+            splits = None
             if lq == 1 and dt == torch.bfloat16:
+                splits = fa_ops.decode_splits(b, hkv, hq // hkv, lk, n_sm)
                 parts = fa_ref.attention_split_ref(
-                    q, k, v, part_len=fa_ops.decode_part_len(
-                        lk, fa_ops.decode_splits(b, hkv, hq // hkv, lk,
-                                                 n_sm)), **kw).float()
+                    q, k, v, part_len=fa_ops.decode_part_len(lk, splits),
+                    **kw).float()
                 if not torch.allclose(out, parts, **ATTN_TOL[dt]):
-                    fail(f"phase 22 (a): the split-K decode {key} differs "
+                    fail(f"{tag}: the split-K decode {key} differs "
                          f"from its plain split-and-merge by "
                          f"{max_abs_err(out, parts, torch)}")
                 del parts
@@ -4465,11 +4504,12 @@ def _gemma2_attention(dev, card: str) -> dict:
             rows[key] = {"b": b, "lq": lq, "lk": lk, "offsets": list(offs),
                          "window": window, "max_abs_err": err, "ms": ms,
                          "device_ms": dev_ms, "plain_ms": plain,
-                         "bound_ms": bnd, "bound_by": by,
+                         "bound_ms": bnd, "bound_by": by, "splits": splits,
                          "library_ms": None, "library": LIBRARY_TOOL}
-            log(f"phase 22 (a): flash_attention {key} B={b} Hq={hq} "
+            log(f"{tag}: flash_attention {key} B={b} Hq={hq} "
                 f"Hkv={hkv} D={d} softcap={cap} window={window} Lq={lq} "
                 f"Lk={lk}" + (f" offsets {list(offs)}" if b > 1 else "")
+                + (f" split-K over {splits} splits" if splits else "")
                 + f": max |err| {err:.3g} (tolerance {ATTN_TOL[dt]}); kernel "
                   f"{ms:.4f} ms (device time {fmt_ms(dev_ms)}), plain "
                   f"{plain:.4f} ms, bound {bnd:.4f} ms by {by} [{card}]")
@@ -4478,11 +4518,31 @@ def _gemma2_attention(dev, card: str) -> dict:
     return rows
 
 
-def _gemma2_serve(dev, card: str) -> dict:
-    """(b): gemma2-2b at full width and depth (bf16, kernels on) served
-    through ``examples/torch_serve_demo.py``'s ``serve``: every request
-    answered with tokens in the vocabulary, ``flash_attention`` exactly
-    once a layer a prefill and a tick."""
+def redraw_qkv_bias(params, dev) -> float:
+    """Replace the zero q/k/v biases of every layer (qwen2.5's
+    ``qkv_bias``) by seeded normals x 0.02 in their dtype, so that the bias
+    add does work; their norm."""
+    import torch
+    g = torch.Generator(dev).manual_seed(SEED + 1)
+    mixer = params["layers"]["mixer"]
+    sq = 0.0
+    for name in ("bq", "bk", "bv"):
+        old = mixer[name]
+        mixer[name] = (torch.randn(old.shape, generator=g, device=dev)
+                       * 0.02).to(old.dtype)
+        sq += float(mixer[name].float().square().sum())
+    return sq ** 0.5
+
+
+def serve_full_width(dev, card: str, arch: str, tag: str) -> dict:
+    """``arch`` at full width and depth (bf16, kernels on; a QKV bias
+    redrawn non-zero by :func:`redraw_qkv_bias`) served through
+    ``examples/torch_serve_demo.py``'s ``serve`` at ``EX_SERVE``: every
+    request answered with tokens in the vocabulary (never a padded row of
+    the head), ``flash_attention`` exactly once a layer a prefill and a
+    tick and no other kernel. Records the init's peak memory, and the
+    run's with the counter reset once the weights and the cache are
+    allocated; logged under ``tag``."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model as M
@@ -4491,8 +4551,16 @@ def _gemma2_serve(dev, card: str) -> dict:
 
     demo = load_example("torch_serve_demo")
     slots, max_seq, n_req, max_prompt, new = EX_SERVE
-    cfg = configs.get_config(GEMMA2).with_(use_kernels=True)
+    cfg = configs.get_config(arch).with_(use_kernels=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
     params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    bias_norm = redraw_qkv_bias(params, dev) if cfg.qkv_bias else None
     requests = traffic_requests(cfg.vocab_size, max_prompt, n_req)
     lengths = [len(r.prompt) for r in requests]
     mods = kernel_ops()
@@ -4514,7 +4582,7 @@ def _gemma2_serve(dev, card: str) -> dict:
     res = quiet(lambda: demo.serve(
         cfg, ServeConfig(slots=slots, max_seq=max_seq, max_new_tokens=new),
         requests, dev, params=params, on_engine=on_engine), text,
-        "torch_serve_demo.serve at full width")
+        f"torch_serve_demo.serve {arch} at full width")
     torch.cuda.synchronize()
     launches = {k: m.LAUNCHES for k, m in mods.items()}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -4523,16 +4591,16 @@ def _gemma2_serve(dev, card: str) -> dict:
     ticks = len(decode_ms)
     out = res["out"]
     if sorted(out) != list(range(n_req)) or n_prefill != n_req:
-        fail(f"phase 22 (b): {len(out)} requests answered, {n_prefill} "
-             "prefills")
+        fail(f"{tag}: {len(out)} requests answered, {n_prefill} prefills")
     for uid, toks in out.items():
         if not 1 <= len(toks) <= new or not all(
                 0 <= t < cfg.vocab_size for t in toks):
-            fail(f"phase 22 (b): request {uid} returned {toks}")
+            fail(f"{tag}: request {uid} returned {toks} (vocabulary "
+                 f"{cfg.vocab_size}, head rows {cfg.padded_vocab})")
     need = cfg.num_layers * (n_prefill + ticks)
     if launches["flash_attention"] != need or launches["ssd_scan"] \
             or launches["local_chase"] or launches["mailbox_pack"]:
-        fail(f"phase 22 (b): launches {launches}; flash_attention should "
+        fail(f"{tag}: launches {launches}; flash_attention should "
              f"launch {need} times ({cfg.num_layers} x ({n_prefill} prefills "
              f"+ {ticks} ticks))")
     w_bytes, c_bytes = held["bytes"]
@@ -4548,18 +4616,25 @@ def _gemma2_serve(dev, card: str) -> dict:
            "decode_ms_median": statistics.median(decode_ms),
            "decode_ms": decode_ms, "launches": launches,
            "weight_bytes": w_bytes, "cache_bytes": c_bytes,
-           "peak_memory_bytes": peak}
+           "peak_memory_bytes": peak, "init_s": init_s,
+           "init_peak_bytes": init_peak, "allocated_before_bytes": before,
+           "qkv_bias_norm": bias_norm}
     for line in text[-1].splitlines()[1:]:
-        log(f"phase 22 (b): {line}")
-    log(f"phase 22 (b): served {n_req} requests (prompts {min(lengths)}.."
+        log(f"{tag}: {line}")
+    log(f"{tag}: served {n_req} requests (prompts {min(lengths)}.."
         f"{max(lengths)} tokens) with {cfg.name} at full width "
         f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{str(cfg.dtype).removeprefix('torch.')}, kernels on; weights "
         f"{w_bytes / 2 ** 30:.2f} GiB, cache {c_bytes / 2 ** 30:.2f} GiB for "
         f"{slots} slots x {max_seq}): {n_prefill} prefills, {ticks} decode "
-        f"ticks, {res['tokens']} tokens, {res['tokens_per_s']:.1f} tokens/s; "
+        f"ticks, {res['tokens']} tokens, {res['tokens_per_s']:.1f} tokens/s, "
+        f"latency p50 / p90 {res['p50_s']:.2f} / {res['p90_s']:.2f} s; "
         f"flash_attention launches {launches['flash_attention']} = "
         f"{cfg.num_layers} x ({n_prefill} + {ticks}) [{card}]")
+    log(f"  init {init_s:.2f} s, peak {init_peak / 2 ** 30:.2f} GiB during "
+        f"M.init ({before / 2 ** 30:.2f} GiB allocated before it)"
+        + ("" if bias_norm is None else
+           f"; q/k/v biases redrawn, norm {bias_norm:.4f}"))
     log("  prefill ms per bucket (median of n): " + ", ".join(
         f"{b}: {statistics.median(v):.2f} (n={len(v)})"
         for b, v in sorted(prefill_ms.items())))
@@ -4681,44 +4756,69 @@ def _train_example(dev, card: str, text: list) -> dict:
     return res
 
 
-def _gemma2_exactness(dev, card: str, text: list) -> dict:
-    """(e): in float32 (TF32 off), gemma2-2b at full width and
-    ``EX_EXACT``'s depth: a prefill of one long prompt and teacher-forced
-    decode steps with kernels on against off (atol 2e-3, rtol 1e-3); and
-    the SMOKE engine's tokens through ``torch_serve_demo.serve`` (kernels
-    on) equal to its own ``forward``'s greedy continuation."""
+def on_off_logits(dev, card: str, arch: str, tag: str, seed: int,
+                  prefix: int = 0) -> dict:
+    """In float32 (TF32 off), ``arch`` at full width and ``EX_EXACT``'s
+    depth (a QKV bias redrawn non-zero): a prefill of one long prompt from
+    ``default_rng(seed)``, behind ``prefix`` seeded patch embeddings, and
+    teacher-forced decode steps with kernels on against off (atol 2e-3,
+    rtol 1e-3), ``flash_attention`` once a layer a call."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model as M
-    from repro_torch.serve.engine import ServeConfig
     fa = kernel_ops()["flash_attention"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     layers, plen, steps, max_seq = EX_EXACT
-    cfg = configs.get_config(GEMMA2).with_(num_layers=layers,
-                                           dtype=torch.float32)
+    cfg = configs.get_config(arch).with_(num_layers=layers,
+                                         dtype=torch.float32)
     params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
-    prompt = torch.from_numpy(np.random.default_rng(22).integers(
+    if cfg.qkv_bias:
+        redraw_qkv_bias(params, dev)
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
         2, cfg.vocab_size, (1, plen)).astype(np.int32)).to(dev)
+    pre = None if not prefix else torch.randn(
+        (1, prefix, cfg.prefix_embed_dim), device=dev,
+        generator=torch.Generator(dev).manual_seed(seed))
     off, fed = teacher_forced_logits(params, cfg, prompt, steps, max_seq,
-                                     dev)
+                                     dev, prefix_embeds=pre)
     fa.LAUNCHES = 0
     on, _ = teacher_forced_logits(params, cfg.with_(use_kernels=True), prompt,
-                                  steps, max_seq, dev, teacher=fed)
+                                  steps, max_seq, dev, teacher=fed,
+                                  prefix_embeds=pre)
     launches = fa.LAUNCHES
     torch.cuda.synchronize()
     diff = max_abs_err(on, off, torch)
-    res = {"max_abs_diff": diff, "launches": launches}
-    log(f"phase 22 (e): {cfg.name} at full width, {layers} layers (window "
-        f"{cfg.local_window} on layer 0), float32, TF32 off: prompt {plen} + "
-        f"{steps} teacher-forced steps, max |logits on - off| {diff:.3g}; "
-        f"flash_attention launches {launches} [{card}]")
+    res = {"max_abs_diff": diff, "launches": launches,
+           "finite": bool(torch.isfinite(on).all())}
+    window = f" (window {cfg.local_window} on layer 0)" if \
+        cfg.local_window else ""
+    log(f"{tag}: {cfg.name} at full width, {layers} layers{window}, "
+        f"float32, TF32 off: "
+        + (f"{prefix} patch embeddings + " if prefix else "")
+        + f"prompt {plen} + {steps} teacher-forced steps, max |logits on - "
+          f"off| {diff:.3g}; flash_attention launches {launches} [{card}]")
     if launches != layers * (1 + steps):
-        fail(f"phase 22 (e): {launches} launches, not {layers * (1 + steps)}")
-    if not torch.allclose(on, off, atol=2e-3, rtol=1e-3):
-        fail(f"phase 22 (e): logits with kernels on differ from off by {diff}")
+        fail(f"{tag}: {launches} launches, not {layers * (1 + steps)}")
+    if not res["finite"] or not torch.allclose(on, off, atol=2e-3,
+                                                rtol=1e-3):
+        fail(f"{tag}: {cfg.name}'s logits with kernels on differ from off "
+             f"by {diff}")
     del params, on, off
     torch.cuda.empty_cache()
+    return res
+
+
+def _gemma2_exactness(dev, card: str, text: list) -> dict:
+    """(e): gemma2-2b's logits with kernels on against off
+    (:func:`on_off_logits`), and the SMOKE engine's tokens through
+    ``torch_serve_demo.serve`` (kernels on) equal to its own ``forward``'s
+    greedy continuation."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig
+    res = on_off_logits(dev, card, GEMMA2, "phase 22 (e)", 22)
 
     demo = load_example("torch_serve_demo")
     slots, seq, new = EX_SMOKE_SERVE
@@ -4754,8 +4854,11 @@ def examples_phase(dev, card: str = "") -> dict:
     Their printed output goes to ``EX_OUT``."""
     t0 = time.perf_counter()
     text: list = []
-    res = {"attention": _gemma2_attention(dev, card)}
-    res["serve"] = _gemma2_serve(dev, card)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import GEMMA2_ATTN_CASES, GEMMA2_HEADS
+    res = {"attention": attention_rows(dev, card, "phase 22 (a)",
+                                       GEMMA2_HEADS, GEMMA2_ATTN_CASES)}
+    res["serve"] = serve_full_width(dev, card, GEMMA2, "phase 22 (b)")
     res["lists"] = _list_examples(dev, card, text)
     res["train"] = _train_example(dev, card, text)
     res["exact"] = _gemma2_exactness(dev, card, text)
@@ -5028,6 +5131,136 @@ def _config_rows(dev, card: str, variants: list, made: dict,
             del made[key]
         del runs
     return rows, launches, wait_s
+
+
+
+# --------------------------------------------------------------- phase 24
+#: the head-dim-128 decoders (GQA groups 5, 3 and 4), served in this order
+D128_ARCHS = ("qwen2.5-14b", "phi4-mini-3.8b", "pixtral-12b")
+PIXTRAL = "pixtral-12b"
+#: (d) 2.: pixtral's multimodal prefill: batch, patch embeddings a row (a
+#: 512 x 512 image at 16-pixel patches), text tokens a row, cache
+#: positions, greedy decode steps
+PIXTRAL_MM = (2, 1024, 64, 2048, 32)
+#: (e): pixtral's patch embeddings in front of ``EX_EXACT``'s prompt
+D128_EXACT_PREFIX = 1024
+
+
+def _pixtral_prefix(dev, card: str) -> dict:
+    """(d) 2.: pixtral-12b at full width and depth (bf16, kernels on)
+    through the model API the reference has: ``M.prefill`` of
+    ``PIXTRAL_MM``'s seeded patch embeddings in front of its text tokens,
+    then greedy ``M.decode_step``s at positions P + T + i. Fails unless
+    every logit is finite, the cache holds exactly P + T filled positions a
+    row after the prefill and one more after each step, every token is in
+    the vocabulary, and ``flash_attention`` launched once a layer a
+    call."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    b, n_patch, n_text, max_seq, steps = PIXTRAL_MM
+    cfg = configs.get_config(PIXTRAL).with_(use_kernels=True)
+    params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    batch = {"prefix_embeds": torch.randn(
+        (b, n_patch, cfg.prefix_embed_dim), device=dev,
+        generator=torch.Generator(dev).manual_seed(SEED + 2)),
+        "tokens": torch.from_numpy(np.random.default_rng(24).integers(
+            2, cfg.vocab_size, (b, n_text)).astype(np.int32)).to(dev)}
+    cache = M.init_cache(cfg, b, max_seq, dev)
+    mods = kernel_ops()
+
+    def filled(want: int) -> bool:
+        """Whether each row's cache holds keys (in some layer and kv head)
+        at exactly its first ``want`` positions."""
+        got = cache.k.ne(0).any(dim=-1).any(dim=2).any(dim=0)  # (B, S)
+        return bool(got[:, :want].all()) and int(got.sum()) == b * want
+
+    start = n_patch + n_text
+    for m in mods.values():
+        m.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg, cache = M.prefill(params, batch, cfg, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    if lg.shape != (b, 1, cfg.padded_vocab) or not torch.isfinite(lg).all():
+        fail(f"phase 24 (d): the prefill's logits {tuple(lg.shape)} are not "
+             f"finite")
+    if not filled(start):
+        fail(f"phase 24 (d): the prefill did not fill exactly positions "
+             f"0..{start - 1} of each row's cache")
+    tok = torch.argmax(lg[:, 0, :cfg.vocab_size], dim=-1).view(b, 1).int()
+    toks, step_ms, finite = [tok], [], True
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = M.decode_step(params, tok, start + i, cfg, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        finite &= bool(torch.isfinite(lg).all())
+        tok = torch.argmax(lg[:, 0, :cfg.vocab_size], dim=-1).view(b, 1).int()
+        toks.append(tok)
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    out = torch.cat(toks, dim=1).cpu()
+    if not finite or not filled(start + steps):
+        fail(f"phase 24 (d): after {steps} decode steps from position "
+             f"{start}: finite logits {finite}, the cache not filled to "
+             f"{start + steps}")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        fail(f"phase 24 (d): tokens {out.tolist()} outside the vocabulary")
+    need = cfg.num_layers * (1 + steps)
+    if launches != {**{k: 0 for k in mods}, "flash_attention": need}:
+        fail(f"phase 24 (d): launches {launches}; flash_attention should "
+             f"launch {need} = {cfg.num_layers} x (1 + {steps}) times")
+    res = {"batch": b, "patches": n_patch, "text": n_text, "max_seq": max_seq,
+           "steps": steps, "prefill_ms": prefill_ms,
+           "decode_ms_median": statistics.median(step_ms),
+           "decode_ms": step_ms, "tokens": out.tolist(),
+           "launches": launches}
+    log(f"phase 24 (d): {cfg.name} at full width "
+        f"({str(cfg.dtype).removeprefix('torch.')}, kernels on): "
+        f"M.prefill of {b} x ({n_patch} patch embeddings of width "
+        f"{cfg.prefix_embed_dim} + {n_text} tokens) into a {max_seq}-position "
+        f"cache in {prefill_ms:.2f} ms, finite logits, positions 0..{start - 1}"
+        f" filled; {steps} greedy decode steps from position {start}, "
+        f"{res['decode_ms_median']:.2f} ms a step (median), every token in "
+        f"the vocabulary; flash_attention launches {need} = "
+        f"{cfg.num_layers} x (1 + {steps}) [{card}]")
+    del params, cache, batch, lg
+    torch.cuda.empty_cache()
+    return res
+
+
+def d128_phase(dev, card: str = "") -> dict:
+    """Phase 24: the head-dim-128 decoders at full width: (a)
+    ``flash_attention`` at their heads (``D128_HEADS``, ``D128_ATTN_CASES``),
+    (b) qwen2.5-14b (its QKV biases redrawn non-zero), (c) phi4-mini-3.8b
+    and (d) pixtral-12b served through ``examples/torch_serve_demo.py``,
+    then pixtral's patch-embedding prefill and decode, (e) each in float32
+    with kernels on against off (pixtral behind a 1024-patch prefix)."""
+    import torch
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import D128_ATTN_CASES, D128_HEADS
+    log(f"phase 24: {torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB "
+        f"allocated at its start")
+    res: dict = {"attention": {
+        arch: attention_rows(dev, card, f"phase 24 (a) {arch}",
+                             D128_HEADS[arch], D128_ATTN_CASES)
+        for arch in D128_ARCHS}}
+    res["serve"] = {arch: serve_full_width(dev, card, arch,
+                                           f"phase 24 ({part})")
+                    for arch, part in zip(D128_ARCHS, "bcd")}
+    res["prefix"] = _pixtral_prefix(dev, card)
+    res["exact"] = {arch: on_off_logits(
+        dev, card, arch, "phase 24 (e)", 24,
+        prefix=D128_EXACT_PREFIX if arch == PIXTRAL else 0)
+        for arch in D128_ARCHS}
+    res["launches"] = {k: sum(r["launches"][k] for r in res["serve"].values())
+                       + res["prefix"]["launches"][k] for k in kernel_ops()}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 24: {res['phase_s']:.1f} s; launches {res['launches']}")
+    return res
 
 
 if __name__ == "__main__":

@@ -151,6 +151,21 @@ GEMMA2_ATTN_CASES = [
      GEMMA2_WINDOW),
 ]
 
+#: the head-dim-128 decoders' attention heads, by config: Hq, Hkv (GQA
+#: groups 5, 3 and 4), D, scale, soft-cap (causal, no window)
+D128_HEADS = {"qwen2.5-14b": (40, 8, 128, 128 ** -0.5, None),
+              "phi4-mini-3.8b": (24, 8, 128, 128 ** -0.5, None),
+              "pixtral-12b": (32, 8, 128, 128 ** -0.5, None)}
+#: flash-attention at those heads, as their full-width serving path calls
+#: it over an 8192-key slot (the cases' fields as ``GEMMA2_ATTN_CASES``'):
+#: a causal prefill at Lq = Lk = 4096, a 1024-token prefill bucket, and a
+#: split-K decode of 5 slots at offsets from the first key to the last
+D128_ATTN_CASES = [
+    ("prefill", 1, 4096, 4096, (0,), None),
+    ("prefill_bucket", 1, 1024, 8192, (0,), None),
+    ("decode", 5, 1, 8192, (0, 1, 4095, 6000, 8191), None),
+]
+
 #: the repo's flash-attention tolerances (tests/test_kernels.py)
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}

@@ -6,8 +6,9 @@ tests (``tests/test_torch_treealg.py``, ``tests/test_torch_graphalg.py``,
 ``tests/test_torch_telemetry.py``, ``tests/test_torch_moe_ep.py``,
 ``tests/test_torch_compression.py``, ``tests/test_torch_remat.py``,
 ``tests/test_torch_dist_recovery.py``), its routings on a three-axis
-mesh (``tests/test_torch_routing_parity.py``), and the reference's
-examples (``tests/test_torch_examples_*.py``).
+mesh (``tests/test_torch_routing_parity.py``), the reference's
+examples (``tests/test_torch_examples_*.py``), and the head-dim-128
+decoders' logits and serving engine (``tests/test_torch_d128_models.py``).
 
 Each of these calls compiles large simshard programs, and many such
 compiles in one pytest worker have crashed XLA's CPU compiler in a later
@@ -750,6 +751,73 @@ def dp_compression_example(dim, rows, lr, steps):
     return {"exact": run(False), "compressed": run(True)}
 
 
+def d128_logits(arch, seed, toks, cache_len, steps, prefix=None):
+    """``arch``'s SMOKE model from ``M.init(PRNGKey(seed))``: its parameters,
+    the forward logits of ``toks`` (B, L), and the logits of a prefill of
+    their first half into a cache of ``cache_len`` followed by ``steps``
+    decode steps fed the next tokens, with the cache after them; with
+    ``prefix`` (B, P, D_in) patch embeddings the same again behind them,
+    the steps at positions P + L / 2 + i."""
+    import jax
+    from repro import configs
+    from repro.models import model as M
+    cfg = configs.get_config(arch, smoke=True)
+    params = M.init(jax.random.PRNGKey(seed), cfg)
+    b, seq = toks.shape
+    half = seq // 2
+    prefill = jax.jit(lambda p, batch, c: M.prefill(p, batch, cfg, c))
+    decode = jax.jit(lambda p, t, pos, c: M.decode_step(p, t, pos, cfg, c))
+
+    def run(batch, start):
+        lg, cache = prefill(params, batch, M.init_cache(cfg, b, cache_len))
+        logits = [np.asarray(lg)]
+        for i in range(steps):
+            lg, cache = decode(params, toks[:, half + i:half + i + 1],
+                               start + i, cache)
+            logits.append(np.asarray(lg))
+        return {"logits": np.concatenate(logits, axis=1),
+                "cache": [np.asarray(c) for c in cache]}
+
+    out = {"params": jax.tree.map(np.asarray, params),
+           "forward": np.asarray(jax.jit(lambda p, t: M.forward(
+               p, {"tokens": t}, cfg)[0])(params, toks)),
+           "plain": run({"tokens": toks[:, :half]}, half)}
+    if prefix is not None:
+        out["prefix"] = run({"tokens": toks[:, :half],
+                             "prefix_embeds": prefix},
+                            prefix.shape[1] + half)
+    return out
+
+
+def d128_engine(arch, prompts, kw, biases=None, vocab=None, pad_rows=None):
+    """The reference's ``ServingEngine`` (``ServeConfig(**kw)``, its Pallas
+    attention in interpret mode) on ``arch``'s SMOKE model from
+    ``M.init(PRNGKey(0))`` with the q/k/v ``biases`` put in, the vocabulary
+    cut to ``vocab`` and the head's rows past it set to ``pad_rows``,
+    serving ``prompts``: the parameters and every request's tokens."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs
+    from repro.models import model as M
+    from repro.serve.engine import Request, ServeConfig, ServingEngine
+    cfg = configs.get_config(arch, smoke=True).with_(use_kernels=True)
+    if vocab is not None:
+        cfg = cfg.with_(vocab_size=vocab)
+    params = M.init(jax.random.PRNGKey(0), cfg)
+    for name, a in (biases or {}).items():
+        params["layers"]["mixer"][name] = jnp.asarray(a)
+    if pad_rows is not None:
+        emb = params["embed"]["embedding"]
+        params["embed"]["embedding"] = emb.at[vocab:].set(
+            jnp.asarray(pad_rows, emb.dtype))
+    eng = ServingEngine(params, cfg, ServeConfig(**kw))
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt))
+    out = eng.run_to_completion()
+    return {"params": jax.tree.map(np.asarray, params),
+            "out": {u: [int(t) for t in v] for u, v in out.items()}}
+
+
 JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 graph_stats, connected_components,
                                 spanning_forest, fingerprints,
@@ -762,5 +830,6 @@ JOBS = {f.__name__: f for f in (build, tree_stats, root_tree, solve_forest,
                                 dryrun_cell, dryrun_formulas,
                                 quickstart_example, euler_tour_example,
                                 tree_stats_example, connectivity_example,
-                                serve_demo_example, dp_compression_example)}
+                                serve_demo_example, dp_compression_example,
+                                d128_logits, d128_engine)}
 

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, CROSS_ATTN_CASES,
-                                  GEMMA2_ATTN_CASES, GEMMA2_HEADS,
+                                  D128_HEADS, GEMMA2_ATTN_CASES, GEMMA2_HEADS,
                                   PACK_HOPS, SSD_CASES, SSD_RAGGED, SSD_TOL, attn_inputs,
                                   bucket_hop, chains, chase_edge_case,
                                   float_dist, ssd_inputs, ssd_training_inputs)
@@ -453,6 +453,45 @@ def test_flash_attention_cuda_gemma2_heads(cuda, case, dtype):
         torch.testing.assert_close(
             out.float(), fa_ref.attention_split_ref(
                 q, k, v, part_len=part, **kw).float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", sorted(D128_HEADS))
+def test_flash_attention_cuda_d128_heads(cuda, arch, kind):
+    """The head-dim-128 decoders' heads (GQA groups 5, 3 and 4, scale
+    128^-0.5) in bf16: the tensor-core prefill at 300 queries over 300
+    keys (ragged tiles of the group's rows), and the split-K decode of 5
+    slots over 700 keys at offsets 0, 1, 350, 600 and 699, also against
+    its plain split-and-merge; one launch a call."""
+    hq, hkv, d, scale, cap = D128_HEADS[arch]
+    if kind == "prefill":
+        b, lq, lk, off = 1, 300, 300, 0
+    else:
+        b, lq, lk = 5, 1, 700
+        off = torch.tensor([0, 1, 350, 600, 699], dtype=torch.int32,
+                           device=cuda)
+    q, k, v = (t.to(cuda) for t in attn_inputs(b, hq, hkv, lq, lk, d,
+                                                seed=hq,
+                                                dtype=torch.bfloat16))
+    kw = dict(q_offset=off, scale=scale, softcap=cap)
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(
+        out.float(), fa_ref.attention_ref(q, k, v, **kw).float(),
+        **ATTN_TOL[torch.bfloat16])
+    if kind == "decode":
+        splits = fa_ops.decode_splits(b, hkv, hq // hkv, lk, torch.cuda
+                                      .get_device_properties(cuda)
+                                      .multi_processor_count)
+        assert splits > 1
+        torch.testing.assert_close(
+            out.float(), fa_ref.attention_split_ref(
+                q, k, v, part_len=fa_ops.decode_part_len(lk, splits),
+                **kw).float(), **ATTN_TOL[torch.bfloat16])
 
 
 #: hymba-1.5b's attention: Hq, Hkv (a GQA group of 5), D, window

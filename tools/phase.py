@@ -33,7 +33,10 @@ attention kernels, runs phase ``N`` and exits non-zero on any failure:
 - 23: the solver's configurations (the paper's Figs 2-4 and the other
   switches), each solved with both kernels on and off against the
   sequential oracle: groups (a) and (b) at ``n`` elements (default
-  ``chip_smoke.CONFIG_N``, 2^22), (c) at n / 4, (d) at n / 8.
+  ``chip_smoke.CONFIG_N``, 2^22), (c) at n / 4, (d) at n / 8;
+- 24: the head-dim-128 decoders: ``flash_attention`` at their heads,
+  qwen2.5-14b, phi4-mini-3.8b and pixtral-12b served at full width,
+  pixtral's patch-embedding prefill and decode, float32 exactness.
 """
 from __future__ import annotations
 
@@ -123,6 +126,7 @@ def main() -> None:
         22: chip_smoke.examples_phase,
         23: lambda dev, card: chip_smoke.configs_phase(
             dev, card, size(chip_smoke.CONFIG_N)),
+        24: chip_smoke.d128_phase,
     }
     if len(sys.argv) < 2 or int(sys.argv[1]) not in phases:
         chip_smoke.fail(f"usage: tools/phase.py N [n], N one of "

@@ -26,7 +26,15 @@ inside), and for attention the rate in TFLOP/s over the unmasked pairs
   shapes): one call of torch's compiled ``flex_attention``
   (:func:`flex_yardstick`), held to the kernel's tolerance against the
   plain version, its compile seconds and its CUDA-event ms beside the
-  kernel's.
+  kernel's;
+- the library call beside ``flash_attention`` at the heads of the
+  head-dim-128 decoders (``D128_HEADS``: qwen2.5-14b, phi4-mini-3.8b,
+  pixtral-12b), every case of ``D128_ATTN_CASES`` in bf16 and f32
+  (``chip_smoke.py`` phase 24 (a)'s shapes): ``scaled_dot_product_attention``
+  with ``enable_gqa`` (upper-left ``is_causal`` for a prefill at offset 0,
+  a boolean mask of each slot's keys for a decode), held to the kernel's
+  tolerance against the plain version, its CUDA-event ms beside the
+  kernel's (:func:`d128_library`).
 """
 from __future__ import annotations
 
@@ -183,6 +191,72 @@ def gemma2_library(dev, torch) -> None:
         torch.cuda.empty_cache()
 
 
+def sdpa_yardstick(q, k, v, *, q_offset, window, softcap, scale):
+    """One call of ``scaled_dot_product_attention`` computing what
+    ``flash_attention`` computes on (q, k, v) without a window or a
+    soft-cap: GQA by ``enable_gqa``, the causal mask upper-left aligned
+    (``is_causal``) at an int offset of 0, else a boolean mask of the keys
+    at or before each slot's position. Returns the zero-argument call."""
+    import torch
+    import torch.nn.functional as F
+    if window is not None or softcap is not None:
+        raise ValueError("the SDPA yardstick takes no window or soft-cap")
+    b, _, lq, _ = q.shape
+    if not isinstance(q_offset, torch.Tensor) and q_offset == 0:
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True)
+    pos = torch.as_tensor(q_offset, device=q.device).reshape(-1).expand(b)
+    keys = torch.arange(k.shape[2], device=q.device)
+    mask = (keys[None, None, :] <= pos[:, None, None]
+            + torch.arange(lq, device=q.device)[None, :, None])[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def d128_library(dev, torch) -> None:
+    """SDPA beside the kernel at every ``D128_ATTN_CASES`` case of every
+    ``D128_HEADS`` layout in bf16 and f32, each held to ``ATTN_TOL``
+    against the plain version."""
+    from _torch_kernel_inputs import ATTN_TOL, D128_ATTN_CASES, D128_HEADS
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import time_ms
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    for arch, (hq, hkv, d, scale, cap) in D128_HEADS.items():
+        for name, b, lq, lk, offs, window in D128_ATTN_CASES:
+            for dt in (torch.bfloat16, torch.float32):
+                g = torch.Generator(device=dev).manual_seed(22)
+                q = torch.randn((b, hq, lq, d), generator=g,
+                                device=dev).to(dt)
+                k = torch.randn((b, hkv, lk, d), generator=g,
+                                device=dev).to(dt)
+                v = torch.randn((b, hkv, lk, d), generator=g,
+                                device=dev).to(dt)
+                off = offs[0] if b == 1 else torch.tensor(
+                    offs, dtype=torch.int32, device=dev)
+                kw = dict(q_offset=off, window=window, softcap=cap,
+                          scale=scale)
+                key = f"{arch} {name}_{str(dt).removeprefix('torch.')}"
+                want = fa_ref.attention_ref(q, k, v, **kw).float()
+                call = sdpa_yardstick(q, k, v, **kw)
+                got = call().float()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not torch.allclose(got, want, **ATTN_TOL[dt]):
+                    sys.exit(f"profile_lm_kernels: SDPA {key} computes "
+                             f"another function (max |err| {err})")
+                del got, want
+                lib = time_ms(call, torch, reps=10)
+                ker = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw),
+                              torch, reps=10)
+                print(f"SDPA {key} Hq {hq} Hkv {hkv} D {d} B {b} Lq {lq} "
+                      f"Lk {lk}: max |err| {err:.3g} (tolerance "
+                      f"{ATTN_TOL[dt]}); {lib:.4f} ms, the kernel "
+                      f"{ker:.4f} ms (CUDA events, median of 10)")
+                del q, k, v, call
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     import torch.nn.functional as F
@@ -240,6 +314,7 @@ def main() -> None:
                devtime.EXPECT["ssd_scan_bf16"])
 
     gemma2_library(dev, torch)
+    d128_library(dev, torch)
 
 
 if __name__ == "__main__":
