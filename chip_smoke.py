@@ -5,7 +5,7 @@ Run from the root of the repository (it imports ``src/repro_torch``):
 
     python3 chip_smoke.py [--out results.json]
 
-(``python3 tools/phase.py N`` runs phase 6, 7 or one of 16-24 alone.) Phases,
+(``python3 tools/phase.py N`` runs phase 6, 7 or one of 16-25 alone.) Phases,
 each fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions; build the
@@ -311,7 +311,25 @@ each fatal on failure:
    filled positions, 40 x 33 launches; (e) float32, TF32 off: each at full
    width with 2 layers, a 6000-token prompt (pixtral's behind 1024 patch
    embeddings) and 8 teacher-forced steps with kernels on against off
-   (atol 2e-3, rtol 1e-3).
+   (atol 2e-3, rtol 1e-3);
+25. kimi-k2 at full width (alone: ``tools/phase.py 25``): (a)
+   ``flash_attention`` at its heads (Hq 64 over Hkv 8: GQA group 8; D 112,
+   scale 112^-0.5, causal, no window) on phase 24 (a)'s cases in bf16 and
+   f32, each against its plain version with kernel, device and plain
+   times and the bound (SDPA at the same cases is
+   ``tools/profile_lm_kernels.py``'s); (b) kimi-k2 at full width and one
+   layer of its 61 (bf16, kernels on: a 384-expert top-8 MoE FFN with its
+   shared expert, d_model 7168, an untied 163 840-token head) served
+   through ``examples/torch_serve_demo.py``'s ``serve`` with 22 (b)'s
+   traffic: every request answered with tokens in the vocabulary,
+   ``flash_attention`` exactly once a prefill and a tick and no other
+   kernel; prefill ms per bucket, decode ms per tick, tokens/s, the init's
+   peak memory and the run's (the counter reset with the weights and the
+   cache allocated); (c) float32, TF32 off: at full width with 2 layers
+   and the experts cut to 64 (top-8 and the shared expert kept: at 384 a
+   float32 layer's experts alone take 63 GiB), a 6000-token prompt and 8
+   teacher-forced steps with kernels on against off (atol 2e-3, rtol
+   1e-3).
 
 The last line of standard output is a one-line JSON verdict; the line
 before it lists each kernel's launches and times. Without CUDA, or
@@ -454,7 +472,7 @@ def main() -> None:
 
 def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
         n_tree: int = N_TREE, n_graph: int = N_GRAPH) -> None:
-    """Phases 1-24 on device ``dev`` at ``n_main`` / ``n_grid`` list
+    """Phases 1-25 on device ``dev`` at ``n_main`` / ``n_grid`` list
     elements, ``n_tree`` tree nodes and ``n_graph`` graph nodes."""
     import torch
     from repro_torch.core.listrank import (IndirectionSpec, ListRankConfig,
@@ -807,7 +825,8 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     # --------------------------------------------------------- phase 15
     results["obs"] = obs_phase(
         dev, card, succ_np, rank_np, (s_on, r_on, ints_on), cfg_on, cfg_off,
-        launches, tree_out, graph_out, n_tree, n_graph)
+        launches, tree_out, graph_out, n_tree, n_graph,
+        results["main_path"]["warm_wall_s"])
     for kern in kernels:
         kern["launches_obs"] = results["obs"]["launches"][kern["name"]]
 
@@ -903,6 +922,12 @@ def run(dev, n_main: int, n_grid: int, out_path=None, t_start=None,
     fa_entry["d128"] = results["d128"]["attention"]
     for kern in kernels:
         kern["launches_d128"] = results["d128"]["launches"][kern["name"]]
+
+    # --------------------------------------------------------- phase 25
+    results["kimi"] = kimi_phase(dev, card)
+    fa_entry["kimi"] = results["kimi"]["attention"]
+    for kern in kernels:
+        kern["launches_kimi"] = results["kimi"]["launches"][kern["name"]]
 
     results["card"] = card
     results["kernels"] = kernels
@@ -2080,8 +2105,9 @@ GRAPH_KEYS = ("components", "parent", "depth", "subtree_size", "preorder",
 
 def obs_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
               plain_launches: dict, tree_out, graph_out, n_tree: int,
-              n_graph: int) -> dict:
-    """Phase 15: the flight recorder on the main, tree and graph paths."""
+              n_graph: int, plain_warm_s: float) -> dict:
+    """Phase 15: the flight recorder on the main, tree and graph paths;
+    (e) holds its warm wall against phase 3's (``plain_warm_s``)."""
     import torch
     from repro_torch import devtime, obs
     from repro_torch.core import graphalg, treealg
@@ -2237,14 +2263,15 @@ def obs_phase(dev, card: str, succ_np, rank_np, plain, cfg_on, cfg_off,
         f"{rec['util_max']:.3f}, {wall_graph:.3f} s [{card}]")
     log(obs.format_headroom_table(rows_g))
 
-    # (e) the cost: warm walls (one each; two each before the script's
+    # (e) the cost: one warm wall against phase 3's warm rerun (stage
+    # counters on; this phase's own plain solve was cut for the script's
     # time limit), device time on and off
-    walls = {"plain": [solve(cfg_on)[3]],
+    walls = {"plain": [plain_warm_s],
              "obs": [solve(cfg_tele, tracer=obs.Tracer(),
                            stage_counters=True)[3]]}
     res["walls_s"] = walls
     med = {k: statistics.median(v) for k, v in walls.items()}
-    log(f"phase 15 (e): warm wall, one each: plain "
+    log(f"phase 15 (e): warm wall: phase 3's rerun (stage counters) "
         f"{med['plain']:.4f} s, telemetry + tracer + counters "
         f"{med['obs']:.4f} s; overhead "
         f"{med['obs'] - med['plain']:+.4f} s "
@@ -2395,18 +2422,18 @@ def _dist_rank_work(dev, work: str, sizes: tuple, torch, dist) -> dict:
                                                 r.cpu().numpy()),
                counters=int_counters(st),
                stage_collectives=st["stage_collectives"])
+    # the warm solve, with each collective timed (a warm solve without the
+    # timers was cut for the script's time limit)
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    _, _, _, warm = solve()
-    out["warm_wall_s"] = warm
-    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(dev)
-                                if cuda else 0)
     acc, undo = _timed_collectives(dist, torch, dev)
     try:
         s2, r2, _, timed_wall = solve()
     finally:
         undo()
+    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                if cuda else 0)
     out.update(timed_wall_s=timed_wall, collective_s=acc["s"],
                collective_calls=acc["calls"],
                timed_digest=_digest(s2.cpu().numpy(), r2.cpu().numpy()))
@@ -2527,7 +2554,8 @@ def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
             if launches != want_launches:
                 fail(f"phase 16 (a): launches {launches}, phase 3's "
                      f"{want_launches}")
-            warm = [solve()[3]]  # two before the script's time limit
+            # the warm solve: with each collective timed (a warm solve
+            # without the timers was cut for the script's time limit)
             acc, undo = _timed_collectives(dist, torch, dev)
             try:
                 timed = solve()[3]
@@ -2559,17 +2587,16 @@ def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
                for k, v in devtime.per_name(device).items()
                for e in device if e["name"] == k}
     res["nccl"] = {"launches": launches, "cold_wall_s": cold,
-                   "warm_walls_s": warm, "timed_wall_s": timed,
+                   "timed_wall_s": timed,
                    "collective_s": acc["s"], "collective_calls": acc["calls"],
                    "hop_nccl_calls": nccl_calls,
                    "hop_device_events": by_name}
     log(f"phase 16 (a): NCCL, world size 1, {P_MAIN} PEs on one rank, "
         f"kernels on: outputs, counters and stage collectives equal to "
-        f"phase 3's; launches {launches}; cold {cold:.3f} s, warm "
-        f"{', '.join(f'{w:.3f}' for w in warm)} s against phase 3's "
-        f"{plain_warm_s:.3f} s; with each collective timed between syncs "
-        f"{timed:.3f} s, of it {acc['s']:.3f} s in {acc['calls']} "
-        f"collectives [{card}]")
+        f"phase 3's; launches {launches}; cold {cold:.3f} s; warm, with "
+        f"each collective timed between syncs, {timed:.3f} s against phase "
+        f"3's {plain_warm_s:.3f} s, of it {acc['s']:.3f} s in "
+        f"{acc['calls']} collectives [{card}]")
     log(f"phase 16 (a): one hop's all_to_all, psum and gather under the "
         f"profiler: NCCL calls {nccl_calls}; device events (count, us) "
         f"{by_name}")
@@ -2622,11 +2649,11 @@ def dist_phase(dev, card: str, succ_np, rank_np, plain, cfg_on,
         log(f"phase 16 (b): gloo rank {r} (PEs {out['pes'][0]}.."
             f"{out['pes'][-1]}): outputs, counters and stage collectives "
             f"equal to phase 3's; launches {out['launches']}; cold "
-            f"{out['cold_wall_s']:.3f} s, warm {out['warm_wall_s']:.3f} s, "
-            f"peak {out['peak_memory_bytes'] / 2**30:.2f} GiB; with each "
-            f"collective timed between syncs {out['timed_wall_s']:.3f} s, "
-            f"of it {out['collective_s']:.3f} s in "
-            f"{out['collective_calls']} collectives [{card}]")
+            f"{out['cold_wall_s']:.3f} s; warm, with each collective timed "
+            f"between syncs, {out['timed_wall_s']:.3f} s, of it "
+            f"{out['collective_s']:.3f} s in {out['collective_calls']} "
+            f"collectives, peak {out['peak_memory_bytes'] / 2**30:.2f} GiB "
+            f"[{card}]")
     log(f"phase 16 (c): tree_stats n={n_tree} and graph_stats n={n_graph} "
         f"under {world} gloo ranks equal the virtual transport's; walls "
         f"(rank 0) tree {outs[0]['tree_wall_s']:.3f} s, graph "
@@ -4534,9 +4561,11 @@ def redraw_qkv_bias(params, dev) -> float:
     return sq ** 0.5
 
 
-def serve_full_width(dev, card: str, arch: str, tag: str) -> dict:
-    """``arch`` at full width and depth (bf16, kernels on; a QKV bias
-    redrawn non-zero by :func:`redraw_qkv_bias`) served through
+def serve_full_width(dev, card: str, arch: str, tag: str,
+                     layers: int | None = None) -> dict:
+    """``arch`` at full width and depth (``layers`` deep where given; bf16,
+    kernels on; a QKV bias redrawn non-zero by :func:`redraw_qkv_bias`)
+    served through
     ``examples/torch_serve_demo.py``'s ``serve`` at ``EX_SERVE``: every
     request answered with tokens in the vocabulary (never a padded row of
     the head), ``flash_attention`` exactly once a layer a prefill and a
@@ -4552,6 +4581,8 @@ def serve_full_width(dev, card: str, arch: str, tag: str) -> dict:
     demo = load_example("torch_serve_demo")
     slots, max_seq, n_req, max_prompt, new = EX_SERVE
     cfg = configs.get_config(arch).with_(use_kernels=True)
+    if layers:
+        cfg = cfg.with_(num_layers=layers)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4621,9 +4652,12 @@ def serve_full_width(dev, card: str, arch: str, tag: str) -> dict:
            "qkv_bias_norm": bias_norm}
     for line in text[-1].splitlines()[1:]:
         log(f"{tag}: {line}")
+    depth = configs.get_config(arch).num_layers
     log(f"{tag}: served {n_req} requests (prompts {min(lengths)}.."
         f"{max(lengths)} tokens) with {cfg.name} at full width "
-        f"({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"({cfg.num_layers} layers"
+        + ("" if cfg.num_layers == depth else f" of its {depth}")
+        + f", d_model {cfg.d_model}, "
         f"{str(cfg.dtype).removeprefix('torch.')}, kernels on; weights "
         f"{w_bytes / 2 ** 30:.2f} GiB, cache {c_bytes / 2 ** 30:.2f} GiB for "
         f"{slots} slots x {max_seq}): {n_prefill} prefills, {ticks} decode "
@@ -4757,12 +4791,14 @@ def _train_example(dev, card: str, text: list) -> dict:
 
 
 def on_off_logits(dev, card: str, arch: str, tag: str, seed: int,
-                  prefix: int = 0) -> dict:
+                  prefix: int = 0, **cuts) -> dict:
     """In float32 (TF32 off), ``arch`` at full width and ``EX_EXACT``'s
-    depth (a QKV bias redrawn non-zero): a prefill of one long prompt from
-    ``default_rng(seed)``, behind ``prefix`` seeded patch embeddings, and
-    teacher-forced decode steps with kernels on against off (atol 2e-3,
-    rtol 1e-3), ``flash_attention`` once a layer a call."""
+    depth (a QKV bias redrawn non-zero; the config fields ``cuts`` set,
+    and logged, where the float32 model would not fit the card): a prefill
+    of one long prompt from ``default_rng(seed)``, behind ``prefix``
+    seeded patch embeddings, and teacher-forced decode steps with kernels
+    on against off (atol 2e-3, rtol 1e-3), ``flash_attention`` once a
+    layer a call."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model as M
@@ -4770,8 +4806,8 @@ def on_off_logits(dev, card: str, arch: str, tag: str, seed: int,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     layers, plen, steps, max_seq = EX_EXACT
-    cfg = configs.get_config(arch).with_(num_layers=layers,
-                                         dtype=torch.float32)
+    full = configs.get_config(arch)
+    cfg = full.with_(num_layers=layers, dtype=torch.float32, **cuts)
     params = M.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
     if cfg.qkv_bias:
         redraw_qkv_bias(params, dev)
@@ -4790,10 +4826,12 @@ def on_off_logits(dev, card: str, arch: str, tag: str, seed: int,
     torch.cuda.synchronize()
     diff = max_abs_err(on, off, torch)
     res = {"max_abs_diff": diff, "launches": launches,
-           "finite": bool(torch.isfinite(on).all())}
+           "finite": bool(torch.isfinite(on).all()), "cuts": cuts}
     window = f" (window {cfg.local_window} on layer 0)" if \
         cfg.local_window else ""
-    log(f"{tag}: {cfg.name} at full width, {layers} layers{window}, "
+    cut = "".join(f", {k} cut to {v} from {getattr(full, k)}"
+                  for k, v in cuts.items())
+    log(f"{tag}: {cfg.name} at full width, {layers} layers{window}{cut}, "
         f"float32, TF32 off: "
         + (f"{prefix} patch embeddings + " if prefix else "")
         + f"prompt {plen} + {steps} teacher-forced steps, max |logits on - "
@@ -5260,6 +5298,43 @@ def d128_phase(dev, card: str = "") -> dict:
                        + res["prefix"]["launches"][k] for k in kernel_ops()}
     res["phase_s"] = time.perf_counter() - t0
     log(f"phase 24: {res['phase_s']:.1f} s; launches {res['launches']}")
+    return res
+
+
+# --------------------------------------------------------------- phase 25
+KIMI = "kimi-k2-1t-a32b"
+#: (b): kimi-k2's depth at full width: one layer's three stacks of 384
+#: experts take 31.5 GiB in bf16, its embedding and untied head 4.4 GiB;
+#: its 61 layers would need 1.9 TiB
+K2_SERVE_LAYERS = 1
+#: (c): the experts of the float32 check at ``EX_EXACT``'s depth (top-8 and
+#: the shared expert kept): at 384, one float32 layer's experts alone take
+#: 63 GiB
+K2_EXACT_EXPERTS = 64
+
+
+def kimi_phase(dev, card: str = "") -> dict:
+    """Phase 25: kimi-k2 at full width: (a) ``flash_attention`` at its heads
+    (``K2_HEADS``: GQA group 8, D 112) on ``D128_ATTN_CASES``, (b) served
+    through ``examples/torch_serve_demo.py`` at ``K2_SERVE_LAYERS`` deep,
+    its 384-expert top-8 MoE layer and shared expert on every prefill and
+    tick, (c) in float32 with kernels on against off, its experts cut to
+    ``K2_EXACT_EXPERTS``."""
+    import torch
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_kernel_inputs import D128_ATTN_CASES, K2_HEADS
+    log(f"phase 25: {torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB "
+        f"allocated at its start")
+    res: dict = {"attention": attention_rows(dev, card, "phase 25 (a)",
+                                             K2_HEADS, D128_ATTN_CASES)}
+    res["serve"] = serve_full_width(dev, card, KIMI, "phase 25 (b)",
+                                    layers=K2_SERVE_LAYERS)
+    res["exact"] = on_off_logits(dev, card, KIMI, "phase 25 (c)", 25,
+                                 num_experts=K2_EXACT_EXPERTS)
+    res["launches"] = res["serve"]["launches"]
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 25: {res['phase_s']:.1f} s; launches {res['launches']}")
     return res
 
 

@@ -165,6 +165,9 @@ D128_ATTN_CASES = [
     ("prefill_bucket", 1, 1024, 8192, (0,), None),
     ("decode", 5, 1, 8192, (0, 1, 4095, 6000, 8191), None),
 ]
+#: kimi-k2's attention heads, in ``D128_HEADS``' form: Hq 64, Hkv 8 (GQA
+#: group 8), D 112 (causal, no window); its cases are ``D128_ATTN_CASES``
+K2_HEADS = (64, 8, 112, 112 ** -0.5, None)
 
 #: the repo's flash-attention tolerances (tests/test_kernels.py)
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),

@@ -8,7 +8,9 @@ tests (``tests/test_torch_treealg.py``, ``tests/test_torch_graphalg.py``,
 ``tests/test_torch_dist_recovery.py``), its routings on a three-axis
 mesh (``tests/test_torch_routing_parity.py``), the reference's
 examples (``tests/test_torch_examples_*.py``), and the head-dim-128
-decoders' logits and serving engine (``tests/test_torch_d128_models.py``).
+decoders' logits and serving engine (``tests/test_torch_d128_models.py``,
+and kimi-k2's attention and routing geometry in
+``tests/test_torch_kimi_width.py``).
 
 Each of these calls compiles large simshard programs, and many such
 compiles in one pytest worker have crashed XLA's CPU compiler in a later
@@ -751,8 +753,10 @@ def dp_compression_example(dim, rows, lr, steps):
     return {"exact": run(False), "compressed": run(True)}
 
 
-def d128_logits(arch, seed, toks, cache_len, steps, prefix=None):
-    """``arch``'s SMOKE model from ``M.init(PRNGKey(seed))``: its parameters,
+def d128_logits(arch, seed, toks, cache_len, steps, prefix=None,
+                overrides=None):
+    """``arch``'s SMOKE model (with the config fields ``overrides``) from
+    ``M.init(PRNGKey(seed))``: its parameters,
     the forward logits of ``toks`` (B, L), and the logits of a prefill of
     their first half into a cache of ``cache_len`` followed by ``steps``
     decode steps fed the next tokens, with the cache after them; with
@@ -761,7 +765,7 @@ def d128_logits(arch, seed, toks, cache_len, steps, prefix=None):
     import jax
     from repro import configs
     from repro.models import model as M
-    cfg = configs.get_config(arch, smoke=True)
+    cfg = configs.get_config(arch, smoke=True).with_(**(overrides or {}))
     params = M.init(jax.random.PRNGKey(seed), cfg)
     b, seq = toks.shape
     half = seq // 2
@@ -789,9 +793,11 @@ def d128_logits(arch, seed, toks, cache_len, steps, prefix=None):
     return out
 
 
-def d128_engine(arch, prompts, kw, biases=None, vocab=None, pad_rows=None):
+def d128_engine(arch, prompts, kw, biases=None, vocab=None, pad_rows=None,
+                overrides=None):
     """The reference's ``ServingEngine`` (``ServeConfig(**kw)``, its Pallas
-    attention in interpret mode) on ``arch``'s SMOKE model from
+    attention in interpret mode) on ``arch``'s SMOKE model (with the config
+    fields ``overrides``) from
     ``M.init(PRNGKey(0))`` with the q/k/v ``biases`` put in, the vocabulary
     cut to ``vocab`` and the head's rows past it set to ``pad_rows``,
     serving ``prompts``: the parameters and every request's tokens."""
@@ -800,7 +806,8 @@ def d128_engine(arch, prompts, kw, biases=None, vocab=None, pad_rows=None):
     from repro import configs
     from repro.models import model as M
     from repro.serve.engine import Request, ServeConfig, ServingEngine
-    cfg = configs.get_config(arch, smoke=True).with_(use_kernels=True)
+    cfg = configs.get_config(arch, smoke=True).with_(use_kernels=True,
+                                                     **(overrides or {}))
     if vocab is not None:
         cfg = cfg.with_(vocab_size=vocab)
     params = M.init(jax.random.PRNGKey(0), cfg)

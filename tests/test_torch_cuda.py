@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from _torch_kernel_inputs import (ATTN_CASES, ATTN_TOL, CROSS_ATTN_CASES,
-                                  D128_HEADS, GEMMA2_ATTN_CASES, GEMMA2_HEADS,
+                                  D128_ATTN_CASES, D128_HEADS,
+                                  GEMMA2_ATTN_CASES, GEMMA2_HEADS, K2_HEADS,
                                   PACK_HOPS, SSD_CASES, SSD_RAGGED, SSD_TOL, attn_inputs,
                                   bucket_hop, chains, chase_edge_case,
                                   float_dist, ssd_inputs, ssd_training_inputs)
@@ -492,6 +493,41 @@ def test_flash_attention_cuda_d128_heads(cuda, arch, kind):
             out.float(), fa_ref.attention_split_ref(
                 q, k, v, part_len=fa_ops.decode_part_len(lk, splits),
                 **kw).float(), **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.torch_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", D128_ATTN_CASES,
+                         ids=[c[0] for c in D128_ATTN_CASES])
+def test_flash_attention_cuda_k2_heads(cuda, case, dtype):
+    """kimi-k2's heads (Hq 64 over Hkv 8: GQA group 8, D 112, scale
+    112^-0.5) at its serving shapes over an 8192-key slot: the causal
+    prefill at 4096 x 4096, a 1024-token bucket and the decode of 5 slots
+    at offsets 0, 1, 4095, 6000 and 8191, against the plain version (a
+    bf16 decode also against its plain split-and-merge); one launch a
+    call."""
+    name, b, lq, lk, offs, window = case
+    hq, hkv, d, scale, cap = K2_HEADS
+    q, k, v = (t.to(cuda) for t in attn_inputs(b, hq, hkv, lq, lk, d,
+                                                seed=lq, dtype=dtype))
+    off = offs[0] if b == 1 else torch.tensor(offs, dtype=torch.int32,
+                                                device=cuda)
+    kw = dict(q_offset=off, window=window, softcap=cap, scale=scale)
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(
+        out.float(), fa_ref.attention_ref(q, k, v, **kw).float(),
+        **ATTN_TOL[dtype])
+    if name == "decode" and dtype == torch.bfloat16:
+        part = fa_ops.decode_part_len(lk, fa_ops.decode_splits(
+            b, hkv, hq // hkv, lk,
+            torch.cuda.get_device_properties(cuda).multi_processor_count))
+        torch.testing.assert_close(
+            out.float(), fa_ref.attention_split_ref(
+                q, k, v, part_len=part, **kw).float(), **ATTN_TOL[dtype])
 
 
 #: hymba-1.5b's attention: Hq, Hkv (a GQA group of 5), D, window

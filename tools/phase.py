@@ -36,7 +36,10 @@ attention kernels, runs phase ``N`` and exits non-zero on any failure:
   ``chip_smoke.CONFIG_N``, 2^22), (c) at n / 4, (d) at n / 8;
 - 24: the head-dim-128 decoders: ``flash_attention`` at their heads,
   qwen2.5-14b, phi4-mini-3.8b and pixtral-12b served at full width,
-  pixtral's patch-embedding prefill and decode, float32 exactness.
+  pixtral's patch-embedding prefill and decode, float32 exactness;
+- 25: kimi-k2 at full width: ``flash_attention`` at its heads (GQA group
+  8, D 112), one layer of its 384-expert top-8 MoE served, float32
+  exactness with its experts cut to 64.
 """
 from __future__ import annotations
 
@@ -127,6 +130,7 @@ def main() -> None:
         23: lambda dev, card: chip_smoke.configs_phase(
             dev, card, size(chip_smoke.CONFIG_N)),
         24: chip_smoke.d128_phase,
+        25: chip_smoke.kimi_phase,
     }
     if len(sys.argv) < 2 or int(sys.argv[1]) not in phases:
         chip_smoke.fail(f"usage: tools/phase.py N [n], N one of "

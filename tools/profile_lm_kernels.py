@@ -34,7 +34,9 @@ inside), and for attention the rate in TFLOP/s over the unmasked pairs
   with ``enable_gqa`` (upper-left ``is_causal`` for a prefill at offset 0,
   a boolean mask of each slot's keys for a decode), held to the kernel's
   tolerance against the plain version, its CUDA-event ms beside the
-  kernel's (:func:`d128_library`).
+  kernel's (:func:`d128_library`);
+- the same at kimi-k2's heads (``K2_HEADS``: Hq 64, Hkv 8, D 112,
+  ``chip_smoke.py`` phase 25 (a)'s shapes).
 """
 from __future__ import annotations
 
@@ -213,16 +215,17 @@ def sdpa_yardstick(q, k, v, *, q_offset, window, softcap, scale):
         q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
-def d128_library(dev, torch) -> None:
+def d128_library(dev, torch, heads: dict | None = None) -> None:
     """SDPA beside the kernel at every ``D128_ATTN_CASES`` case of every
-    ``D128_HEADS`` layout in bf16 and f32, each held to ``ATTN_TOL``
-    against the plain version."""
+    layout of ``heads`` ({arch: (Hq, Hkv, D, scale, soft-cap)};
+    ``D128_HEADS`` unless given) in bf16 and f32, each held to
+    ``ATTN_TOL`` against the plain version."""
     from _torch_kernel_inputs import ATTN_TOL, D128_ATTN_CASES, D128_HEADS
     sys.path.insert(0, str(ROOT))
     from chip_smoke import time_ms
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    for arch, (hq, hkv, d, scale, cap) in D128_HEADS.items():
+    for arch, (hq, hkv, d, scale, cap) in (heads or D128_HEADS).items():
         for name, b, lq, lk, offs, window in D128_ATTN_CASES:
             for dt in (torch.bfloat16, torch.float32):
                 g = torch.Generator(device=dev).manual_seed(22)
@@ -263,7 +266,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("profile_lm_kernels: needs a CUDA device")
     sys.path.insert(0, str(ROOT / "tests"))
-    from _torch_kernel_inputs import ssd_inputs
+    from _torch_kernel_inputs import K2_HEADS, ssd_inputs
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
@@ -315,6 +318,7 @@ def main() -> None:
 
     gemma2_library(dev, torch)
     d128_library(dev, torch)
+    d128_library(dev, torch, {"kimi-k2-1t-a32b": K2_HEADS})
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@
 Run from the root of the repository, after or beside ``chip_smoke.py``:
 
     python3 tools/profile_serve.py [--arch tinyllama-1.1b] [--ticks 16] \
-        [--prefill 1024] [--max-seq N]
+        [--prefill 1024] [--max-seq N] [--layers N]
 
 It builds the ``ServingEngine`` of ``chip_smoke.py`` phase 9 (full width,
 bfloat16, random weights from seed 0, 8 slots of 2048 positions or twice
@@ -12,8 +12,10 @@ the local window where that is longer, the ``flash_attention`` kernel on;
 ``--arch mamba2-130m`` or ``hymba-1.5b`` for phase 17's models, ``--arch
 granite-moe-1b-a400m`` for phase 18's, ``--arch gemma2-2b`` for phase
 22's, over 8192 positions; ``--max-seq 8192`` with ``--arch qwen2.5-14b``,
-``phi4-mini-3.8b`` or ``pixtral-12b`` for phase 24's slots), fills every
-slot with a 512-token prompt, and profiles with torch.profiler:
+``phi4-mini-3.8b`` or ``pixtral-12b`` for phase 24's slots; ``--arch
+kimi-k2-1t-a32b --layers 1 --max-seq 8192`` for phase 25's model, cut to
+the depth that fits the card), fills every slot with a 512-token prompt,
+and profiles with torch.profiler:
 
 - one prefill of a ``--prefill``-token bucket (``ServingEngine._prefill``,
   as an admission of a prompt of that length);
@@ -96,6 +98,8 @@ def main() -> None:
     ap.add_argument("--max-seq", type=int, default=None,
                     help="positions a slot (default: 2048, or twice the "
                          "local window where that is longer)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers of the model (default: the config's)")
     args = ap.parse_args()
 
     import torch
@@ -110,6 +114,8 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     cfg = configs.get_config(args.arch).with_(use_kernels=True)
+    if args.layers:
+        cfg = cfg.with_(num_layers=args.layers)
     params = M.init(cfg, torch.Generator(dev).manual_seed(0), dev)
     # a slot long enough that a windowed layer's window binds
     max_seq = args.max_seq or max(2048, 2 * (cfg.local_window or 0))
